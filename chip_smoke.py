@@ -1,0 +1,638 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) end to end on one GPU.
+
+Run from the root of a checkout, with no arguments:
+
+    python3 chip_smoke.py
+
+It needs one CUDA card and the CUDA toolkit (``nvcc``), builds every kernel
+of the main path from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
+source, all at once), and exits non-zero — printing no result — when there
+is no card, when a kernel fails to build or launch or disagrees with its
+plain PyTorch version, or when any phase fails.  Phases:
+
+1. build the kernels; print their build times, ptxas reports, and the
+   card's name and power limit;
+2. hold each kernel against its plain version on the card, at the shapes
+   the main path gives it (``gather_score`` in both modes at B=1024, C=50,
+   d=128, k=16384; ``refine_merge`` at B=1024, C=136, κ=50, d=128,
+   N=1,048,576), and time kernel, plain version and a PyTorch yardstick.
+   The inputs are states a run reaches (consistent cluster sums with empty
+   and one-row clusters; a build round's member table with phantom twins
+   and old lists that share ids with the candidates).  Scores are held per
+   element against the size of the terms that cancel in them, and planted
+   faults in the plain version must fail that limit;
+3. parity on the card at the SIFT_SMALL shape (n=65,536, d=128, k=1,024,
+   κ=32, ξ=64, τ=8): ``gk_means`` through the kernels and with
+   ``force="ref"`` from the same generator seeds — distortion within 1%,
+   graph recall@κ within 0.02;
+4. the main path at SIFT1M's published shape (n=1,000,000, d=128,
+   k=10,000 -> 16,384, κ=50, ξ=64, τ=10, 20 iterations, batch 1024) on
+   ``sift_like`` data: stage seconds, distortion history, recall@κ on
+   1,000 sampled rows against brute force, peak memory, host syncs (counted
+   with ``torch.cuda.set_sync_debug_mode``) and each kernel's launches —
+   every count is zeroed just before this run and read just after; the
+   graph's recall must lie within 0.02 of the same build's (same draws)
+   through the plain versions, on the same rows; then,
+   outside the counted run, torch.profiler traces of one engine epoch and
+   a two-round graph build at that shape (device-busy time, idle share,
+   top kernels);
+5. one JSON line of the kernels, the card's ``nvidia-smi`` line, and last
+   ``{"ok": true, "device": {...}}``.
+
+It imports nothing of JAX or of the JAX package ``repro``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+import warnings
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+
+# published peaks of one H100 SXM (NVIDIA data sheet) for the bounds
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+
+SIFT_SMALL = dict(n=65_536, d=128, k=1_024, kappa=32, xi=64, tau=8)
+SIFT1M = dict(n=1_000_000, d=128, k=10_000, kappa=50, xi=64, tau=10)
+ITERS = 20
+BATCH = 1024
+COMPONENTS = 256        # mixture components of the synthetic data
+# gather_score vs plain: |got - want| <= SCORE_RTOL * ref.score_scale, per
+# element.  A d-term f32 dot rounds by at most d*2^-24 (7.6e-6 at d=128) of
+# ||x||*||D_row||, a term of the scale; typical errors are far smaller.
+SCORE_RTOL = 1e-5
+EMPTY, SINGLE = 8, 4    # empty and one-row clusters of the check's state
+RECALL_TOL = 0.02       # kernels vs plain build, recall@κ on the same rows
+SEED = 0
+DEV = "cuda"
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, sets, reps=40):
+    """Mean ms per call over ``reps`` calls cycling through ``sets``."""
+    import torch
+    for s in sets[:2]:
+        fn(*s)
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for i in range(reps):
+        fn(*sets[i % len(sets)])
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def kernel_device_us(fn, sets, name, reps=20):
+    """Mean device time (us) of the kernel ``name`` per launch, from a
+    torch.profiler trace of ``reps`` calls; None when the trace shows none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            fn(*sets[i % len(sets)])
+        torch.cuda.synchronize()
+    ts = [ev.time_range.end - ev.time_range.start for ev in prof.events()
+          if ev.device_type == torch.autograd.DeviceType.CUDA
+          and name in ev.name]
+    return sum(ts) / len(ts) if ts else None
+
+
+def bound_ms(nbytes, flops):
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+# --------------------------------------------------------------- phase 2
+
+def score_errors(got, want, scale):
+    """(inf pattern equal, max |got - want| / (SCORE_RTOL * scale), max
+    |got - want|) over the finite entries of ``want``."""
+    import torch
+    fin = torch.isfinite(want)
+    same_inf = torch.equal(torch.isfinite(got), fin) and torch.equal(
+        got[~fin], want[~fin])
+    diff = (got - want).abs()[fin]
+    return (same_inf, float((diff / (SCORE_RTOL * scale[fin])).max()),
+            float(diff.max()))
+
+
+def planted_faults(x, u, cand, D, cnt, want, scale, mode, k):
+    """Share of entries over the limit for the plain version with a planted
+    fault (the wrong D row; for bkm also the ``||x||²`` term dropped).  A
+    limit that lets a fault through cannot catch it in the kernel either."""
+    import torch
+    from repro_torch.kernels import ref
+    faults = {"wrong_row": ref.gather_score(x, u, (cand + 1) % k, D, cnt,
+                                            mode=mode)}
+    if mode == "bkm":
+        rows = torch.cat([u[:, None], cand], 1).long()
+        faults["xsq_dropped"] = ref.scores_from_dots(
+            ref.gather_dots(x, rows, D), cnt[rows], (D * D).sum(-1)[rows],
+            torch.zeros_like(x[:, 0]), mode)
+    out = {}
+    for name, bad in faults.items():
+        both = torch.isfinite(want) & torch.isfinite(bad)
+        r = (bad - want).abs()[both] / (SCORE_RTOL * scale[both])
+        out[name] = dict(frac_over=float((r > 1).float().mean()),
+                         median_ratio=float(r.median()))
+    return out
+
+
+def score_state(X, k, g):
+    """A state the engine can reach: a random assignment in which clusters
+    0..EMPTY-1 are empty and the next SINGLE clusters hold one row each (rows
+    0..SINGLE-1); D and cnt follow from it."""
+    import torch
+    from repro_torch.core.objective import cluster_stats
+    assign = torch.randint(EMPTY + SINGLE, k, (X.shape[0],), generator=g,
+                           device=DEV, dtype=torch.int32)
+    assign[:SINGLE] = torch.arange(EMPTY, EMPTY + SINGLE, device=DEV,
+                                   dtype=torch.int32)
+    D, cnt = cluster_stats(X, assign, k)
+    return assign, D, cnt
+
+
+def check_gather_score(X, k):
+    """gather_score vs its plain version at B=1024, C=50, d=128, k."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    B, C = BATCH, SIFT1M["kappa"]
+    n, d = X.shape
+    g = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    assign, D, cnt = score_state(X, k, g)
+    sets = []
+    for i in range(8):
+        idx = torch.randint(0, n, (B,), generator=g, device=DEV)
+        if i == 0:
+            idx[:SINGLE] = torch.arange(SINGLE, device=DEV)  # singleton u
+        cand = assign[torch.randint(0, n, (B, C), generator=g, device=DEV)]
+        # a stale candidate list may name a cluster that has since emptied
+        cand[::25, -1] = torch.randint(0, EMPTY, (cand[::25].shape[0],),
+                                       generator=g, device=DEV,
+                                       dtype=torch.int32)
+        sets.append((X[idx].contiguous(), assign[idx].contiguous(),
+                     cand.contiguous(), D, cnt))
+    out = {}
+    for mode in ("bkm", "lloyd"):
+        x, u, cand, _, _ = sets[0]
+        got = ops.gather_score(x, u, cand, D, cnt, mode=mode)
+        want = ops.gather_score(x, u, cand, D, cnt, mode=mode, force="ref")
+        scale = ref.score_scale(x, u, cand, D, cnt, mode=mode)
+        torch.cuda.synchronize()
+        same_inf, ratio, err = score_errors(got, want, scale)
+        faults = planted_faults(x, u, cand, D, cnt, want, scale, mode, k)
+        caught = all(f["frac_over"] > 0.5 for f in faults.values())
+        ok = same_inf and ratio <= 1.0 and caught
+        ms = time_ms(lambda *a: ops.gather_score(*a, mode=mode), sets)
+        plain = time_ms(lambda *a: ops.gather_score(*a, mode=mode,
+                                                    force="ref"), sets)
+        out[mode] = dict(max_abs_err=err, max_err_over_limit=ratio,
+                         faults=faults, ok=ok, ms=ms, plain_ms=plain)
+        log(f"gather_score[{mode}] B={B} C={C} d={d} k={k}: max_abs_err "
+            f"{err:.3e}, max err/limit {ratio:.3e} (limit {SCORE_RTOL:g}*"
+            f"score_scale per element), inf pattern "
+            f"{'equal' if same_inf else 'DIFFERS'}; planted faults in the "
+            f"plain version {json.dumps(faults)} "
+            f"{'OK' if ok else 'FAIL'}; kernel {ms:.4f} ms per wrapper call,"
+            f" plain {plain:.4f} ms")
+    # device time per launch, traced after all the event timings above (a
+    # trace's teardown must not land inside a timed window)
+    for mode in ("bkm", "lloyd"):
+        out[mode]["device_us"] = kernel_device_us(
+            lambda *a: ops.gather_score(*a, mode=mode), sets,
+            "gather_score_kernel")
+        log(f"gather_score[{mode}] kernel device time per launch: "
+            f"{out[mode]['device_us']} us (torch.profiler)")
+    # yardstick: torch.bmm over pre-gathered rows computes the dots alone
+    # (not the gather, not the scores) — no single PyTorch call computes
+    # the whole function
+    gsets = []
+    for x, u, cand, _, _ in sets:
+        rows = torch.cat([u[:, None], cand], 1).long()
+        gsets.append((D[rows], x[:, :, None]))
+    bmm = time_ms(torch.bmm, gsets)
+    log(f"gather_score yardstick: torch.bmm over pre-gathered (B, C+1, d) "
+        f"rows, dots only: {bmm:.4f} ms")
+    x, u, cand, _, _ = sets[0]
+    nbytes = (x.numel() * 4 + u.numel() * 4 + cand.numel() * 4 + D.numel() * 4
+              + cnt.numel() * 4 + B * C * 4)
+    flops = 2 * B * (C + 1) * d + 2 * k * d
+    bms, by = bound_ms(nbytes, flops)
+    gathered = B * (C + 1) * d * 4
+    log(f"gather_score bound: {nbytes / 1e6:.2f} MB unique bytes -> "
+        f"{bms * 1e3:.2f} us at 3.35 TB/s ({by}); gathered row traffic "
+        f"B*(C+1)*d*4 = {gathered / 1e6:.2f} MB -> "
+        f"{gathered / HBM_BYTES_PER_S * 1e6:.2f} us if all of it came from "
+        "HBM (D fits in the 50 MB L2, so repeats are L2 hits)")
+    return dict(out, bound_ms=bms, bound_by=by, dots_bmm_ms=bmm)
+
+
+def refine_inputs(X_pad, real_id, n, ysq, g, B, kappa, xi=64, spill=8,
+                  twins=16):
+    """One chunk of a build round's refine, made the way a round makes it.
+
+    B consecutive rows, each in its own cluster of xi members (itself,
+    ``twins`` phantom rows together with the real rows they copy, so a
+    candidate id comes twice, and random real rows).  A row's candidates
+    are its cluster's member-table column (2*xi slots, xi filled) plus
+    ``spill`` shared spill rows, self and phantoms of self masked; its old
+    list, from an earlier round, already holds κ/2 ids of its co-members.
+    """
+    import torch
+    from repro_torch.kernels import ref
+    N = X_pad.shape[0]
+    own = torch.randint(0, N - B, (1,), generator=g, device=DEV) + \
+        torch.arange(B, device=DEV)
+    ph = torch.randint(n, N, (B, twins), generator=g, device=DEV)
+    other = torch.randint(0, n, (B, xi - 1 - 2 * twins), generator=g,
+                          device=DEV)
+    mine = torch.cat([own[:, None], ph, real_id[ph], other], 1)  # (B, xi)
+    spill_rows = torch.randint(0, N, (spill,), generator=g, device=DEV)
+    cand_rows = torch.cat([mine, torch.full_like(mine, -1),
+                           spill_rows[None].expand(B, -1)], 1)
+    own_id = real_id[own][:, None]
+    cand = torch.where(cand_rows >= 0, real_id[cand_rows.clamp(min=0)], -1)
+    cand = torch.where(cand == own_id, -1, cand).to(torch.int32)
+    x = X_pad[own].contiguous()
+    # the earlier round's list: the plain merge of κ/2 co-members and κ/2
+    # random rows into an empty list
+    cols = torch.randperm(xi, generator=g, device=DEV)[:kappa // 2]
+    prev_rows = torch.cat([mine[:, cols], torch.randint(
+        0, N, (B, kappa - kappa // 2), generator=g, device=DEV)], 1)
+    prev = real_id[prev_rows]
+    prev = torch.where(prev == own_id, -1, prev).to(torch.int32)
+    old_ids, old_d = ref.refine_merge(
+        x, prev_rows.to(torch.int32).contiguous(), prev.contiguous(),
+        torch.full((B, kappa), -1, dtype=torch.int32, device=DEV),
+        torch.full((B, kappa), float("inf"), device=DEV), X_pad, ysq=ysq)
+    return (x, cand_rows.clamp(min=0).to(torch.int32).contiguous(),
+            cand.contiguous(), old_ids, old_d, X_pad)
+
+
+def refine_ids_ok(gi, wi, wd, tol):
+    """Ids equal except at near-ties: every row lists distinct ids, and an id
+    that differs from the plain version's stands in the plain version's row
+    at a distance within ``tol`` of the one at its own position."""
+    import torch
+    s = gi.sort(1).values
+    distinct = not bool(((s[:, 1:] == s[:, :-1]) & (s[:, 1:] >= 0)).any())
+    same_id = gi[:, :, None] == wi[:, None, :]
+    near = (wd[:, None, :] - wd[:, :, None]).abs() <= tol[:, :, None]
+    explained = (same_id & near).any(-1)
+    return distinct and bool(((gi == wi) | explained).all())
+
+
+def check_refine_merge(X_pad, real_id, n):
+    """refine_merge vs its plain version at B=1024, C=136, κ=50, N."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.refine_merge import source_norms
+    B, C, kappa = BATCH, 136, SIFT1M["kappa"]
+    N, d = X_pad.shape
+    g = torch.Generator(device=DEV).manual_seed(SEED + 2)
+    ysq = source_norms(X_pad)
+    sets = [refine_inputs(X_pad, real_id, n, ysq, g, B, kappa)
+            for _ in range(8)]
+    x, rows, cand, oi, od, _ = sets[0]
+    gi, gd = ops.refine_merge(x, rows, cand, oi, od, X_pad, ysq=ysq)
+    wi, wd = ops.refine_merge(x, rows, cand, oi, od, X_pad, ysq=ysq,
+                              force="ref")
+    torch.cuda.synchronize()
+    scale = float((x * x).sum(1).max()) + float(ysq.max())
+    tol = 1e-5 * wd.abs() + 1e-6 * scale
+    fin = torch.isfinite(wd)
+    same_fin = torch.equal(torch.isfinite(gd), fin)
+    err = float((gd[fin] - wd[fin]).abs().max())
+    tol_ok = bool(((gd[fin] - wd[fin]).abs() <= tol[fin]).all())
+    ids_ok = refine_ids_ok(gi, wi, wd, tol)
+    frac = float((gi != wi).float().mean())
+    # how often the merge had to retire more than one copy of the id it took
+    ent = torch.cat([oi, cand], 1)
+    copies = (wi[:, :, None] == ent[:, None, :]).sum(-1)
+    multi = int(((copies > 1) & (wi >= 0)).sum())
+    ok = same_fin and tol_ok and ids_ok and multi > 0
+    ms = time_ms(lambda *a: ops.refine_merge(*a, ysq=ysq), sets)
+    plain = time_ms(lambda *a: ops.refine_merge(*a, ysq=ysq, force="ref"),
+                    sets, reps=8)
+    dev_us = kernel_device_us(lambda *a: ops.refine_merge(*a, ysq=ysq), sets,
+                              "refine_merge_kernel")
+    log(f"refine_merge B={B} C={C} kappa={kappa} d={d} N={N}: max_abs_err "
+        f"{err:.3e} (tol rtol 1e-5 + 1e-6*{scale:.3e}); ids differing "
+        f"{frac:.2e}, all at near-ties and distinct per row: {ids_ok}; "
+        f"selected ids retired with more than one copy: {multi} of "
+        f"{wi.numel()} {'OK' if ok else 'FAIL'}; "
+        f"kernel {ms:.4f} ms per wrapper call ({dev_us} us device time per "
+        f"launch), plain {plain:.4f} ms")
+    gsets = [(s[5][s[1].long()], s[0][:, :, None]) for s in sets]
+    bmm = time_ms(torch.bmm, gsets)
+    log(f"refine_merge yardstick: torch.bmm over pre-gathered (B, C, d) rows,"
+        f" dots only: {bmm:.4f} ms")
+    valid = cand >= 0
+    uniq = int(torch.unique(rows[valid]).numel())
+    pairs = int(valid.sum())
+    nbytes = (x.numel() * 4 + rows.numel() * 4 + cand.numel() * 4
+              + oi.numel() * 4 + od.numel() * 4 + uniq * (d * 4 + 4)
+              + 2 * B * kappa * 4)
+    flops = 2 * pairs * d + 3 * pairs + kappa * (kappa + C) * B
+    bms, by = bound_ms(nbytes, flops)
+    log(f"refine_merge bound: {nbytes / 1e6:.2f} MB ({uniq} unique valid "
+        f"rows of Xsrc) -> {bms * 1e3:.2f} us at 3.35 TB/s ({by}); "
+        f"B*C*d*4 = {B * C * d * 4 / 1e6:.2f} MB -> "
+        f"{B * C * d * 4 / HBM_BYTES_PER_S * 1e6:.2f} us")
+    return dict(max_abs_err=err, ok=ok, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, dots_bmm_ms=bmm, id_mismatch_frac=frac,
+                device_us=dev_us)
+
+
+# --------------------------------------------------------------- phase 3/4
+
+def sampled_truth(X, kappa, count, seed):
+    """(rows, their exact κ nearest neighbours) for ``count`` sampled rows."""
+    import torch
+    from repro_torch.core.recall import brute_force_knn
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    rows = torch.randperm(X.shape[0], generator=g, device=DEV)[:count]
+    return rows, brute_force_knn(X, kappa, chunk=256, rows=rows)
+
+
+def recall_on(ids, truth, kappa):
+    from repro_torch.core.recall import recall_at
+    rows, gt = truth
+    return float(recall_at(ids[rows], gt, kappa))
+
+
+def parity_small():
+    import torch
+    from repro_torch.core.gkmeans import gk_means
+    from repro_torch.data import sift_like
+    c = SIFT_SMALL
+    X = sift_like(c["n"], c["d"], COMPONENTS,
+                  generator=torch.Generator(device=DEV).manual_seed(SEED))
+    truth = sampled_truth(X, c["kappa"], 2000, SEED + 3)
+    res = {}
+    for force in (None, "ref"):
+        t0 = time.perf_counter()
+        r = gk_means(X, c["k"], kappa=c["kappa"], xi=c["xi"], tau=c["tau"],
+                     iters=ITERS, batch_size=BATCH, force=force,
+                     generator=torch.Generator().manual_seed(SEED),
+                     device=DEV)
+        rec = recall_on(r.graph.ids, truth, c["kappa"])
+        res[force or "kernel"] = (r.distortion, rec)
+        log(f"SIFT_SMALL {'kernels' if force is None else 'force=ref'}: "
+            f"distortion {r.distortion:.6f}, recall@{c['kappa']} {rec:.4f}, "
+            f"epochs {len(r.history)}, {time.perf_counter() - t0:.1f} s")
+    (dk, rk), (dr, rr) = res["kernel"], res["ref"]
+    ok = abs(dk - dr) <= 0.01 * dr and abs(rk - rr) <= RECALL_TOL
+    log(f"SIFT_SMALL parity: distortion rel diff {abs(dk - dr) / dr:.2e} "
+        f"(limit 1e-2), recall diff {abs(rk - rr):.4f} (limit {RECALL_TOL}) "
+        f"{'OK' if ok else 'FAIL'}")
+    return ok
+
+
+def main_path(X):
+    import torch
+    from repro_torch.core.gkmeans import gk_means
+    from repro_torch.core.knn_graph import build_knn_graph
+    from repro_torch.kernels import _build
+    c = SIFT1M
+    log(f"main path: gk_means n={c['n']} d={c['d']} k={c['k']} "
+        f"kappa={c['kappa']} xi={c['xi']} tau={c['tau']} iters={ITERS} "
+        f"batch={BATCH}; cuts: none")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            r = gk_means(X, c["k"], kappa=c["kappa"], xi=c["xi"],
+                         tau=c["tau"], iters=ITERS, batch_size=BATCH,
+                         generator=torch.Generator().manual_seed(SEED),
+                         device=DEV)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    launches = dict(_build.launch_counts)
+    syncs = sum("synchronizing CUDA operation" in str(w.message)
+                for w in caught)
+    peak = torch.cuda.max_memory_allocated()
+    truth = sampled_truth(X, c["kappa"], 1000, SEED + 4)
+    rec = recall_on(r.graph.ids, truth, c["kappa"])
+    log(f"stage seconds: {json.dumps(r.seconds)}")
+    log(f"distortion history: {r.history}")
+    log(f"moves per epoch: {r.moves}")
+    log(f"guided moves per round: {r.graph_diag.guided_moves.tolist()}; "
+        f"member-table overflow per round: {r.graph_diag.overflow.tolist()}")
+    log(f"final distortion {r.distortion:.6f}; recall@{c['kappa']} on 1000 "
+        f"sampled rows vs brute force {rec:.4f}")
+    # the same build (same draws) through the plain versions, outside the
+    # counted run: the recall the kernels must match on the same rows
+    t0 = time.perf_counter()
+    g_ref = build_knn_graph(X, c["kappa"], xi=c["xi"], tau=c["tau"],
+                            generator=torch.Generator().manual_seed(SEED),
+                            force="ref", device=DEV)
+    rec_ref = recall_on(g_ref.ids, truth, c["kappa"])
+    log(f"plain-version graph build (force='ref'): recall@{c['kappa']} "
+        f"{rec_ref:.4f} on the same rows, diff {abs(rec - rec_ref):.4f} "
+        f"(limit {RECALL_TOL}), {time.perf_counter() - t0:.1f} s")
+    log(f"peak device memory {peak / 2**30:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
+    log(f"host syncs: {syncs} seen by sync-debug mode, {r.host_syncs} "
+        f"documented (epochs {len(r.history)} + 1)")
+    log(f"kernel launches on the main path: {json.dumps(launches)}")
+    n, k2 = c["n"], r.k
+    checks = {
+        "launches": all(v > 0 for v in launches.values()),
+        "syncs": syncs == r.host_syncs,
+        "assign": tuple(r.assign.shape) == (n,) and bool(
+            ((r.assign >= 0) & (r.assign < k2)).all()),
+        "centroids": tuple(r.centroids.shape) == (k2, c["d"]) and bool(
+            torch.isfinite(r.centroids).all()),
+        "distortion": r.distortion == r.distortion and
+        r.history[-1] <= r.history[0],
+        "recall": abs(rec - rec_ref) <= RECALL_TOL,
+    }
+    log(f"main-path checks: {json.dumps(checks)}")
+    return all(checks.values()), launches, r
+
+
+def _short(name: str) -> str:
+    for key in ("gather_score_kernel", "refine_merge_kernel"):
+        if key in name:
+            return key
+    return name if len(name) <= 70 else name[:67] + "..."
+
+
+def profile_window(label, fn):
+    """Trace ``fn`` with torch.profiler: wall time, device-busy time (union
+    of the card's activity intervals), idle share and the top kernels.
+    Informational: prints "not measured" where the trace shows no device
+    activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, by_name = [], {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        a, b = ev.time_range.start, ev.time_range.end
+        spans.append((a, b))
+        n = _short(ev.name)
+        t, c = by_name.get(n, (0.0, 0))
+        by_name[n] = (t + (b - a), c + 1)
+    if not spans:
+        log(f"profile[{label}]: wall {wall:.3f} s; device time not measured "
+            "(the trace holds no device activity)")
+        return
+    spans.sort()
+    busy, cur_a, cur_b = 0.0, spans[0][0], spans[0][1]
+    for a, b in spans[1:]:
+        if a > cur_b:
+            busy += cur_b - cur_a
+            cur_a, cur_b = a, b
+        else:
+            cur_b = max(cur_b, b)
+    busy = (busy + cur_b - cur_a) / 1e6
+    log(f"profile[{label}]: wall {wall:.3f} s (profiled), device busy "
+        f"{busy:.3f} s, idle share {1 - busy / wall:.3f}, "
+        f"{len(spans)} device activities")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    for n, (t, c) in top:
+        log(f"  {t / 1e3:10.2f} ms  {c:7d}x  {n}")
+
+
+def profile_main_path(X, r):
+    """One engine epoch and a two-round graph build at the main path's
+    shape, traced (after the counted run; its launches are not counted)."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.core.knn_graph import build_knn_graph
+    from repro_torch.core.permute import draw_words
+    c = SIFT1M
+    st = engine.init_state(X, r.assign, r.k)
+    src = engine.graph_source(r.graph.ids)
+    words = draw_words(torch.Generator().manual_seed(SEED + 6))
+    cfg = engine.EngineConfig(batch_size=BATCH)
+    profile_window("engine epoch, SIFT1M shape",
+                   lambda: engine.epoch(X, st, src, words, cfg))
+    profile_window("graph build tau=2, SIFT1M shape", lambda: build_knn_graph(
+        X, c["kappa"], xi=c["xi"], tau=2, device=DEV,
+        generator=torch.Generator().manual_seed(SEED + 7)))
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(HERE / "src"))
+    from repro_torch import resolve_device
+    from repro_torch.data import sift_like
+    from repro_torch.kernels import _build
+    resolve_device("cuda")                 # full-f32 matmuls (no TF32)
+    t_all = time.perf_counter()
+    log(f"python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+    smi = nvidia_smi_line()
+    log(f"card: {smi}")
+
+    t0 = time.perf_counter()
+    secs = _build.build()
+    log(f"kernel build: {time.perf_counter() - t0:.2f} s wall, per source "
+        f"{json.dumps({k: round(v, 2) for k, v in secs.items()})}")
+    for name in _build.KERNELS:
+        rep = _build.build_log(name) or ""
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+    failures = []
+    c = SIFT1M
+    X = sift_like(c["n"], c["d"], COMPONENTS,
+                  generator=torch.Generator(device=DEV).manual_seed(SEED))
+    k2 = 1 << (c["k"] - 1).bit_length()
+    n_pad = 1 << (-(-c["n"] // c["xi"]) - 1).bit_length()
+    n_pad *= c["xi"]
+    g = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    real_id = torch.cat([torch.arange(c["n"], device=DEV), torch.randint(
+        0, c["n"], (n_pad - c["n"],), generator=g, device=DEV)])
+    X_pad = X[real_id]                     # phantom rows copy real ones
+    gs = check_gather_score(X, k2)
+    rm = check_refine_merge(X_pad, real_id, c["n"])
+    del X_pad, real_id
+    if not (gs["bkm"]["ok"] and gs["lloyd"]["ok"]):
+        failures.append("gather_score vs plain")
+    if not rm["ok"]:
+        failures.append("refine_merge vs plain")
+    if not parity_small():
+        failures.append("SIFT_SMALL parity")
+    ok_main, launches, res = main_path(X)
+    if not ok_main:
+        failures.append("main path")
+    profile_main_path(X, res)
+
+    kernels = [
+        dict(name="gather_score", route="cuda",
+             source="src/repro_torch/kernels/csrc/gather_score.cu",
+             replaces="src/repro/kernels/gather_score.py:64",
+             launches=launches["gather_score"],
+             max_abs_err=gs["bkm"]["max_abs_err"], ms=gs["bkm"]["ms"],
+             plain_ms=gs["bkm"]["plain_ms"], bound_ms=gs["bound_ms"],
+             bound_by=gs["bound_by"], library_ms=None,
+             dots_bmm_ms=gs["dots_bmm_ms"],
+             device_us=gs["bkm"]["device_us"],
+             lloyd_device_us=gs["lloyd"]["device_us"],
+             lloyd_max_abs_err=gs["lloyd"]["max_abs_err"],
+             lloyd_ms=gs["lloyd"]["ms"], lloyd_plain_ms=gs["lloyd"]["plain_ms"],
+             lloyd_max_err_over_limit=gs["lloyd"]["max_err_over_limit"],
+             max_err_over_limit=gs["bkm"]["max_err_over_limit"],
+             check=f"vs plain: |err| <= {SCORE_RTOL:g}*score_scale per "
+                   "element, inf pattern exact; planted faults fail"),
+        dict(name="refine_merge", route="cuda",
+             source="src/repro_torch/kernels/csrc/refine_merge.cu",
+             replaces="src/repro/kernels/refine_merge.py:65",
+             launches=launches["refine_merge"], max_abs_err=rm["max_abs_err"],
+             ms=rm["ms"], plain_ms=rm["plain_ms"], bound_ms=rm["bound_ms"],
+             bound_by=rm["bound_by"], library_ms=None,
+             dots_bmm_ms=rm["dots_bmm_ms"], device_us=rm["device_us"],
+             id_mismatch_frac=rm["id_mismatch_frac"],
+             check="vs plain: distances rtol 1e-5 + 1e-6*max norm², ids "
+                   "distinct per row and equal but at near-ties"),
+    ]
+    log(f"total {time.perf_counter() - t_all:.1f} s; failures: {failures}")
+    if failures:
+        return 1
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

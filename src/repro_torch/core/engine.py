@@ -1,0 +1,211 @@
+"""Clustering engine, single device: candidate -> score -> move.
+
+Counterpart of ``repro.core.engine`` (its single-device branch).  Per
+mini-batch: the candidate clusters are those of the samples' κ graph
+neighbours (looked up in the epoch-start assignment), ``gather_score``
+scores them (ΔI of paper Eqn. 3, or the lloyd distance), the best move is
+accepted, a leaver guard keeps every cluster non-empty, and the running
+statistics (D, cnt) take the moves as two ``index_add_`` scatters.
+
+Differences from the reference, all stated:
+
+* State is updated in place (``BKMState`` tensors are mutated by ``epoch``
+  and ``run``); the reference's arrays are immutable and donated.
+* The D/cnt scatter is atomic on CUDA, so D depends on the order of the
+  adds in its last ulp; the counts and the leaver guard's counts are
+  integer-valued and exact.  Scores therefore match the reference to float32
+  rounding, and a run can diverge from it once one borderline move flips.
+* Host syncs: ``run`` reads each epoch's move count (with its distortion)
+  once, for the ``min_move_frac`` early stop — ONE host sync per epoch —
+  where the reference's in-trace ``while_loop`` syncs once per run.  An
+  epoch itself syncs nothing: the visit order is made on the CPU and copied
+  without blocking (``core.permute``).
+
+Out of this slice (raise ``NotImplementedError``): ``shards > 1``,
+``payload_bf16``, ``valid`` masks, the dense and probe candidate sources
+and ``telemetry``.  ``sparse_updates`` is accepted: on one device it is the
+same plain scatter (``repro/core/engine.py:620-622``).
+"""
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional, Sequence
+
+import torch
+
+from repro_torch.core import permute
+from repro_torch.core.objective import cluster_stats
+from repro_torch.kernels import ops as kops
+
+
+class BKMState(NamedTuple):
+    assign: torch.Tensor  # (n,) int32
+    D: torch.Tensor       # (k, d) float32 composite vectors
+    cnt: torch.Tensor     # (k,) float32
+    moves: torch.Tensor   # () int32 — moves accepted in the last epoch
+
+
+class CandidateSource(NamedTuple):
+    """Which clusters each sample may move to; only kind='graph' here."""
+
+    kind: str
+    G: Optional[torch.Tensor] = None   # (n, κ) neighbour ids, int64
+
+
+class EngineConfig(NamedTuple):
+    batch_size: int = 1024
+    mode: str = "bkm"           # 'bkm' (Eqn. 3) | 'lloyd' (§5.2 variant)
+    eps: float = 0.0            # minimum ΔI gain to accept a move
+    iters: int = 1              # epochs for `run`
+    min_move_frac: float = 0.0  # `run` stops when epoch moves <= frac * n
+    sparse_updates: bool = False  # one device: the same plain scatter
+    payload_bf16: bool = False
+    shards: int = 1
+    force: Optional[str] = None  # kernel dispatch override (None | 'ref')
+    telemetry: bool = False
+
+
+def init_state(X: torch.Tensor, assign: torch.Tensor, k: int) -> BKMState:
+    stats = cluster_stats(X, assign, k)
+    return BKMState(assign.to(torch.int32).clone(), stats.D, stats.cnt,
+                    torch.zeros((), dtype=torch.int32, device=X.device))
+
+
+def graph_source(G: torch.Tensor) -> CandidateSource:
+    """Candidates = clusters of the graph neighbours (-1 ids clamp to 0)."""
+    return CandidateSource("graph", torch.clamp(G, min=0).long())
+
+
+def dense_source() -> CandidateSource:
+    raise NotImplementedError("dense candidate source: not ported yet")
+
+
+def probe_source(p: int) -> CandidateSource:
+    raise NotImplementedError("probe candidate source: not ported yet")
+
+
+def _check_cfg(cfg: EngineConfig, source: CandidateSource) -> None:
+    if cfg.shards != 1:
+        raise NotImplementedError("shards > 1: not ported yet")
+    if cfg.payload_bf16:
+        raise NotImplementedError("payload_bf16: not ported yet")
+    if cfg.telemetry:
+        raise NotImplementedError("telemetry: not ported yet")
+    if source.kind != "graph":
+        raise NotImplementedError(f"{source.kind} source: not ported yet")
+    if cfg.mode not in ("bkm", "lloyd"):
+        raise ValueError(f"mode must be 'bkm' or 'lloyd', got {cfg.mode!r}")
+
+
+def _score_gathered(xb, u, cand, D, cnt, mode, eps, force):
+    """Best move per sample among gathered candidates -> (moved, want_v)."""
+    is_self = cand == u[:, None]
+    if mode == "bkm":
+        score = kops.gather_score(xb, u, cand, D, cnt, mode="bkm",
+                                  force=force)
+        score = torch.where(is_self, float("-inf"), score)
+        best = score.argmax(dim=1)
+        moved = score.gather(1, best[:, None])[:, 0] > eps
+    else:
+        d2 = kops.gather_score(xb, u, cand, D, cnt, mode="lloyd",
+                               force=force)
+        best = d2.argmin(dim=1)
+        moved = ~is_self.gather(1, best[:, None])[:, 0]
+    want_v = cand.gather(1, best[:, None])[:, 0]
+    return moved, want_v
+
+
+def _move_step(X, st: BKMState, idx, lookup, source, cfg: EngineConfig):
+    """One batched candidate -> score -> move step, in place on ``st``."""
+    k = st.cnt.shape[0]
+    xb = X[idx]
+    u = st.assign[idx]
+    cand = lookup[source.G[idx]]                          # (B, κ) int32
+    moved, want_v = _score_gathered(xb, u, cand, st.D, st.cnt, cfg.mode,
+                                    cfg.eps, cfg.force)
+    # leaver guard: block all leavers of a cluster whose leaver count would
+    # reach its population (conservative, rare)
+    ul = u.long()
+    leav = torch.zeros((k,), dtype=torch.float32, device=X.device)
+    leav.index_add_(0, ul, moved.float())
+    moved = moved & ((st.cnt - leav) >= 1.0)[ul]
+    v = torch.where(moved, want_v, u)
+    w = moved.float()
+    gx = xb * w[:, None]
+    both = torch.cat([ul, v.long()])
+    st.D.index_add_(0, both, torch.cat([-gx, gx]))
+    st.cnt.index_add_(0, both, torch.cat([-w, w]))
+    st.assign[idx] = v
+    st.moves.add_(moved.sum(dtype=torch.int32))
+
+
+def epoch(X: torch.Tensor, state: BKMState, source: CandidateSource,
+          words: permute.Words, cfg: EngineConfig = EngineConfig()
+          ) -> BKMState:
+    """One pass over a shuffled view of the data in mini-batches.
+
+    Visits ``n // bs * bs`` samples in the Feistel order of ``words`` (the
+    epoch's 4 subkey words).  Candidates come from the epoch-start
+    assignment.  Updates ``state`` in place and returns it with ``moves``
+    set to this epoch's accepted moves.  No host sync.
+    """
+    _check_cfg(cfg, source)
+    n = X.shape[0]
+    bs = min(cfg.batch_size, n)
+    nb = max(n // bs, 1)
+    order = permute.epoch_order(words, n, X.device)
+    lookup = state.assign.clone()         # epoch-start snapshot
+    state.moves.zero_()
+    for i in range(nb):
+        _move_step(X, state, order[i * bs:(i + 1) * bs], lookup, source, cfg)
+    return state
+
+
+def stats_distortion(xsq_total, D, cnt, n) -> torch.Tensor:
+    """Distortion in O(k·d) from the running statistics (paper Eqn. 2/4)."""
+    dsq = (D * D).sum(-1)
+    obj = torch.where(cnt > 0, dsq / torch.clamp(cnt, min=1.0),
+                      torch.zeros_like(dsq)).sum()
+    return (xsq_total - obj) / n
+
+
+class RunResult(NamedTuple):
+    state: BKMState
+    history: List[float]    # per-epoch distortion, epochs run
+    moves: List[int]        # per-epoch accepted moves
+    epochs: int
+    final: torch.Tensor     # () f32 distortion after the last epoch
+    host_syncs: int         # host syncs this run performed
+
+
+def run(X: torch.Tensor, state: BKMState, source: CandidateSource,
+        cfg: EngineConfig, *, epoch_words: Optional[Sequence] = None,
+        generator: Optional[torch.Generator] = None) -> RunResult:
+    """Multi-epoch run with the ``min_move_frac`` early stop.
+
+    ``epoch_words`` (iters, 4) gives each epoch's subkey words (the
+    reference's ``jax.random.bits(fold_in(key, t), (4,))``); otherwise they
+    are drawn from ``generator`` (a CPU ``torch.Generator``).  Host syncs:
+    exactly one per epoch run (its move count and distortion are read
+    together for the early stop); the final distortion stays on device.
+    """
+    _check_cfg(cfg, source)
+    if epoch_words is None and generator is None:
+        raise ValueError("pass epoch_words or a generator")
+    n = X.shape[0]
+    xsq_total = (X.float() ** 2).sum()
+    thresh = cfg.min_move_frac * n
+    hist, mhist = [], []
+    syncs = 0
+    for t in range(cfg.iters):
+        words = (epoch_words[t] if epoch_words is not None
+                 else permute.draw_words(generator))
+        epoch(X, state, source, words, cfg)
+        dist = stats_distortion(xsq_total, state.D, state.cnt, n)
+        m, dv = torch.stack([state.moves.double(), dist.double()]).tolist()
+        syncs += 1
+        hist.append(dv)
+        mhist.append(int(m))
+        if m <= thresh:
+            break
+    final = stats_distortion(xsq_total, state.D, state.cnt, n)
+    return RunResult(state, hist, mhist, len(hist), final, syncs)

@@ -1,0 +1,83 @@
+"""O(n) sort-free epoch shuffle (``repro.core.permute``), bit-exact.
+
+A Feistel-network permutation of ``[0, M)``, ``M = 2**ceil(log2 n)``, with
+cycle-walking back into ``[0, n)`` — the same construction, rounds and
+murmur3 fmix32 round function as the reference.  Given the same four 32-bit
+subkey words (the reference draws them as ``jax.random.bits(key, (4,))``)
+the order is identical.  torch has little uint32 arithmetic, so the words
+are carried in int64 and masked to 32 bits after every step; products are
+split into 16-bit halves so no intermediate leaves int64's range.
+
+The order is computed on the CPU and copied to the target device through
+pinned memory without blocking: the cycle walk's loop test reads its own
+CPU tensor, so an epoch order costs the device no host sync.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Union
+
+import torch
+
+from repro_torch._device import to_device
+
+ROUNDS = 4
+MASK32 = 0xFFFFFFFF
+_M1 = 0x85EBCA6B
+_M2 = 0xC2B2AE35
+
+Words = Union[torch.Tensor, Sequence[int]]
+
+
+def mul32(x: torch.Tensor, m: int) -> torch.Tensor:
+    """(x * m) mod 2**32 for int64 x in [0, 2**32) and a 32-bit constant m."""
+    lo = x * (m & 0xFFFF)
+    hi = ((x * (m >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & MASK32
+
+
+def mix32(h: torch.Tensor) -> torch.Tensor:
+    """murmur3 fmix32 on int64-held uint32 values."""
+    h = h ^ (h >> 16)
+    h = mul32(h, _M1)
+    h = h ^ (h >> 13)
+    h = mul32(h, _M2)
+    return h ^ (h >> 16)
+
+
+def draw_words(generator: torch.Generator, count: int = ROUNDS) -> torch.Tensor:
+    """``count`` uniform uint32 words as int64 (CPU), from ``generator``."""
+    return torch.randint(0, 1 << 32, (count,), generator=generator,
+                         dtype=torch.int64, device="cpu")
+
+
+def epoch_order(words: Words, n: int,
+                device: Optional[torch.device] = None) -> torch.Tensor:
+    """A pseudorandom permutation of ``arange(n)`` as (n,) int64 on device.
+
+    ``words`` are the ROUNDS subkey words (uint32 values).
+    """
+    device = torch.device("cpu") if device is None else torch.device(device)
+    if n <= 1:
+        return torch.zeros((n,), dtype=torch.int64, device=device)
+    sub = [int(w) & MASK32 for w in
+           (words.tolist() if isinstance(words, torch.Tensor) else words)]
+    if len(sub) != ROUNDS:
+        raise ValueError(f"need {ROUNDS} subkey words, got {len(sub)}")
+    bits = max(1, (n - 1).bit_length())
+
+    def prp(x: torch.Tensor) -> torch.Tensor:
+        lo_b, hi_b = bits // 2, bits - bits // 2
+        for r in range(ROUNDS):
+            lo = x & ((1 << lo_b) - 1)
+            hi = x >> lo_b
+            f = mix32(lo ^ sub[r]) & ((1 << hi_b) - 1)
+            x = (lo << hi_b) | (hi ^ f)
+            lo_b, hi_b = hi_b, lo_b
+        return x
+
+    x = prp(torch.arange(n, dtype=torch.int64))
+    out = x >= n
+    while bool(out.any()):                 # CPU tensor: no device sync
+        x = torch.where(out, prp(x), x)
+        out = x >= n
+    return to_device(x, device)

@@ -1,0 +1,136 @@
+"""Build the hand-written CUDA kernels with ``nvcc`` and load them by ctypes.
+
+Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas -v -o build/<name>-<hash>.so csrc/<name>.cu
+
+into ``kernels/build/`` (git-ignored), at first use.  The file name carries a
+hash of the sources and flags, so an edited kernel rebuilds and an unchanged
+one loads at once; ``ptxas``'s register and spill report is kept beside it
+as ``<name>-<hash>.log``.  ``build()`` starts one ``nvcc`` per source, all at
+once, and waits for them.  Nothing here runs at import: the CPU tests import
+every module and this machine may have no ``nvcc``.
+
+``launch_counts`` holds one integer per kernel; each wrapper adds one where
+it launches its kernel, and nowhere else.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+import torch
+
+KERNELS = ("gather_score", "refine_merge")
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def nvcc_path() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH, else the default
+    toolkit location; raises when none exists."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        cands.append(Path(found))
+    cands.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in cands:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256()
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    h.update((CSRC / "common.cuh").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
+    """Compile the named kernels that are not built yet, all in parallel.
+
+    Returns {name: seconds} for the ones compiled (0.0 for cached ones).
+    Raises with nvcc's output if any compile fails.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    secs: Dict[str, float] = {}
+    for name in names:
+        out = _target(name)
+        if out.is_file():
+            secs[name] = 0.0
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        log = open(out.with_suffix(".log"), "w")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=log,
+                                        stderr=subprocess.STDOUT),
+                       out, tmp, log, time.perf_counter())
+    failed = []
+    for name, (proc, out, tmp, log, t0) in procs.items():
+        rc = proc.wait()
+        log.close()
+        secs[name] = time.perf_counter() - t0
+        if rc == 0:
+            os.replace(tmp, out)        # atomic: readers never see a partial
+        else:
+            failed.append(f"{name} (rc {rc}):\n"
+                          f"{out.with_suffix('.log').read_text()}")
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return secs
+
+
+def build_log(name: str) -> Optional[str]:
+    """ptxas's report of the built kernel (registers, spills), if built here."""
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.is_file() else None
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library of kernel ``name``, built on first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        build([name])
+        lib = _libs[name] = ctypes.CDLL(str(_target(name)))
+    return lib
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
+                 dev: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    the CUDA device ``dev`` (the kernels take nothing else)."""
+    if not t.is_cuda or t.device != dev:
+        raise ValueError(f"{name}: expected a tensor on {dev}, got {t.device}"
+                         " (CPU tensors dispatch to kernels.ref via ops)")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")

@@ -1,0 +1,127 @@
+"""Guards of the port: what it imports, where it runs, and how it dispatches."""
+from __future__ import annotations
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import engine as teng
+from repro_torch.core import graph_build as tgb
+from repro_torch.core.gkmeans import gk_means
+from repro_torch.kernels import gather_score as kgs
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import refine_merge as krm
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: one intra-op thread runs them as fast and
+    leaves the cores to the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_imports_neither_jax_nor_reference(path):
+    assert path.is_file(), path
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+def test_gk_means_without_device_raises_when_no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    X = np.zeros((64, 4), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gk_means(X, 4, kappa=4, xi=8, tau=1, iters=1)
+    with pytest.raises(RuntimeError, match="CUDA is unavailable"):
+        gk_means(X, 4, kappa=4, xi=8, tau=1, iters=1, device="cuda")
+
+
+def _gs_args():
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(8, 16, generator=g)
+    u = torch.randint(0, 12, (8,), generator=g, dtype=torch.int32)
+    cand = torch.randint(0, 12, (8, 4), generator=g, dtype=torch.int32)
+    D = torch.randn(12, 16, generator=g)
+    cnt = torch.ones(12)
+    return x, u, cand, D, cnt
+
+
+def test_kernel_wrappers_reject_cpu_tensors():
+    """The wrappers never run the plain version: a CPU tensor is refused
+    before any build or launch, and the launch count stays put."""
+    x, u, cand, D, cnt = _gs_args()
+    before = dict(kgs._build.launch_counts)
+    with pytest.raises(ValueError, match="CPU tensors dispatch"):
+        kgs.gather_score(x, u, cand, D, cnt)
+    rows = cand.clone()
+    with pytest.raises(ValueError, match="CPU tensors dispatch"):
+        krm.refine_merge(x, rows, rows, rows, torch.zeros(8, 4), D)
+    assert dict(kgs._build.launch_counts) == before
+
+
+def test_ops_dispatches_cpu_tensors_to_ref():
+    args = _gs_args()
+    for mode in ("bkm", "lloyd"):
+        assert torch.equal(tops.gather_score(*args, mode=mode),
+                           tref.gather_score(*args, mode=mode))
+        assert torch.equal(tops.gather_score(*args, mode=mode, force="ref"),
+                           tref.gather_score(*args, mode=mode))
+    with pytest.raises(ValueError, match="force"):
+        tops.gather_score(*args, force="interpret")
+
+
+def test_out_of_slice_options_raise():
+    X = torch.zeros((64, 4))
+    st = teng.init_state(X, torch.zeros(64, dtype=torch.int32), 2)
+    src = teng.graph_source(torch.zeros((64, 2), dtype=torch.int32))
+    for cfg in (teng.EngineConfig(shards=2), teng.EngineConfig(telemetry=True),
+                teng.EngineConfig(payload_bf16=True)):
+        with pytest.raises(NotImplementedError):
+            teng.epoch(X, st, src, [1, 2, 3, 4], cfg)
+    with pytest.raises(NotImplementedError):
+        teng.dense_source()
+    with pytest.raises(NotImplementedError):
+        tgb.build_graph(X, tgb.GraphBuildConfig(source="descent"),
+                        generator=torch.Generator())
+    with pytest.raises(NotImplementedError):
+        gk_means(X, 2, telemetry=True, device="cpu")
+
+
+def test_sparse_updates_is_the_plain_scatter_on_one_device():
+    g = torch.Generator().manual_seed(3)
+    X = torch.randn(256, 8, generator=g)
+    a = torch.randint(0, 16, (256,), generator=g, dtype=torch.int32)
+    G = torch.randint(0, 256, (256, 6), generator=g, dtype=torch.int32)
+    outs = []
+    for sparse in (False, True):
+        st = teng.init_state(X, a, 16)
+        teng.epoch(X, st, teng.graph_source(G), [5, 6, 7, 8],
+                   teng.EngineConfig(batch_size=64, sparse_updates=sparse))
+        outs.append(st)
+    assert torch.equal(outs[0].assign, outs[1].assign)
+    assert torch.equal(outs[0].cnt, outs[1].cnt)
+    assert int(outs[0].moves) > 0
