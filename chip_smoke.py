@@ -14,18 +14,27 @@ plain PyTorch version, or when any phase fails.  Phases:
 1. build the kernels; print their build times, ptxas reports, and the
    card's name and power limit;
 2. hold each kernel against its plain version on the card, at the shapes
-   the main path gives it (``gather_score`` in both modes at B=1024, C=50,
-   d=128, k=16384; ``refine_merge`` at B=1024, C=136, κ=50, d=128,
-   N=1,048,576), and time kernel, plain version and a PyTorch yardstick.
-   The inputs are states a run reaches (consistent cluster sums with empty
-   and one-row clusters; a build round's member table with phantom twins
-   and old lists that share ids with the candidates).  Scores are held per
-   element against the size of the terms that cancel in them, and planted
-   faults in the plain version must fail that limit;
+   the main paths give it, and time kernel, plain version and a PyTorch
+   yardstick:
+   - ``gather_score`` in both modes at B=1024, C=50, d=128, k=16384, and
+     ``refine_merge`` at B=1024, C=136, κ=50, d=128, N=1,048,576, on states
+     a run reaches (consistent cluster sums with empty and one-row clusters;
+     a build round's member table with phantom twins and old lists that
+     share ids with the candidates); scores are held per element against
+     the size of the terms that cancel in them;
+   - ``probe_centroids`` at nq=10,000, k=16,384, d=128, p in {1, 16, 64},
+     and ``assign_centroids`` at n=10,000 (an ``add`` batch) and
+     n=1,000,000 (a Lloyd assignment), with k rows of the data as
+     centroids: distances per slot within 1e-5·(||x||² + ||c||²), ids equal
+     except at near-ties (counted);
+   planted faults in the plain versions must fail these limits;
 3. parity on the card at the SIFT_SMALL shape (n=65,536, d=128, k=1,024,
    κ=32, ξ=64, τ=8): ``gk_means`` through the kernels and with
    ``force="ref"`` from the same generator seeds — distortion within 1%,
-   graph recall@κ within 0.02;
+   graph recall@κ within 0.02; then the IVF index over that clustering:
+   ``add`` of 4,096 rows through the kernels and the plain versions (same
+   layout), ``exhaustive_search`` against brute force, ``search`` at
+   nprobe 1, 8, 64 against the plain versions;
 4. the main path at SIFT1M's published shape (n=1,000,000, d=128,
    k=10,000 -> 16,384, κ=50, ξ=64, τ=10, 20 iterations, batch 1024) on
    ``sift_like`` data: stage seconds, distortion history, recall@κ on
@@ -37,7 +46,18 @@ plain PyTorch version, or when any phase fails.  Phases:
    outside the counted run, torch.profiler traces of one engine epoch and
    a two-round graph build at that shape (device-busy time, idle share,
    top kernels);
-5. one JSON line of the kernels, the card's ``nvidia-smi`` line, and last
+5. the serving path on phase 4's data and clustering (counts zeroed just
+   before, read just after): ``build_ivf`` (block_rows=128), ``add`` of
+   10,000 fresh rows, and ``serve_index.sweep`` of nq=10,000 queries at
+   nprobe 1..64, topk=10, batch 64, 3 rounds — recall@10 against brute
+   force over all 1,010,000 live rows, scan share, p50/p90/p99 ms per
+   batch, QPS, host syncs inside the timed ``search`` calls (must be 0);
+   recall must not fall with nprobe and must lie within 0.002 of the plain
+   versions' on the same queries; then ``ivf_scan`` against its plain
+   version on that index (nprobe 16 and 64 at topk=10, nprobe 1 at
+   topk=100) with its planted faults, and a torch.profiler trace of an
+   nprobe=16 batch loop;
+6. one JSON line of the kernels, the card's ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package ``repro``.
@@ -100,20 +120,47 @@ def time_ms(fn, sets, reps=40):
     return e0.elapsed_time(e1) / reps
 
 
-def kernel_device_us(fn, sets, name, reps=20):
-    """Mean device time (us) of the kernel ``name`` per launch, from a
-    torch.profiler trace of ``reps`` calls; None when the trace shows none."""
+def _device_events(fn):
+    """Trace ``fn`` with torch.profiler (CPU and CUDA activity): (the
+    trace's device events, wall seconds of fn)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return [ev for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA], wall
+
+
+def kernel_device_us(fn, sets, name, reps=20, tries=4):
+    """Mean device time (us) of the kernel ``name`` per launch, from a
+    torch.profiler trace of ``reps`` calls.
+
+    On the H100 machines, from a minute or so into the process, a trace now
+    and then loses the records of its first launches, all of them in a
+    short trace (framing the window with spin kernels did not prevent it:
+    the frame was lost with them).  Such a trace is taken again, up to
+    ``tries`` times; the mean is over the first trace that kept all
+    ``reps`` launches, else over every launch kept, and None when none was.
+    """
+    def run():
         for i in range(reps):
             fn(*sets[i % len(sets)])
-        torch.cuda.synchronize()
-    ts = [ev.time_range.end - ev.time_range.start for ev in prof.events()
-          if ev.device_type == torch.autograd.DeviceType.CUDA
-          and name in ev.name]
-    return sum(ts) / len(ts) if ts else None
+    kept = []
+    for t in range(1, tries + 1):
+        events, _ = _device_events(run)
+        ts = [ev.time_range.end - ev.time_range.start for ev in events
+              if name in ev.name]
+        log(f"kernel_device_us({name}): trace {t} kept {len(ts)} of {reps} "
+            "launches")
+        if len(ts) == reps:
+            return sum(ts) / reps
+        kept += ts
+    return sum(kept) / len(kept) if kept else None
 
 
 def bound_ms(nbytes, flops):
@@ -388,7 +435,7 @@ def parity_small():
     X = sift_like(c["n"], c["d"], COMPONENTS,
                   generator=torch.Generator(device=DEV).manual_seed(SEED))
     truth = sampled_truth(X, c["kappa"], 2000, SEED + 3)
-    res = {}
+    res, runs = {}, {}
     for force in (None, "ref"):
         t0 = time.perf_counter()
         r = gk_means(X, c["k"], kappa=c["kappa"], xi=c["xi"], tau=c["tau"],
@@ -397,6 +444,7 @@ def parity_small():
                      device=DEV)
         rec = recall_on(r.graph.ids, truth, c["kappa"])
         res[force or "kernel"] = (r.distortion, rec)
+        runs[force or "kernel"] = r
         log(f"SIFT_SMALL {'kernels' if force is None else 'force=ref'}: "
             f"distortion {r.distortion:.6f}, recall@{c['kappa']} {rec:.4f}, "
             f"epochs {len(r.history)}, {time.perf_counter() - t0:.1f} s")
@@ -405,7 +453,7 @@ def parity_small():
     log(f"SIFT_SMALL parity: distortion rel diff {abs(dk - dr) / dr:.2e} "
         f"(limit 1e-2), recall diff {abs(rk - rr):.4f} (limit {RECALL_TOL}) "
         f"{'OK' if ok else 'FAIL'}")
-    return ok
+    return ok, X, runs["kernel"]
 
 
 def main_path(X):
@@ -460,7 +508,8 @@ def main_path(X):
     log(f"kernel launches on the main path: {json.dumps(launches)}")
     n, k2 = c["n"], r.k
     checks = {
-        "launches": all(v > 0 for v in launches.values()),
+        "launches": launches["gather_score"] > 0
+        and launches["refine_merge"] > 0,
         "syncs": syncs == r.host_syncs,
         "assign": tuple(r.assign.shape) == (n,) and bool(
             ((r.assign >= 0) & (r.assign < k2)).all()),
@@ -473,9 +522,437 @@ def main_path(X):
     log(f"main-path checks: {json.dumps(checks)}")
     return all(checks.values()), launches, r
 
+# --------------------------------------------------------------- IVF phases
+
+# the serving path at SIFT1M's shape (repro.launch.serve_index's sweep)
+SERVE = dict(nq=10_000, topk=10, probes=(1, 2, 4, 8, 16, 32, 64), batch=64,
+             rounds=3, block_rows=128, add=10_000)
+RECALL_GAP = 0.002      # kernels vs plain, recall@10 at each nprobe
+DIST_RTOL = 1e-5        # |d2 - plain| <= DIST_RTOL*(||x||² + ||c||²) per slot
+FAULT_Q = 1_024         # queries of the planted-fault scans
+
+
+def sel_check(got, want, scale):
+    """A selection (ids, d2) held against the plain version's: the -1/+inf
+    pattern exact; per slot |d2 - plain| <= DIST_RTOL * scale (scale: the
+    size of the terms that cancel, ||x||² + ||c||² of the plain version's
+    pair); ids equal except where the two selected distances agree within
+    that limit (the plain version's own margin is below the tolerance)."""
+    import torch
+    gi, gd = got
+    wi, wd = want
+    lim = DIST_RTOL * scale
+    fin = torch.isfinite(wd)
+    pattern = torch.equal(torch.isfinite(gd), fin) and torch.equal(
+        gi[~fin], wi[~fin])
+    gap = torch.where(fin, (gd - wd).abs(), torch.zeros_like(wd))
+    within = fin & (gap <= lim)
+    diff = gi != wi
+    has = bool(fin.any())
+    return dict(
+        ok=pattern and bool((within == fin).all()) and not bool(
+            (diff & ~within).any()),
+        near_tie_slots=int((diff & within).sum()),
+        max_abs_err=float(gap[fin].max()) if has else 0.0,
+        max_err_over_limit=float((gap / lim)[fin].max()) if has else 0.0)
+
+
+def _csq_dropped(X, C, p):
+    """The plain probe with a planted fault: ``||c||²`` dropped."""
+    import torch
+    from repro_torch.kernels import ref
+    part = -2.0 * (X @ C.T)
+    cols = torch.arange(C.shape[0], dtype=torch.int32, device=DEV)
+    d, ids = ref.stable_topk(part, cols.expand(X.shape[0], -1), p)
+    return ids, torch.clamp(d + (X * X).sum(-1)[:, None], min=0.0)
+
+
+def check_centroid_kernels(X, k):
+    """probe_centroids at nq=10,000, k, d=128, p in {1, 16, 64} and
+    assign_centroids at n=10,000 and n=1,000,000 against their plain
+    versions; the centroids are k distinct rows of X."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve_index import make_queries
+    n, d = X.shape
+    nq = SERVE["nq"]
+    g = torch.Generator(device=DEV).manual_seed(SEED + 8)
+    C = X[torch.randperm(n, generator=g, device=DEV)[:k]].contiguous()
+    Q = make_queries(X, nq, SEED + 9)
+    csq = (C * C).sum(-1)
+    out = {"probe": {}, "assign": {}}
+    for p in (1, 16, 64):
+        got = ops.probe_centroids(Q, C, p)
+        want = ops.probe_centroids(Q, C, p, force="ref")
+        scale = (Q * Q).sum(-1)[:, None] + csq[want[0].long()]
+        chk = sel_check(got, want, scale)
+        fault = sel_check(_csq_dropped(Q, C, p), want, scale)
+        chk["ok"] = chk["ok"] and not fault["ok"]
+        chk["fault_csq_dropped_fails"] = not fault["ok"]
+        chk["ms"] = time_ms(lambda: ops.probe_centroids(Q, C, p), [()], 20)
+        chk["plain_ms"] = time_ms(
+            lambda: ops.probe_centroids(Q, C, p, force="ref"), [()], 4)
+        nbytes = 4 * (nq * d + k * d + 2 * nq * p)
+        chk["bound_ms"], chk["bound_by"] = bound_ms(nbytes, 2 * nq * k * d)
+        out["probe"][p] = chk
+    # the serving path's own launch: one batch of queries at p=16
+    b, pb = SERVE["batch"], 16
+    Qb = Q[:b].contiguous()
+    want = ops.probe_centroids(Qb, C, pb, force="ref")
+    chk = sel_check(ops.probe_centroids(Qb, C, pb), want,
+                    (Qb * Qb).sum(-1)[:, None] + csq[want[0].long()])
+    chk["ms"] = time_ms(lambda: ops.probe_centroids(Qb, C, pb), [()], 20)
+    chk["plain_ms"] = time_ms(
+        lambda: ops.probe_centroids(Qb, C, pb, force="ref"), [()], 20)
+    chk["mm_ms"] = time_ms(lambda: torch.matmul(Qb, C.T), [()], 20)
+    nbytes = 4 * (b * d + k * d + 2 * b * pb)
+    chk["bound_ms"], chk["bound_by"] = bound_ms(nbytes, 2 * b * k * d)
+    out["probe_batch"] = chk
+    assign_rows = {nq: Q, n: X}
+    for m, A in assign_rows.items():
+        ga, gd = ops.assign_centroids(A, C)
+        wa, wd = ops.assign_centroids(A, C, force="ref")
+        scale = (A * A).sum(-1) + csq[wa.long()]
+        chk = sel_check((ga[:, None], gd[:, None]), (wa[:, None], wd[:, None]),
+                        scale[:, None])
+        if m == nq:
+            fi, fd = _csq_dropped(A, C, 1)
+            fault = sel_check((fi, fd), (wa[:, None], wd[:, None]),
+                              scale[:, None])
+            chk["ok"] = chk["ok"] and not fault["ok"]
+            chk["fault_csq_dropped_fails"] = not fault["ok"]
+        reps = 20 if m == nq else 3
+        chk["ms"] = time_ms(lambda: ops.assign_centroids(A, C), [()], reps)
+        chk["plain_ms"] = time_ms(
+            lambda: ops.assign_centroids(A, C, force="ref"), [()], reps // 3)
+        nbytes = 4 * (m * d + k * d + 2 * m)
+        chk["bound_ms"], chk["bound_by"] = bound_ms(nbytes, 2 * m * k * d)
+        out["assign"][m] = chk
+    # device time per launch, traced after the event timings
+    out["probe"][16]["device_us"] = kernel_device_us(
+        lambda: ops.probe_centroids(Q, C, 16), [()], "centroid_kernel<true")
+    out["probe"][64]["device_us"] = kernel_device_us(
+        lambda: ops.probe_centroids(Q, C, 64), [()], "centroid_kernel<true")
+    out["probe_batch"]["device_us"] = kernel_device_us(
+        lambda: ops.probe_centroids(Qb, C, pb), [()], "centroid_kernel<true")
+    out["assign"][nq]["device_us"] = kernel_device_us(
+        lambda: ops.assign_centroids(Q, C), [()], "centroid_kernel<false")
+    out["assign"][n]["device_us"] = kernel_device_us(
+        lambda: ops.assign_centroids(X, C), [()], "centroid_kernel<false",
+        reps=3)
+    # yardstick: the (rows, k) product alone, no selection; at n=10^6 the
+    # (n, k) output is 65 GB, so one 131,072-row chunk is timed and scaled
+    mm = time_ms(lambda: torch.matmul(Q, C.T), [()], 10)
+    rows = 131_072
+    mm_1m = time_ms(lambda: torch.matmul(X[:rows], C.T), [()], 3) * n / rows
+    out["mm_ms"], out["mm_1m_ms"] = mm, mm_1m
+    for p, chk in out["probe"].items():
+        log(f"probe_centroids nq={nq} k={k} d={d} p={p}: {json.dumps(chk)}")
+    log(f"probe_centroids nq={b} (one served batch) k={k} d={d} p={pb}: "
+        f"{json.dumps(out['probe_batch'])}")
+    for m, chk in out["assign"].items():
+        log(f"assign_centroids n={m} k={k} d={d}: {json.dumps(chk)}")
+    log(f"centroid yardstick: torch.matmul(X, C.T) alone (no selection): "
+        f"{mm:.4f} ms at n={nq}; {mm_1m:.3f} ms at n={n} (one {rows}-row "
+        f"chunk timed, scaled by n/{rows})")
+    out["ok"] = out["probe_batch"]["ok"] and all(
+        c["ok"] for c in out["probe"].values()) and all(
+        c["ok"] for c in out["assign"].values())
+    return out
+
+
+def _vsq_dropped(Q, vecs, pids, tm, block_rows, topk):
+    """The plain scan with a planted fault: ``||v||²`` dropped."""
+    import torch
+    from repro_torch.kernels import ref
+    c, T = tm.shape
+    pos = (tm.long()[:, :, None] * block_rows
+           + torch.arange(block_rows, device=DEV)).reshape(c, -1)
+    cids = pids[pos]
+    part = torch.full(cids.shape, float("inf"), device=DEV)
+    qi, li = torch.nonzero(cids >= 0, as_tuple=True)
+    part[qi, li] = -2.0 * (vecs[pos[qi, li]] * Q[qi]).sum(-1)
+    d, ids = ref.stable_topk(part, cids, topk)
+    return ref.finalize_d2(ids, d, Q)
+
+
+def check_scan_kernel(index, Q, X_all):
+    """ivf_scan on the SIFT1M index against its plain version, on one tile
+    map per case (the plain probe's cells): nprobe 16 and 64 at topk=10,
+    and nprobe 1 at topk=100 (lists exhausted)."""
+    import torch
+    from repro_torch import index as ivf
+    from repro_torch.kernels import ops, ref
+    bl = index.block_rows
+    nq, d = Q.shape
+    xsq = (X_all * X_all).sum(-1)
+    live_per_tile = (index.ids.view(-1, bl) >= 0).sum(1)
+    n_tiles = index.n_rows // bl
+    out, traced = {}, []
+    for nprobe, topk in ((16, 10), (64, 10), (1, 100)):
+        cids, _ = ops.probe_centroids(Q, index.centroids, nprobe, force="ref")
+        tm = ivf.build_tile_map(cids, index.starts, index.caps,
+                                max_tiles=index.max_list_tiles,
+                                block_rows=bl, null_tile=index.null_tile)
+        args = (Q, index.vecs, index.ids, tm)
+        kw = dict(block_rows=bl, topk=topk)
+        got = ops.ivf_scan(*args, **kw)
+        want = ops.ivf_scan(*args, force="ref", **kw)
+        scale = (Q * Q).sum(-1)[:, None] + xsq[want[0].long().clamp(min=0)]
+        chk = sel_check(got, want, scale)
+        chk["exhausted_slots"] = int((want[0] < 0).sum())
+        sub = slice(0, FAULT_Q)
+        wsub = (want[0][sub], want[1][sub])
+        faults = {
+            "vsq_dropped": _vsq_dropped(Q[sub], index.vecs, index.ids,
+                                        tm[sub], bl, topk),
+            "tile_map_off_by_one": ref.ivf_scan(
+                Q[sub], index.vecs, index.ids,
+                torch.clamp(tm[sub] + 1, max=n_tiles - 1), **kw)}
+        for name, bad in faults.items():
+            chk[f"fault_{name}_fails"] = not sel_check(bad, wsub,
+                                                       scale[sub])["ok"]
+        chk["ok"] = chk["ok"] and all(chk[f"fault_{f}_fails"] for f in faults)
+        chk["ms"] = time_ms(lambda: ops.ivf_scan(*args, **kw), [()], 10)
+        chk["plain_ms"] = time_ms(
+            lambda: ops.ivf_scan(*args, force="ref", **kw), [()], 2)
+        traced.append((chk, args, kw))
+        R = int(live_per_tile[tm.long()].sum())        # live rows scanned
+        chk["rows_per_query"] = R / nq
+        chk["tile_slots"] = tm.shape[1]
+        nbytes = 4 * (nq * d + R * d + 2 * nq * topk)
+        chk["bound_ms"], chk["bound_by"] = bound_ms(nbytes, 2 * R * d)
+        if nprobe == 16:
+            # yardstick: torch.bmm over rows gathered beforehand (dots only,
+            # no selection) for FAULT_Q queries, padded to the longest
+            # query's live rows, scaled to nq
+            pos = (tm[sub].long()[:, :, None] * bl
+                   + torch.arange(bl, device=DEV)).reshape(FAULT_Q, -1)
+            live = index.ids[pos] >= 0
+            width = int(live.sum(1).max())
+            order = torch.argsort((~live).to(torch.int8), dim=1,
+                                  stable=True)[:, :width]
+            G = index.vecs[torch.gather(pos, 1, order)]
+            chk["bmm_ms"] = time_ms(torch.bmm, [(G, Q[sub, :, None])],
+                                    10) * nq / FAULT_Q
+            del G
+        out[(nprobe, topk)] = chk
+        log(f"ivf_scan nq={nq} nprobe={nprobe} topk={topk} T={tm.shape[1]} "
+            f"(max_list_tiles {index.max_list_tiles}): {json.dumps(chk)}")
+    # device time per launch, traced after all the event timings above
+    for chk, args, kw in traced:
+        chk["device_us"] = kernel_device_us(
+            lambda: ops.ivf_scan(*args, **kw), [()], "ivf_scan_kernel", 5)
+        log(f"ivf_scan topk={kw['topk']} T={args[3].shape[1]} kernel device "
+            f"time per launch: {chk['device_us']} us (torch.profiler)")
+    log("ivf_scan yardstick: torch.bmm over pre-gathered live rows (dots "
+        f"only), nprobe=16: {out[(16, 10)]['bmm_ms']:.4f} ms for {nq} "
+        f"queries (timed on {FAULT_Q}, scaled)")
+    out["ok"] = all(v["ok"] for v in out.values())
+    return out
+
+
+def brute_topk(Q, X, topk, chunk=64):
+    """Exact top-k of X for each query by ``sum((q - x)²)`` (independent of
+    the partial-distance form the index uses), ties to the lower row."""
+    import torch
+    from repro_torch.kernels import ref
+    cols = torch.arange(X.shape[0], dtype=torch.int32, device=DEV)
+    outs = []
+    for a in range(0, Q.shape[0], chunk):
+        q = Q[a:a + chunk]
+        d2 = ((q[:, None, :] - X[None]) ** 2).sum(-1)
+        d, i = ref.stable_topk(d2, cols.expand(q.shape[0], -1), topk)
+        outs.append((i, d))
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+
+LAYOUT = ("starts", "caps", "ids", "vecs")
+
+
+def host_add_layout(base, X_new, assign):
+    """The layout the reference's ``add`` loop (``repro/index/ivf.py``)
+    leaves for rows X_new assigned to ``assign``, computed on the host with
+    numpy, independently of the port's device code: each row in input
+    order takes the first hole of its list; if any row finds none, the live
+    rows (packed order) plus the overflowed ones are packed anew."""
+    import numpy as np
+    br = base.block_rows
+    starts, caps = base.starts.cpu().numpy(), base.caps.cpu().numpy()
+    ids, vecs = base.ids.cpu().numpy().copy(), base.vecs.cpu().numpy().copy()
+    a, xn = assign.cpu().numpy().astype(np.int64), X_new.cpu().numpy()
+    new_ids = ids.max() + 1 + np.arange(len(a), dtype=np.int32)
+    over = []
+    for i, c in enumerate(a):
+        holes = np.nonzero(ids[starts[c]:starts[c] + caps[c]] < 0)[0]
+        if len(holes):
+            ids[starts[c] + holes[0]], vecs[starts[c] + holes[0]] = (
+                new_ids[i], xn[i])
+        else:
+            over.append(i)
+    if not over:
+        return dict(starts=starts, caps=caps, ids=ids, vecs=vecs)
+    live = np.nonzero(ids[:len(ids) - br] >= 0)[0]
+    lists = np.searchsorted(starts + caps, live, side="right")
+    a_all = np.concatenate([lists, a[over]])
+    x_all = np.concatenate([vecs[live], xn[over]])
+    id_all = np.concatenate([ids[live], new_ids[over]])
+    counts = np.bincount(a_all, minlength=len(starts))
+    caps = (counts + br - 1) // br * br
+    starts = np.cumsum(caps) - caps
+    order = np.argsort(a_all, kind="stable")
+    rows = (starts[a_all[order]] + np.arange(len(order))
+            - (np.cumsum(counts) - counts)[a_all[order]])
+    ids = np.full(caps.sum() + br, -1, np.int32)
+    vecs = np.zeros((caps.sum() + br, xn.shape[1]), np.float32)
+    ids[rows], vecs[rows] = id_all[order], x_all[order]
+    return dict(starts=starts.astype(np.int32), caps=caps.astype(np.int32),
+                ids=ids, vecs=vecs)
+
+
+def ivf_parity_small(X, r):
+    """The IVF path through the kernels vs the plain versions at the
+    SIFT_SMALL shape, on phase 3's clustering."""
+    import numpy as np
+    import torch
+    from repro_torch import index as ivf
+    from repro_torch.data import sift_like
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve_index import make_queries
+    base = ivf.build_ivf(X, r, block_rows=128, device=DEV)
+    X_new = sift_like(4096, X.shape[1], COMPONENTS,
+                      generator=torch.Generator(device=DEV).manual_seed(
+                          SEED + 12))
+    ak, _ = ops.assign_centroids(X_new, base.centroids)
+    ar, _ = ops.assign_centroids(X_new, base.centroids, force="ref")
+    moved = int((ak != ar).sum())
+    built = {f: ivf.add(base, X_new, force=f) for f in (None, "ref")}
+    a, b = built[None], built["ref"]
+    same = all(torch.equal(getattr(a, f), getattr(b, f)) for f in LAYOUT)
+    # the layout through the kernels against the reference's loop given the
+    # kernel's own assignment: compared whatever near-ties decide
+    host = host_add_layout(base, X_new, ak)
+    host_same = all(np.array_equal(getattr(a, f).cpu().numpy(), host[f])
+                    for f in LAYOUT)
+    # a near-tie may send a row to another list; then the two device
+    # layouts differ, and only in the rows of those lists
+    layout_ok = host_same and (same or moved > 0)
+    if not same:
+        rows_differ = (int((a.ids != b.ids).sum())
+                       if a.ids.shape == b.ids.shape else "shapes differ")
+        log(f"add layouts through the kernels and the plain versions differ: "
+            f"{moved} rows assigned differently (lists "
+            f"{ak[ak != ar].tolist()[:8]} vs {ar[ak != ar].tolist()[:8]}), "
+            f"ids differ in {rows_differ} rows")
+    X_all = torch.cat([X, X_new])
+    xsq = (X_all * X_all).sum(-1)
+    Q = make_queries(X, 1000, SEED + 13)
+    qsq = (Q * Q).sum(-1)[:, None]
+    want = brute_topk(Q, X_all, 10)
+    ex = sel_check(ivf.exhaustive_search(a, Q, topk=10), want,
+                   qsq + xsq[want[0].long()])
+    res = {"layout_identical": same, "layout_equals_host_loop": host_same,
+           "add_overflowed": a.n_rows != base.n_rows,
+           "add_rows_assigned_differently": moved, "exhaustive_vs_brute": ex}
+    ok = layout_ok and ex["ok"]
+    for nprobe in (1, 8, 64):
+        got = ivf.search(a, Q, topk=10, nprobe=nprobe)
+        w = ivf.search(a, Q, topk=10, nprobe=nprobe, force="ref")
+        chk = sel_check(got, w, qsq + xsq[w[0].long().clamp(min=0)])
+        res[f"search_nprobe{nprobe}"] = chk
+        ok = ok and chk["ok"]
+    log(f"SIFT_SMALL IVF parity (n={X.shape[0]} + 4096 added, k={r.k}): "
+        f"{json.dumps(res)} {'OK' if ok else 'FAIL'}")
+    return ok
+
+
+def serve_path(X, r):
+    """The serving path at SIFT1M's shape, on phase 4's data and clustering:
+    build_ivf, add 10,000 fresh rows, then the nprobe sweep — the counted
+    run of probe_centroids, assign_centroids and ivf_scan."""
+    import torch
+    from repro_torch import index as ivf
+    from repro_torch.data import sift_like
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve_index as si
+    s, c = SERVE, SIFT1M
+    X_new = sift_like(s["add"], c["d"], COMPONENTS,
+                      generator=torch.Generator(device=DEV).manual_seed(
+                          SEED + 11))
+    X_all = torch.cat([X, X_new])          # row i holds id i after the add
+    Q = si.make_queries(X, s["nq"], SEED + 9)
+    gt = si.ground_truth(Q, X_all, s["topk"])
+    log(f"serving path: build_ivf (block_rows={s['block_rows']}) over "
+        f"n={c['n']}, k={r.k}; add {s['add']} rows; sweep nq={s['nq']} "
+        f"topk={s['topk']} probes={list(s['probes'])} batch={s['batch']} "
+        f"rounds={s['rounds']}; cuts: none")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    index = ivf.build_ivf(X, r, block_rows=s["block_rows"], device=DEV)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    live0, cap0, rows0 = index.size, index.capacity_rows, index.n_rows
+    t0 = time.perf_counter()
+    index = ivf.add(index, X_new)
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    rows = si.sweep(index, Q, gt, topk=s["topk"], probes=s["probes"],
+                    batch=s["batch"], rounds=s["rounds"])
+    launches = dict(_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"pack {pack_s:.3f} s: n_rows {rows0}, "
+        f"hole share {1 - live0 / cap0:.4f}, max_list_tiles "
+        f"{index.max_list_tiles}; add {add_s:.3f} s -> n_rows "
+        f"{index.n_rows}, live {index.size}, hole share "
+        f"{1 - index.size / index.capacity_rows:.4f}")
+    log(f"serving sweep rows: {json.dumps(rows)}")
+    log(f"peak device memory {peak / 2**30:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated, build + add + sweep)")
+    log(f"kernel launches on the serving path: {json.dumps(launches)}")
+    # outside the counted run: the same queries through the plain versions
+    rec_ref = {}
+    for p in s["probes"]:
+        ids, _ = ivf.search(index, Q, topk=s["topk"], nprobe=p, force="ref")
+        rec_ref[p] = si.recall(ids, gt)
+    gaps = {p: abs(row["recall"] - rec_ref[p])
+            for p, row in zip(s["probes"], rows)}
+    log(f"recall@{s['topk']} through the plain versions: "
+        f"{json.dumps(rec_ref)}; |kernels - plain| {json.dumps(gaps)} "
+        f"(limit {RECALL_GAP})")
+    recs = [row["recall"] for row in rows]
+    checks = {
+        "launches": all(launches[k] > 0 for k in
+                        ("probe_centroids", "assign_centroids", "ivf_scan")),
+        "recall_monotone": all(b >= a for a, b in zip(recs, recs[1:])),
+        "recall_vs_plain": all(g <= RECALL_GAP for g in gaps.values()),
+        "host_syncs_in_search": all(row["host_syncs"] == 0 for row in rows),
+        "live_rows": index.size == c["n"] + s["add"],
+    }
+    log(f"serving-path checks: {json.dumps(checks)}")
+    return all(checks.values()), launches, index, Q, X_all
+
+
+def profile_serving(index, Q):
+    """One nprobe=16 batch loop (40 batches of 64, each synchronised, as
+    served), traced (after the counted run)."""
+    import torch
+    from repro_torch import index as ivf
+    b = SERVE["batch"]
+
+    def loop():
+        for b0 in range(0, min(40 * b, Q.shape[0] - b + 1), b):
+            ivf.search(index, Q[b0:b0 + b], topk=SERVE["topk"], nprobe=16)
+            torch.cuda.synchronize()
+    loop()
+    profile_window("IVF serving nprobe=16, 40 batches of 64", loop)
+
 
 def _short(name: str) -> str:
-    for key in ("gather_score_kernel", "refine_merge_kernel"):
+    for key in ("gather_score_kernel", "refine_merge_kernel",
+                "centroid_kernel<true", "centroid_kernel<false",
+                "ivf_scan_kernel"):
         if key in name:
             return key
     return name if len(name) <= 70 else name[:67] + "..."
@@ -485,20 +962,11 @@ def profile_window(label, fn):
     """Trace ``fn`` with torch.profiler: wall time, device-busy time (union
     of the card's activity intervals), idle share and the top kernels.
     Informational: prints "not measured" where the trace shows no device
-    activity."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    activity.  A trace may lose its first records (see kernel_device_us),
+    so a kernel's count can come up short; its time per launch holds."""
+    events, wall = _device_events(fn)
     spans, by_name = [], {}
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for ev in events:
         a, b = ev.time_range.start, ev.time_range.end
         spans.append((a, b))
         n = _short(ev.name)
@@ -564,7 +1032,7 @@ def main() -> int:
     secs = _build.build()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s wall, per source "
         f"{json.dumps({k: round(v, 2) for k, v in secs.items()})}")
-    for name in _build.KERNELS:
+    for name in _build.SOURCES:
         rep = _build.build_log(name) or ""
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
@@ -588,12 +1056,28 @@ def main() -> int:
         failures.append("gather_score vs plain")
     if not rm["ok"]:
         failures.append("refine_merge vs plain")
-    if not parity_small():
+    ca = check_centroid_kernels(X, k2)
+    if not ca["ok"]:
+        failures.append("probe/assign_centroids vs plain")
+    ok_small, X_small, r_small = parity_small()
+    if not ok_small:
         failures.append("SIFT_SMALL parity")
+    if not ivf_parity_small(X_small, r_small):
+        failures.append("SIFT_SMALL IVF parity")
+    del X_small, r_small
     ok_main, launches, res = main_path(X)
     if not ok_main:
         failures.append("main path")
     profile_main_path(X, res)
+    ok_serve, serve_launches, index, Q, X_all = serve_path(X, res)
+    if not ok_serve:
+        failures.append("serving path")
+    launches.update({k: serve_launches[k] for k in
+                     ("probe_centroids", "assign_centroids", "ivf_scan")})
+    sc = check_scan_kernel(index, Q, X_all)
+    if not sc["ok"]:
+        failures.append("ivf_scan vs plain")
+    profile_serving(index, Q)
 
     kernels = [
         dict(name="gather_score", route="cuda",
@@ -622,6 +1106,65 @@ def main() -> int:
              id_mismatch_frac=rm["id_mismatch_frac"],
              check="vs plain: distances rtol 1e-5 + 1e-6*max norm², ids "
                    "distinct per row and equal but at near-ties"),
+    ]
+    sel = (f"vs plain: |d2 err| <= {DIST_RTOL:g}*(||x||²+||c||²) per slot, "
+           "-1/+inf pattern exact, ids equal but at near-ties; planted "
+           "faults fail")
+    nq, n1m = SERVE["nq"], c["n"]
+    pr, asg, s16 = ca["probe"][16], ca["assign"][nq], sc[(16, 10)]
+    kernels += [
+        dict(name="probe_centroids", route="cuda",
+             source="src/repro_torch/kernels/csrc/centroid_assign.cu",
+             replaces="src/repro/kernels/centroid_assign.py:103",
+             launches=launches["probe_centroids"],
+             max_abs_err=max(v["max_abs_err"] for v in ca["probe"].values()),
+             ms=pr["ms"], plain_ms=pr["plain_ms"], bound_ms=pr["bound_ms"],
+             bound_by=pr["bound_by"], library_ms=None, shape=f"nq={nq} "
+             f"k={k2} d=128 p=16", device_us=pr["device_us"],
+             mm_ms=ca["mm_ms"], p64_ms=ca["probe"][64]["ms"],
+             p64_plain_ms=ca["probe"][64]["plain_ms"],
+             p64_bound_ms=ca["probe"][64]["bound_ms"],
+             p64_device_us=ca["probe"][64]["device_us"],
+             p1_ms=ca["probe"][1]["ms"],
+             served_batch={key: ca["probe_batch"][key] for key in
+                           ("ms", "plain_ms", "bound_ms", "bound_by",
+                            "device_us", "mm_ms", "max_abs_err")}
+             | {"shape": f"nq={SERVE['batch']} k={k2} d=128 p=16"},
+             near_tie_slots={p: v["near_tie_slots"]
+                             for p, v in ca["probe"].items()}, check=sel),
+        dict(name="assign_centroids", route="cuda",
+             source="src/repro_torch/kernels/csrc/centroid_assign.cu",
+             replaces="src/repro/kernels/centroid_assign.py:189",
+             launches=launches["assign_centroids"],
+             max_abs_err=max(v["max_abs_err"] for v in ca["assign"].values()),
+             ms=asg["ms"], plain_ms=asg["plain_ms"], bound_ms=asg["bound_ms"],
+             bound_by=asg["bound_by"], library_ms=None,
+             shape=f"n={nq} k={k2} d=128", device_us=asg["device_us"],
+             mm_ms=ca["mm_ms"], n1m_ms=ca["assign"][n1m]["ms"],
+             n1m_plain_ms=ca["assign"][n1m]["plain_ms"],
+             n1m_bound_ms=ca["assign"][n1m]["bound_ms"],
+             n1m_device_us=ca["assign"][n1m]["device_us"],
+             n1m_mm_ms=ca["mm_1m_ms"],
+             near_tie_slots={m: v["near_tie_slots"]
+                             for m, v in ca["assign"].items()}, check=sel),
+        dict(name="ivf_scan", route="cuda",
+             source="src/repro_torch/kernels/csrc/ivf_scan.cu",
+             replaces="src/repro/kernels/ivf_scan.py:64",
+             launches=launches["ivf_scan"],
+             max_abs_err=max(v["max_abs_err"] for key, v in sc.items()
+                             if key != "ok"),
+             ms=s16["ms"], plain_ms=s16["plain_ms"], bound_ms=s16["bound_ms"],
+             bound_by=s16["bound_by"], library_ms=None,
+             shape=f"nq={nq} nprobe=16 topk=10 d=128",
+             device_us=s16["device_us"], bmm_ms=s16["bmm_ms"],
+             nprobe64={key: sc[(64, 10)][key] for key in
+                       ("ms", "plain_ms", "bound_ms", "device_us")},
+             nprobe1_topk100={key: sc[(1, 100)][key] for key in
+                              ("ms", "plain_ms", "bound_ms", "device_us",
+                               "exhausted_slots")},
+             near_tie_slots={f"{a}/{b}": sc[(a, b)]["near_tie_slots"]
+                             for a, b in ((16, 10), (64, 10), (1, 100))},
+             check=sel),
     ]
     log(f"total {time.perf_counter() - t_all:.1f} s; failures: {failures}")
     if failures:

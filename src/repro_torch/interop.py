@@ -1,16 +1,19 @@
 """Carry the JAX package's state, given as numpy arrays, into the port.
 
 The clustering system's counterpart of carrying weights across: one
-reference graph, one initial state and one set of epoch keys can be fed to
-both packages, so their outputs compare like with like.
+reference graph, one initial state, one set of epoch keys and one packed
+IVF index can be fed to both packages, so their outputs compare like with
+like.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core.engine import BKMState
 from repro_torch.core.knn_graph import KnnGraph
+from repro_torch.index.ivf import IvfIndex
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -19,18 +22,22 @@ def _tensor(a, dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
 
 
-def knn_graph(ids, dist, device="cpu") -> KnnGraph:
-    """KnnGraph from (n, κ) neighbour ids and squared distances."""
-    return KnnGraph(_tensor(ids, np.int32, device),
-                    _tensor(dist, np.float32, device))
+def knn_graph(ids, dist, device: DeviceLike = None) -> KnnGraph:
+    """KnnGraph from (n, κ) neighbour ids and squared distances, on
+    ``device`` (default ``cuda``; pass ``device="cpu"`` for the CPU)."""
+    dev = resolve_device(device)
+    return KnnGraph(_tensor(ids, np.int32, dev),
+                    _tensor(dist, np.float32, dev))
 
 
-def bkm_state(assign, D, cnt, device="cpu") -> BKMState:
-    """BKMState from an (n,) assignment, (k, d) composites, (k,) counts."""
-    return BKMState(_tensor(assign, np.int32, device),
-                    _tensor(D, np.float32, device),
-                    _tensor(cnt, np.float32, device),
-                    torch.zeros((), dtype=torch.int32, device=device))
+def bkm_state(assign, D, cnt, device: DeviceLike = None) -> BKMState:
+    """BKMState from an (n,) assignment, (k, d) composites, (k,) counts, on
+    ``device`` (default ``cuda``; pass ``device="cpu"`` for the CPU)."""
+    dev = resolve_device(device)
+    return BKMState(_tensor(assign, np.int32, dev),
+                    _tensor(D, np.float32, dev),
+                    _tensor(cnt, np.float32, dev),
+                    torch.zeros((), dtype=torch.int32, device=dev))
 
 
 def epoch_words(words) -> torch.Tensor:
@@ -39,3 +46,18 @@ def epoch_words(words) -> torch.Tensor:
     takes."""
     return _tensor(np.asarray(words, dtype=np.uint64).reshape(-1, 4),
                    np.int64, "cpu")
+
+
+def ivf_index(centroids, vecs, ids, starts, caps, block_rows: int,
+              repack_threshold: float = 0.5,
+              device: DeviceLike = None) -> IvfIndex:
+    """IvfIndex from a packed index's arrays (a ``repro.index.IvfIndex``'s
+    fields as numpy), row for row, on ``device`` (default ``cuda``; pass
+    ``device="cpu"`` for the CPU)."""
+    dev = resolve_device(device)
+    return IvfIndex.from_arrays(_tensor(centroids, np.float32, dev),
+                                _tensor(vecs, np.float32, dev),
+                                _tensor(ids, np.int32, dev),
+                                _tensor(starts, np.int32, dev),
+                                _tensor(caps, np.int32, dev), block_rows,
+                                repack_threshold)

@@ -10,7 +10,8 @@ into ``kernels/build/`` (git-ignored), at first use.  The file name carries a
 hash of the sources and flags, so an edited kernel rebuilds and an unchanged
 one loads at once; ``ptxas``'s register and spill report is kept beside it
 as ``<name>-<hash>.log``.  ``build()`` starts one ``nvcc`` per source, all at
-once, and waits for them.  Nothing here runs at import: the CPU tests import
+once, and waits for them.  ``csrc/centroid_assign.cu`` holds two kernels
+(``assign_centroids`` and ``probe_centroids``); every other source one.  Nothing here runs at import: the CPU tests import
 every module and this machine may have no ``nvcc``.
 
 ``launch_counts`` holds one integer per kernel; each wrapper adds one where
@@ -29,7 +30,9 @@ from typing import Dict, Iterable, Optional
 
 import torch
 
-KERNELS = ("gather_score", "refine_merge")
+SOURCES = ("gather_score", "refine_merge", "centroid_assign", "ivf_scan")
+KERNELS = ("gather_score", "refine_merge", "probe_centroids",
+           "assign_centroids", "ivf_scan")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -69,8 +72,8 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
-    """Compile the named kernels that are not built yet, all in parallel.
+def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
+    """Compile the named sources that are not built yet, all in parallel.
 
     Returns {name: seconds} for the ones compiled (0.0 for cached ones).
     Raises with nvcc's output if any compile fails.
@@ -106,13 +109,14 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
 
 
 def build_log(name: str) -> Optional[str]:
-    """ptxas's report of the built kernel (registers, spills), if built here."""
+    """ptxas's report of the built source (registers, spills), if built
+    here."""
     log = _target(name).with_suffix(".log")
     return log.read_text() if log.is_file() else None
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of kernel ``name``, built on first use."""
+    """The loaded shared library of source ``name``, built on first use."""
     lib = _libs.get(name)
     if lib is None:
         build([name])

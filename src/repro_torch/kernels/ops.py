@@ -12,7 +12,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import centroid_assign as _ca
 from repro_torch.kernels import gather_score as _gs
+from repro_torch.kernels import ivf_scan as _ivf
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import refine_merge as _rm
 
@@ -43,3 +45,33 @@ def refine_merge(x: torch.Tensor, rows: torch.Tensor, cand_ids: torch.Tensor,
                                 ysq=ysq)
     return _ref.refine_merge(x, rows, cand_ids, old_ids, old_d, Xsrc,
                              ysq=ysq)
+
+
+def assign_centroids(X: torch.Tensor, C: torch.Tensor, *,
+                     force: Optional[str] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(n, d) x (k, d) -> nearest centroid (assign (n,), d2 (n,))."""
+    if _use_kernel(X, force):
+        return _ca.assign_centroids(X, C)
+    return _ref.assign_centroids(X, C)
+
+
+def probe_centroids(X: torch.Tensor, C: torch.Tensor, p: int, *,
+                    force: Optional[str] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(n, d) x (k, d) -> top-p nearest centroids (ids (n, p), d2 (n, p))."""
+    if _use_kernel(X, force):
+        return _ca.probe_centroids(X, C, p)
+    return _ref.probe_centroids(X, C, p)
+
+
+def ivf_scan(Q: torch.Tensor, vecs: torch.Tensor, pids: torch.Tensor,
+             tile_map: torch.Tensor, *, block_rows: int, topk: int = 10,
+             force: Optional[str] = None, raw: bool = False
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-query scan of probed packed-list tiles -> (ids, d2) top-k."""
+    if _use_kernel(Q, force):
+        return _ivf.ivf_scan(Q, vecs, pids, tile_map, block_rows=block_rows,
+                             topk=topk, raw=raw)
+    return _ref.ivf_scan(Q, vecs, pids, tile_map, block_rows=block_rows,
+                         topk=topk, raw=raw)

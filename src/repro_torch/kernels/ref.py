@@ -1,10 +1,13 @@
-"""Plain PyTorch versions of the main path's kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 Counterparts of ``repro.kernels.ref`` (``scores_from_dots``,
-``gather_score``, ``merge_lists``, ``refine_merge``).  They run on any
-device: ``kernels.ops`` sends CPU tensors here, and ``chip_smoke.py`` holds
-the CUDA kernels against them on the card (``force="ref"``).  Every op is
-elementwise per row or a batched product, so a batch may be cut anywhere.
+``gather_score``, ``merge_lists``, ``refine_merge``, ``stable_topk``,
+``finalize_d2``, ``probe_centroids``, ``assign_centroids``, ``ivf_scan``).
+They run on any device: ``kernels.ops`` sends CPU tensors here, and
+``chip_smoke.py`` holds the CUDA kernels against them on the card
+(``force="ref"``).  Every op is elementwise per row or a batched product,
+so a batch may be cut anywhere: the centroid and scan versions chunk their
+row axis to bound the (rows, k) and gathered working sets.
 """
 from __future__ import annotations
 
@@ -151,3 +154,148 @@ def refine_merge(x: torch.Tensor, rows: torch.Tensor, cand_ids: torch.Tensor,
     dots = gather_dots(xf, r, Xf)
     cd = torch.clamp(ysq_c + xsq[:, None] - 2.0 * dots, min=0.0)
     return merge_lists(old_ids.to(torch.int32), old_d, cand_ids, cd, kappa)
+
+
+# ------------------------------------------------------------ top-k selection
+
+# entries per chunk of the (rows, candidates) matrices below: 2^24 floats is
+# 64 MB per matrix, small beside a card and harmless on the CPU
+CHUNK_ENTRIES = 1 << 24
+
+
+def stable_topk(d: torch.Tensor, ids: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over the last axis, ties to the lowest position
+    (``repro.kernels.ref.stable_topk``).
+
+    A stable ascending sort gives exactly the reference's k passes of
+    first-minimum selection (``torch.topk``'s tie order is unspecified).  A
+    slot whose distance is +inf — exhausted, fewer candidates than k — comes
+    out id -1 / +inf.  d, ids: (..., L) -> (d (..., k), ids (..., k)).
+    """
+    L = d.shape[-1]
+    if k > L:
+        pad = list(d.shape[:-1]) + [k - L]
+        d = torch.cat([d, d.new_full(pad, INF)], dim=-1)
+        ids = torch.cat([ids, ids.new_full(pad, -1)], dim=-1)
+    sd, order = torch.sort(d, dim=-1, stable=True)
+    sd = sd[..., :k]
+    si = torch.gather(ids, -1, order[..., :k]).to(torch.int32)
+    return sd, torch.where(sd == INF, torch.full_like(si, -1), si)
+
+
+def finalize_d2(ids: torch.Tensor, od: torch.Tensor, Q: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Raw scan partials (``||v||² − 2q·v``) -> exact squared L2
+    (``repro.kernels.ref.finalize_d2``): ``max(od + ||q||², 0)`` in that op
+    order, +inf where the id is -1."""
+    qsq = (Q.float() ** 2).sum(-1)
+    d2 = torch.clamp(od + qsq[:, None], min=0.0)
+    return ids, torch.where(ids < 0, torch.full_like(d2, INF), d2)
+
+
+def _row_chunks(n: int, width: int):
+    step = max(1, CHUNK_ENTRIES // max(width, 1))
+    return range(0, n, step), step
+
+
+def _centroid_partials(x: torch.Tensor, Cf: torch.Tensor,
+                       csq: torch.Tensor) -> torch.Tensor:
+    """(c, k) ``||c||² − 2x·c`` — the squared distance less ``||x||²``."""
+    return csq[None, :] - 2.0 * (x @ Cf.T)
+
+
+def probe_centroids(X: torch.Tensor, C: torch.Tensor, p: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-p nearest centroids per row (``repro.kernels.ref``).
+
+    X (n, d), C (k, d) -> (ids (n, p) int32 ascending by distance, ties to
+    the lower centroid index; d2 (n, p) f32 = ``max(part + ||x||², 0)``).
+    """
+    if not 0 < p <= C.shape[0]:
+        raise ValueError(f"need 0 < p <= k, got p={p}, k={C.shape[0]}")
+    Xf, Cf = X.float(), C.float()
+    csq = (Cf * Cf).sum(-1)
+    cols = torch.arange(C.shape[0], dtype=torch.int32, device=X.device)
+    starts, step = _row_chunks(X.shape[0], C.shape[0])
+    out_i, out_d = [], []
+    for a in starts:
+        x = Xf[a:a + step]
+        part = _centroid_partials(x, Cf, csq)
+        d, ids = stable_topk(part, cols.expand(part.shape[0], -1), p)
+        xsq = (x * x).sum(-1)
+        out_i.append(ids)
+        out_d.append(torch.clamp(d + xsq[:, None], min=0.0))
+    if not out_i:
+        return (torch.empty((0, p), dtype=torch.int32, device=X.device),
+                torch.empty((0, p), device=X.device))
+    return torch.cat(out_i), torch.cat(out_d)
+
+
+def assign_centroids(X: torch.Tensor, C: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Nearest centroid per row (``repro.kernels.ref.assign_centroids``).
+
+    X (n, d), C (k, d) -> (assign (n,) int32, the first minimum's index;
+    d2 (n,) f32 = ``max(min part + ||x||², 0)``).
+    """
+    Xf, Cf = X.float(), C.float()
+    csq = (Cf * Cf).sum(-1)
+    starts, step = _row_chunks(X.shape[0], C.shape[0])
+    out_a, out_d = [], []
+    for a in starts:
+        x = Xf[a:a + step]
+        part = _centroid_partials(x, Cf, csq)
+        am = torch.argmin(part, dim=-1)            # first minimum
+        dmin = torch.gather(part, 1, am[:, None])[:, 0]
+        out_a.append(am.to(torch.int32))
+        out_d.append(torch.clamp(dmin + (x * x).sum(-1), min=0.0))
+    if not out_a:
+        return (torch.empty((0,), dtype=torch.int32, device=X.device),
+                torch.empty((0,), device=X.device))
+    return torch.cat(out_a), torch.cat(out_d)
+
+
+def ivf_scan(Q: torch.Tensor, vecs: torch.Tensor, pids: torch.Tensor,
+             tile_map: torch.Tensor, *, block_rows: int, topk: int = 10,
+             raw: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inverted-list scan over the packed layout (``repro.kernels.ref``).
+
+    Q (q, d); vecs (n_pad, d) packed rows; pids (n_pad,) int32, -1 at holes;
+    tile_map (q, T) int32 packed-tile indices.  Each query's candidates are
+    the rows of its T tiles in slot order, scored ``||v||² − 2q·v`` (+inf at
+    holes), and the top-k is taken with the first-minimum rule.  Returns
+    (ids (q, topk) int32, -1 past the candidate count; d2 (q, topk) f32
+    through ``finalize_d2``, or the raw partials with ``raw=True``).
+
+    The query axis is chunked (as the reference's ``tile``), and only live
+    rows are gathered: a hole scores +inf whatever its vector, so skipping
+    its dot changes no result.
+    """
+    nq, T = tile_map.shape
+    L = T * block_rows
+    Qf = Q.float()
+    dev = Q.device
+    offs = torch.arange(block_rows, device=dev)
+    starts, step = _row_chunks(nq, L)
+    out_i, out_d = [], []
+    for a in starts:
+        tm = tile_map[a:a + step].long()
+        c = tm.shape[0]
+        pos = (tm[:, :, None] * block_rows + offs).reshape(c, L)
+        cids = pids[pos]
+        part = torch.full((c, L), INF, device=dev)
+        qi, li = torch.nonzero(cids >= 0, as_tuple=True)
+        v = vecs[pos[qi, li]].float()
+        part[qi, li] = (v * v).sum(-1) - 2.0 * (v * Qf[a:a + step][qi]).sum(-1)
+        d, ids = stable_topk(part, cids, topk)
+        out_i.append(ids)
+        out_d.append(d)
+    if not out_i:
+        ids = torch.empty((0, topk), dtype=torch.int32, device=dev)
+        d = torch.empty((0, topk), device=dev)
+    else:
+        ids, d = torch.cat(out_i), torch.cat(out_d)
+    if raw:
+        return ids, torch.where(ids < 0, torch.full_like(d, INF), d)
+    return finalize_d2(ids, d, Q)

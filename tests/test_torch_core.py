@@ -238,10 +238,11 @@ def test_engine_run_history_matches(blobs, mode):
                                           jeng.graph_source(g.ids), kb, cfg)
     words = interop.epoch_words(
         [_bits(jax.random.fold_in(kb, t), 4) for t in range(iters)])
-    graph = interop.knn_graph(np.asarray(g.ids), np.asarray(g.dist))
+    graph = interop.knn_graph(np.asarray(g.ids), np.asarray(g.dist),
+                              device="cpu")
     js = jeng.init_state(jnp.asarray(X), jnp.asarray(assign), k)
     tst = interop.bkm_state(np.asarray(js.assign), np.asarray(js.D),
-                            np.asarray(js.cnt))
+                            np.asarray(js.cnt), device="cpu")
     tcfg = teng.EngineConfig(batch_size=256, mode=mode, iters=iters)
     res = teng.run(torch.from_numpy(X), tst, teng.graph_source(graph.ids),
                    tcfg, epoch_words=words)
@@ -267,7 +268,7 @@ def test_engine_step_moves_match(blobs):
     jout = jeng.epoch(jnp.asarray(X), js, jeng.graph_source(jnp.asarray(G)),
                       key, cfg)
     tst = interop.bkm_state(np.asarray(js.assign), np.asarray(js.D),
-                            np.asarray(js.cnt))
+                            np.asarray(js.cnt), device="cpu")
     tout = teng.epoch(torch.from_numpy(X), tst,
                       teng.graph_source(torch.from_numpy(G)), _bits(key, 4),
                       teng.EngineConfig(batch_size=128, sparse_updates=True))

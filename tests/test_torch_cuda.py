@@ -7,8 +7,11 @@ file imports no JAX, so it runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: scores within 1e-5·``ref.score_scale`` element by element (the
-size of the terms that cancel in each score); distances rtol 1e-5 +
-1e-6·max squared norm; ids exact.
+size of the terms that cancel in each score); refine distances rtol 1e-5 +
+1e-6·max squared norm, ids exact; centroid and scan distances within
+1e-5·(||x||² + ||c||²) of each selected pair, ids equal except where the two
+selected distances agree within that limit; on integer data everything
+exact.
 """
 from __future__ import annotations
 
@@ -127,3 +130,142 @@ def test_gk_means_kernels_match_ref_on_card(dev):
     a, b = out
     assert abs(a.distortion - b.distortion) <= 0.01 * b.distortion
     assert np.isfinite(a.history).all()
+
+
+# ------------------------------------------------- IVF kernels (centroids, scan)
+
+def _assert_sel(got, want, scale):
+    """Distances within 1e-5·scale per element (scale: the size of the
+    terms that cancel, ||x||² + ||c||² of that element); ids equal except
+    where the two selected distances agree within that limit; -1/+inf
+    slots equal."""
+    gi, gd = got
+    wi, wd = want
+    lim = 1e-5 * scale
+    fin = torch.isfinite(wd)
+    assert torch.equal(torch.isfinite(gd), fin)
+    assert torch.equal(gi[~fin], wi[~fin])
+    gap = (gd - wd).abs()
+    assert bool((gap[fin] <= lim[fin]).all()), float((gap / lim)[fin].max())
+    assert bool(((gi == wi) | (fin & (gap <= lim))).all())
+
+
+def _centroid_case(n, k, d, seed, dev, integer=False):
+    g = torch.Generator().manual_seed(seed)
+    if integer:        # integer coordinates: exact partials, ties everywhere
+        X = torch.randint(0, 3, (n, d), generator=g).float()
+        C = torch.randint(0, 3, (k, d), generator=g).float()
+    else:
+        X = torch.randn(n, d, generator=g) * 3
+        C = torch.randn(k, d, generator=g) * 3
+    return X.to(dev), C.to(dev)
+
+
+def _pair_scale(X, C, ids):
+    """||x||² + ||c||² of each selected (row, centroid) pair."""
+    return (X * X).sum(-1)[:, None] + (C * C).sum(-1)[ids.long().clamp(min=0)]
+
+
+@pytest.mark.parametrize("n,k,d", [(300, 77, 128), (129, 200, 37),
+                                   (513, 1000, 100)])
+def test_assign_centroids_kernel_matches_plain(dev, n, k, d):
+    X, C = _centroid_case(n, k, d, n + k, dev)
+    before = _build.launch_counts["assign_centroids"]
+    ga, gd = ops.assign_centroids(X, C)
+    wa, wd = ops.assign_centroids(X, C, force="ref")
+    torch.cuda.synchronize()
+    assert _build.launch_counts["assign_centroids"] == before + 1
+    _assert_sel((ga[:, None], gd[:, None]), (wa[:, None], wd[:, None]),
+                _pair_scale(X, C, wa[:, None]))
+
+
+@pytest.mark.parametrize("n,k,d,p", [(300, 77, 128, 16), (129, 200, 37, 64),
+                                     (257, 300, 24, 128), (10, 5, 8, 5)])
+def test_probe_centroids_kernel_matches_plain(dev, n, k, d, p):
+    X, C = _centroid_case(n, k, d, n + p, dev)
+    before = _build.launch_counts["probe_centroids"]
+    got = ops.probe_centroids(X, C, p)
+    want = ops.probe_centroids(X, C, p, force="ref")
+    torch.cuda.synchronize()
+    assert _build.launch_counts["probe_centroids"] == before + 1
+    _assert_sel(got, want, _pair_scale(X, C, want[0]))
+
+
+def test_centroid_kernels_ties_exact(dev):
+    """Integer data: the partials are exact and tie everywhere, so the
+    first-minimum rule decides, bit for bit."""
+    X, C = _centroid_case(300, 260, 16, 4, dev, integer=True)
+    for p in (1, 7, 64):
+        gi, gd = ops.probe_centroids(X, C, p)
+        wi, wd = ops.probe_centroids(X, C, p, force="ref")
+        torch.cuda.synchronize()
+        assert torch.equal(gi, wi) and torch.equal(gd, wd)
+    ga, gd = ops.assign_centroids(X, C)
+    wa, wd = ops.assign_centroids(X, C, force="ref")
+    assert torch.equal(ga, wa) and torch.equal(gd, wd)
+
+
+def _small_index(dev, d, integer=False, n=3000, k=40, block_rows=32):
+    from repro_torch import index as ivf
+    X, C = _centroid_case(n, k, d, d + k, dev, integer)
+    a, _ = ops.assign_centroids(X, C, force="ref")
+
+    class R:
+        assign, centroids = a, C
+    R.k = k
+    index = ivf.build_ivf(X, R, block_rows=block_rows, device=dev)
+    return X, ivf.remove(index, torch.arange(0, n, 7))   # tombstones too
+
+
+def _tile_map(index, Q, nprobe):
+    from repro_torch import index as ivf
+    cids, _ = ops.probe_centroids(Q, index.centroids, nprobe, force="ref")
+    return ivf.build_tile_map(cids, index.starts, index.caps,
+                              max_tiles=index.max_list_tiles,
+                              block_rows=index.block_rows,
+                              null_tile=index.null_tile)
+
+
+@pytest.mark.parametrize("d,nprobe,topk,raw", [(128, 4, 10, False),
+                                               (128, 1, 200, False),
+                                               (37, 3, 16, True),
+                                               (24, 40, 1024, False)])
+def test_ivf_scan_kernel_matches_plain(dev, d, nprobe, topk, raw):
+    X, index = _small_index(dev, d)
+    Q = (X[:65] + 0.1 * torch.randn(65, d, device=dev)).contiguous()
+    tm = _tile_map(index, Q, nprobe)
+    before = _build.launch_counts["ivf_scan"]
+    kw = dict(block_rows=index.block_rows, topk=topk, raw=raw)
+    got = ops.ivf_scan(Q, index.vecs, index.ids, tm, **kw)
+    want = ops.ivf_scan(Q, index.vecs, index.ids, tm, force="ref", **kw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["ivf_scan"] == before + 1
+    _assert_sel(got, want, _pair_scale(Q, X, want[0]))   # id i is row i
+    if nprobe == 1:
+        assert bool((got[0] == -1).any())      # lists exhausted
+
+
+def test_ivf_scan_kernel_ties_exact(dev):
+    X, index = _small_index(dev, 16, integer=True)
+    Q = X[:64].contiguous()
+    tm = _tile_map(index, Q, 5)
+    kw = dict(block_rows=index.block_rows, topk=20)
+    gi, gd = ops.ivf_scan(Q, index.vecs, index.ids, tm, **kw)
+    wi, wd = ops.ivf_scan(Q, index.vecs, index.ids, tm, force="ref", **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(gi, wi) and torch.equal(gd, wd)
+
+
+def test_search_kernels_match_plain_on_card(dev):
+    from repro_torch import index as ivf
+    X, index = _small_index(dev, 32)
+    Q = (X[:100] + 0.05 * torch.randn(100, 32, device=dev)).contiguous()
+    for nprobe in (1, 8, 40):
+        before = dict(_build.launch_counts)
+        gi, gd = ivf.search(index, Q, topk=10, nprobe=nprobe)
+        wi, wd = ivf.search(index, Q, topk=10, nprobe=nprobe, force="ref")
+        torch.cuda.synchronize()
+        assert _build.launch_counts["probe_centroids"] == \
+            before["probe_centroids"] + 1
+        assert _build.launch_counts["ivf_scan"] == before["ivf_scan"] + 1
+        _assert_sel((gi, gd), (wi, wd), _pair_scale(Q, X, wi))

@@ -125,3 +125,84 @@ def test_sparse_updates_is_the_plain_scatter_on_one_device():
     assert torch.equal(outs[0].assign, outs[1].assign)
     assert torch.equal(outs[0].cnt, outs[1].cnt)
     assert int(outs[0].moves) > 0
+
+
+def test_ivf_kernel_wrappers_reject_cpu_tensors():
+    from repro_torch.kernels import centroid_assign as kca
+    from repro_torch.kernels import ivf_scan as kivf
+    X, C = torch.randn(8, 16), torch.randn(5, 16)
+    before = dict(kca._build.launch_counts)
+    with pytest.raises(ValueError, match="CPU tensors dispatch"):
+        kca.assign_centroids(X, C)
+    with pytest.raises(ValueError, match="CPU tensors dispatch"):
+        kca.probe_centroids(X, C, 2)
+    with pytest.raises(ValueError, match="CPU tensors dispatch"):
+        kivf.ivf_scan(X, torch.zeros(16, 16), torch.zeros(16, dtype=torch.int32),
+                      torch.zeros((8, 2), dtype=torch.int32), block_rows=8)
+    assert dict(kca._build.launch_counts) == before
+
+
+def _tiny_index():
+    from repro_torch import index as tivf
+
+    class R:
+        assign = torch.arange(32, dtype=torch.int32) % 4
+        centroids = torch.randn(4, 8)
+        k = 4
+    return tivf, tivf.build_ivf(torch.randn(32, 8), R, block_rows=8,
+                                device="cpu")
+
+
+def test_ivf_out_of_slice_options_raise():
+    tivf, index = _tiny_index()
+    Q = torch.randn(3, 8)
+    with pytest.raises(NotImplementedError, match="query-grouped"):
+        tivf.search(index, Q, qgroup=2)
+    for codec in ("int8", "pq"):
+        with pytest.raises(NotImplementedError, match="compressed"):
+            tivf.search(index, Q, codec=codec)
+    with pytest.raises(NotImplementedError, match="compressed"):
+        tivf.search(index, Q, rerank=40)
+    with pytest.raises(NotImplementedError):
+        tivf.attach_codec(index, None)
+    with pytest.raises(NotImplementedError):
+        tivf.quantize_index(index, "pq")
+    with pytest.raises(NotImplementedError):
+        tivf.shard_lists(index, 2)
+    ids, _ = tivf.search(index, Q, qgroup=1, nprobe=2)   # per-query layout
+    assert ids.shape == (3, 10)
+
+
+def test_serve_index_without_device_raises_when_no_cuda(monkeypatch,
+                                                        tmp_path):
+    from repro_torch.launch import serve_index as tserve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tserve.main(["--n", "256", "--d", "8", "--k", "4", "--nq", "8"])
+    tivf, index = _tiny_index()
+    path = str(tmp_path / "ix.ivf")
+    tivf.save_index(index, path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tivf.load_index(path)
+    for flag in (["--qgroup", "4"], ["--codec", "pq"], ["--rerank", "40"],
+                 ["--nsub", "16"]):
+        with pytest.raises(SystemExit, match="not ported"):
+            tserve.main(["--device", "cpu"] + flag)
+
+
+def test_interop_without_device_raises_when_no_cuda(monkeypatch):
+    from repro_torch import interop
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    block = 4
+    caps = np.array([4, 8], np.int32)
+    arrays = (np.zeros((2, 3), np.float32), np.zeros((16, 3), np.float32),
+              np.full(16, -1, np.int32), np.array([0, 4], np.int32), caps)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        interop.ivf_index(*arrays, block)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        interop.knn_graph(np.zeros((4, 2), np.int32), np.zeros((4, 2)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        interop.bkm_state(np.zeros(4, np.int32), np.zeros((2, 3)),
+                          np.zeros(2))
+    index = interop.ivf_index(*arrays, block, device="cpu")
+    assert index.device.type == "cpu" and index.max_list_tiles == 2
