@@ -34,7 +34,9 @@ plain PyTorch version, or when any phase fails.  Phases:
    graph recall@κ within 0.02; then the IVF index over that clustering:
    ``add`` of 4,096 rows through the kernels and the plain versions (same
    layout), ``exhaustive_search`` against brute force, ``search`` at
-   nprobe 1, 8, 64 against the plain versions;
+   nprobe 1, 8, 64 against the plain versions, and ``search`` with codec
+   int8 and PQ nsub=8 (rerank at its default and 0; reranked d2 against
+   the exact distance) and qgroup=8 (also against the per-query search);
 4. the main path at SIFT1M's published shape (n=1,000,000, d=128,
    k=10,000 -> 16,384, κ=50, ξ=64, τ=10, 20 iterations, batch 1024) on
    ``sift_like`` data: stage seconds, distortion history, recall@κ on
@@ -56,7 +58,16 @@ plain PyTorch version, or when any phase fails.  Phases:
    versions' on the same queries; then ``ivf_scan`` against its plain
    version on that index (nprobe 16 and 64 at topk=10, nprobe 1 at
    topk=100) with its planted faults, and a torch.profiler trace of an
-   nprobe=16 batch loop;
+   nprobe=16 batch loop; then three more sweeps on the same index and
+   queries at nprobe 1, 4, 16, 64, each its own counted run: codec int8,
+   codec PQ (nsub=8, trained on all live rows inside the run) and qgroup=8
+   — the same numbers plus bytes per scanned row and the codec's training
+   seconds, the same gates (PQ's recall is reported, not held to rise with
+   nprobe: see ``serve_codec_paths``); then ``ivf_scan_adc`` against its
+   plain version at nprobe=16, topk=40 for int8 (M=128), PQ nsub=8 and PQ
+   nsub=32 (a 32 KB table, codebooks from 65,536 sampled rows) and
+   ``ivf_scan_grouped`` at G=8, nprobe=16, topk=10, each with planted
+   faults, and traces of a PQ and a qgroup=8 batch loop;
 6. one JSON line of the kernels, the card's ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -863,6 +874,57 @@ def ivf_parity_small(X, r):
         ok = ok and chk["ok"]
     log(f"SIFT_SMALL IVF parity (n={X.shape[0]} + 4096 added, k={r.k}): "
         f"{json.dumps(res)} {'OK' if ok else 'FAIL'}")
+    return ivf_codec_parity_small(a, X_all, Q) and ok
+
+
+def ivf_codec_parity_small(index, X_all, Q, nprobe=8, topk=10):
+    """The compressed-list and grouped searches through the kernels vs the
+    plain versions at the SIFT_SMALL shape: codec int8 and PQ (nsub=8),
+    rerank at its default and at 0, the reranked d2 held against the exact
+    distance to the returned rows; qgroup=8 vs the plain versions and vs
+    the per-query search."""
+    import torch
+    from repro_torch import index as ivf
+    xsq = (X_all * X_all).sum(-1)
+    qsq = (Q * Q).sum(-1)[:, None]
+    res, ok = {}, True
+    for kind in ("int8", "pq"):
+        t0 = time.perf_counter()
+        ix = ivf.quantize_index(index, kind, nsub=8, generator=torch.Generator(
+        ).manual_seed(SEED + 14))
+        torch.cuda.synchronize()
+        res[f"{kind}_train_s"] = time.perf_counter() - t0
+        for rerank in (None, 0):
+            kw = dict(topk=topk, nprobe=nprobe, codec=kind, rerank=rerank)
+            got = ivf.search(ix, Q, **kw)
+            want = ivf.search(ix, Q, force="ref", **kw)
+            scale = qsq + xsq[want[0].long().clamp(min=0)]
+            if rerank == 0:       # distances to the reconstructions
+                scale = scale + want[1].abs().nan_to_num(posinf=0.0)
+            chk = sel_check(got, want, scale)
+            if rerank is None:    # reranked d2 is the exact distance
+                gi, gd = got
+                rows = X_all[gi.long().clamp(min=0)]
+                exact = ((Q[:, None, :] - rows) ** 2).sum(-1)
+                chk["d2_vs_exact"] = sel_check(
+                    (gi, gd), (gi, torch.where(gi < 0, float("inf"), exact)),
+                    qsq + xsq[gi.long().clamp(min=0)])
+                chk["ok"] = chk["ok"] and chk["d2_vs_exact"]["ok"]
+            res[f"{kind}_rerank{rerank}"] = chk
+            ok = ok and chk["ok"]
+    got = ivf.search(index, Q, topk=topk, nprobe=nprobe, qgroup=8)
+    want = ivf.search(index, Q, topk=topk, nprobe=nprobe, qgroup=8,
+                      force="ref")
+    scale = qsq + xsq[want[0].long().clamp(min=0)]
+    chk = sel_check(got, want, scale)
+    per = sel_check(got, ivf.search(index, Q, topk=topk, nprobe=nprobe),
+                    scale)
+    chk["vs_per_query"] = per
+    chk["ok"] = chk["ok"] and per["ok"]
+    res["qgroup8"] = chk
+    ok = ok and chk["ok"]
+    log(f"SIFT_SMALL codec / grouped parity (nprobe={nprobe}, topk={topk}, "
+        f"{Q.shape[0]} queries): {json.dumps(res)} {'OK' if ok else 'FAIL'}")
     return ok
 
 
@@ -931,28 +993,297 @@ def serve_path(X, r):
         "live_rows": index.size == c["n"] + s["add"],
     }
     log(f"serving-path checks: {json.dumps(checks)}")
-    return all(checks.values()), launches, index, Q, X_all
+    return all(checks.values()), launches, index, Q, X_all, gt
 
 
-def profile_serving(index, Q):
+# the compressed-list and grouped serving paths on the same index and queries
+CODEC_PROBES = (1, 4, 16, 64)
+CODEC_PATHS = (("int8", "int8", None), ("pq", "pq", None),
+               ("qgroup8", "f32", 8))
+PQ32_SAMPLE = 65_536    # live rows that train the nsub=32 check's codebooks
+
+
+def serve_codec_paths(index, Q, gt):
+    """Three more sweeps on phase 5's index and queries: codec int8, codec
+    PQ (nsub=8, the reference's default) and qgroup=8, each at nprobe 1, 4,
+    16, 64, rerank at its default.  Each is a counted run of its own: the
+    counts are zeroed just before (the codec's training included) and read
+    just after.  Gates: recall within RECALL_GAP of the plain versions at
+    every nprobe, 0 host syncs in ``search``, the path's kernels launched
+    (and ``ivf_scan`` not), and, but for PQ, recall not falling with
+    nprobe."""
+    import torch
+    from repro_torch import index as ivf
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve_index as si
+    s = SERVE
+    out, ok = {}, True
+    for label, codec, qgroup in CODEC_PATHS:
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        ix = index if codec == "f32" else ivf.quantize_index(
+            index, codec, nsub=8,
+            generator=torch.Generator().manual_seed(SEED + 15))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        log(f"serving sweep {label}: codec {codec}, qgroup {qgroup}, "
+            f"nq={s['nq']} topk={s['topk']} probes={list(CODEC_PROBES)} "
+            f"batch={s['batch']} rounds={s['rounds']}; codec training "
+            f"{train_s:.3f} s on {ix.size} live rows; cuts: none")
+        rows = si.sweep(ix, Q, gt, topk=s["topk"], probes=CODEC_PROBES,
+                        batch=s["batch"], rounds=s["rounds"], qgroup=qgroup,
+                        codec=codec)
+        launches = dict(_build.launch_counts)
+        rec_ref = {}
+        for p in CODEC_PROBES:
+            ids, _ = ivf.search(ix, Q, topk=s["topk"], nprobe=p,
+                                qgroup=qgroup, codec=codec, force="ref")
+            rec_ref[p] = si.recall(ids, gt)
+        gaps = {p: abs(row["recall"] - rec_ref[p])
+                for p, row in zip(CODEC_PROBES, rows)}
+        recs = [row["recall"] for row in rows]
+        kern = "ivf_scan_grouped" if qgroup else "ivf_scan_adc"
+        checks = {
+            "launches": launches["probe_centroids"] > 0 and launches[kern] > 0
+            and launches["ivf_scan"] == 0
+            and (codec != "pq" or launches["assign_centroids"] > 0),
+            "recall_monotone": all(b >= a for a, b in zip(recs, recs[1:])),
+            "recall_vs_plain": all(g <= RECALL_GAP for g in gaps.values()),
+            "host_syncs_in_search": all(r["host_syncs"] == 0 for r in rows),
+        }
+        # PQ's recall is reported, not held to rise with nprobe: a
+        # non-residual 8-subspace PQ spends its 256 codes per subspace on
+        # this data's mixture means and ranks the rows of one component
+        # almost at random, so at a fixed rerank depth more candidates only
+        # crowd the shortlist (the reference's own BENCH_anns_ivf_pq.json
+        # is flat across nprobe at the default rerank)
+        gated = {c: v for c, v in checks.items()
+                 if not (codec == "pq" and c == "recall_monotone")}
+        log(f"serving sweep {label} rows: {json.dumps(rows)}")
+        log(f"serving sweep {label}: kernel launches {json.dumps(launches)}; "
+            f"recall@{s['topk']} through the plain versions "
+            f"{json.dumps(rec_ref)}; |kernels - plain| {json.dumps(gaps)} "
+            f"(limit {RECALL_GAP}); checks {json.dumps(checks)}, gated "
+            f"{sorted(gated)}")
+        out[label] = dict(index=ix, rows=rows, launches=launches,
+                          train_s=train_s, recall_plain=rec_ref)
+        if codec == "pq":     # what the shortlist depth buys (not counted)
+            sub = slice(0, 2000)
+            depth = {r: si.recall(ivf.search(
+                ix, Q[sub], topk=s["topk"], nprobe=16, codec="pq",
+                rerank=r)[0], gt[sub]) for r in (0, 40, 160, 640)}
+            log(f"PQ recall@{s['topk']} at nprobe=16 by rerank depth, first "
+                f"2000 queries: {json.dumps(depth)}")
+        ok = ok and all(gated.values())
+    return ok, out
+
+
+def adc_scale(lut, qc, vnorm, codes, pos):
+    """vnorm + Σ_m |lut[m, code[m]]| + |qconst| of each selected row: the
+    size of the terms an ADC partial sums (its limit is DIST_RTOL times
+    it)."""
+    import torch
+    p = pos.long().clamp(min=0)
+    c = codes[p].long()                                   # (q, k, M)
+    if lut.shape[2] == 1:
+        terms = lut[:, None, :, 0] * c.float()
+    else:
+        terms = torch.gather(lut[:, None].expand(-1, c.shape[1], -1, -1), 3,
+                             c[..., None])[..., 0]
+    return vnorm[p].abs() + terms.abs().sum(-1) + qc.abs()[:, None]
+
+
+def check_adc_kernel(label, ix, Q, tm, live_per_tile, topk):
+    """ivf_scan_adc vs its plain version on one tile map, with planted
+    faults in the plain version: vnorm dropped, every code read one entry
+    off, the tile map off by one."""
+    import torch
+    from repro_torch.index import quantize
+    from repro_torch.kernels import ops, ref
+    bl = ix.block_rows
+    nq = Q.shape[0]
+    n_tiles = ix.n_rows // bl
+    lut, qc = quantize.build_lut(ix.codec, Q)
+    args = (lut, qc, ix.vnorm, ix.codes, ix.ids, tm)
+    kw = dict(block_rows=bl, topk=topk)
+    gi, gp, gd = ops.ivf_scan_adc(*args, **kw)
+    wi, wp, wd = ops.ivf_scan_adc(*args, force="ref", **kw)
+    scale = adc_scale(lut, qc, ix.vnorm, ix.codes, wp)
+    chk = sel_check((gp, gd), (wp, wd), scale)
+    by_id = sel_check((gi, gd), (wi, wd), scale)
+    chk["ids_ok"] = by_id["ok"]
+    sub = slice(0, FAULT_Q)
+    faults = {
+        "vnorm_dropped": (lut[sub], qc[sub], torch.zeros_like(ix.vnorm),
+                          ix.codes, ix.ids, tm[sub]),
+        "lut_one_code_off": (lut[sub], qc[sub], ix.vnorm, ix.codes + 1,
+                             ix.ids, tm[sub]),
+        "tile_map_off_by_one": (lut[sub], qc[sub], ix.vnorm, ix.codes, ix.ids,
+                                torch.clamp(tm[sub] + 1, max=n_tiles - 1))}
+    for name, fargs in faults.items():
+        _, bp, bd = ref.ivf_scan_adc(*fargs, **kw)
+        chk[f"fault_{name}_fails"] = not sel_check(
+            (bp, bd), (wp[sub], wd[sub]), scale[sub])["ok"]
+    chk["ok"] = chk["ok"] and by_id["ok"] and all(
+        chk[f"fault_{f}_fails"] for f in faults)
+    chk["ms"] = time_ms(lambda: ops.ivf_scan_adc(*args, **kw), [()], 10)
+    chk["plain_ms"] = time_ms(
+        lambda: ops.ivf_scan_adc(*args, force="ref", **kw), [()], 2)
+    _, M, W = lut.shape
+    R = int(live_per_tile[tm.long()].sum())            # live rows scanned
+    chk["rows_per_query"] = R / nq
+    chk["lut_bytes"] = M * W * 4
+    nbytes = 4 * nq * M * W + R * (M + 4) + 12 * nq * topk
+    chk["bound_ms"], chk["bound_by"] = bound_ms(nbytes, 2 * R * M)
+    log(f"ivf_scan_adc[{label}] nq={nq} M={M} W={W} topk={topk} "
+        f"T={tm.shape[1]}: {json.dumps(chk)}")
+    return chk, args, kw
+
+
+def _grouped_tile_maps(union, qmask, G, null_tile):
+    """Each grouped row's own tile map: its group's union slots where its
+    mask is set, else the null tile (the same candidates in the same
+    order as the grouped scan gives it)."""
+    import torch
+    return torch.where(qmask > 0, union.repeat_interleave(G, 0),
+                       null_tile).to(torch.int32)
+
+
+def check_grouped_kernel(index, Q, X_all, tm, live_per_tile, G=8, topk=10):
+    """ivf_scan_grouped vs its plain version at G queries per group, with
+    planted faults in the plain version: each query given the next group
+    member's qmask, the union tiles off by one, ||v||² dropped."""
+    import torch
+    from repro_torch import index as ivf
+    from repro_torch.kernels import ops, ref
+    bl = index.block_rows
+    nq, d = Q.shape
+    n_tiles = index.n_rows // bl
+    xsq = (X_all * X_all).sum(-1)
+    order, union, qmask = ivf.build_group_map(tm, group=G,
+                                              null_tile=index.null_tile)
+    Qg = Q[order.clamp(max=nq - 1).long()].contiguous()
+    args = (Qg, index.vecs, index.ids, union, qmask)
+    kw = dict(block_rows=bl, topk=topk)
+    got = ops.ivf_scan_grouped(*args, **kw)
+    want = ops.ivf_scan_grouped(*args, force="ref", **kw)
+    scale = (Qg * Qg).sum(-1)[:, None] + xsq[want[0].long().clamp(min=0)]
+    chk = sel_check(got, want, scale)
+    gs = FAULT_Q // G
+    rs, us = slice(0, gs * G), slice(0, gs)
+    wsub = (want[0][rs], want[1][rs])
+    faults = {
+        "qmask_of_next_member": ref.ivf_scan_grouped(
+            Qg[rs], index.vecs, index.ids, union[us],
+            qmask[rs].view(gs, G, -1).roll(1, dims=1).reshape(gs * G, -1),
+            **kw),
+        "union_off_by_one": ref.ivf_scan_grouped(
+            Qg[rs], index.vecs, index.ids,
+            torch.clamp(union[us] + 1, max=n_tiles - 1), qmask[rs], **kw),
+        "vsq_dropped": _vsq_dropped(
+            Qg[rs], index.vecs, index.ids,
+            _grouped_tile_maps(union[us], qmask[rs], G, index.null_tile),
+            bl, topk)}
+    for name, bad in faults.items():
+        chk[f"fault_{name}_fails"] = not sel_check(bad, wsub,
+                                                   scale[rs])["ok"]
+    chk["ok"] = chk["ok"] and all(chk[f"fault_{f}_fails"] for f in faults)
+    chk["ms"] = time_ms(lambda: ops.ivf_scan_grouped(*args, **kw), [()], 10)
+    chk["plain_ms"] = time_ms(
+        lambda: ops.ivf_scan_grouped(*args, force="ref", **kw), [()], 2)
+    union_rows = int(live_per_tile[union.long()].sum())
+    pairs = int(live_per_tile[tm.long()].sum())
+    chk["union_rows_per_group"] = union_rows / union.shape[0]
+    chk["rows_per_query"] = pairs / nq
+    chk["union_slots"] = union.shape[1]
+    nbytes = 4 * (nq * d + union_rows * d + 2 * nq * topk)
+    chk["bound_ms"], chk["bound_by"] = bound_ms(nbytes, 2 * pairs * d)
+    # yardstick: torch.bmm of each group's queries against its union's live
+    # rows gathered beforehand (dots only, no mask, no selection), for
+    # FAULT_Q // G groups, padded to the widest, scaled to all groups
+    pos = (union[us].long()[:, :, None] * bl
+           + torch.arange(bl, device=DEV)).reshape(gs, -1)
+    live = index.ids[pos] >= 0
+    width = int(live.sum(1).max())
+    first = torch.argsort((~live).to(torch.int8), dim=1, stable=True)
+    rows = index.vecs[torch.gather(pos, 1, first[:, :width])]
+    chk["bmm_ms"] = time_ms(torch.bmm, [(Qg[rs].view(gs, G, d),
+                                         rows.transpose(1, 2))],
+                            10) * union.shape[0] / gs
+    del rows
+    log(f"ivf_scan_grouped nq={nq} G={G} topk={topk} U={union.shape[1]}: "
+        f"{json.dumps(chk)}")
+    return chk, args, kw
+
+
+def check_codec_kernels(index, runs, Q, X_all):
+    """ivf_scan_adc at nq=10,000, nprobe=16, topk=40 (the default rerank
+    depth) for int8 (M=128, W=1), PQ nsub=8 (the served codec) and PQ
+    nsub=32 (a 32 KB table; its codebooks trained on PQ32_SAMPLE live
+    rows, 2 epochs), and ivf_scan_grouped at G=8, nprobe=16, topk=10,
+    against their plain versions on phase 5's index."""
+    import torch
+    from repro_torch import index as ivf
+    from repro_torch.kernels import ops
+    bl = index.block_rows
+    live_per_tile = (index.ids.view(-1, bl) >= 0).sum(1)
+    cids, _ = ops.probe_centroids(Q, index.centroids, 16, force="ref")
+    tm = ivf.build_tile_map(cids, index.starts, index.caps,
+                            max_tiles=index.max_list_tiles, block_rows=bl,
+                            null_tile=index.null_tile)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 16)
+    live = torch.nonzero(index.ids >= 0, as_tuple=True)[0]
+    sample = live[torch.randperm(live.numel(), generator=g,
+                                 device=DEV)[:PQ32_SAMPLE]]
+    t0 = time.perf_counter()
+    pq32 = ivf.train_pq(index.vecs[sample], 32, iters=2,
+                        generator=torch.Generator().manual_seed(SEED + 17))
+    ix32 = ivf.attach_codec(index, pq32)
+    torch.cuda.synchronize()
+    log(f"PQ nsub=32 codec for the kernel check: trained on {PQ32_SAMPLE} "
+        f"sampled live rows, 2 epochs, {time.perf_counter() - t0:.2f} s")
+    out, traced = {"adc": {}}, []
+    for label, ix in (("int8", runs["int8"]["index"]),
+                      ("pq8", runs["pq"]["index"]), ("pq32", ix32)):
+        chk, args, kw = check_adc_kernel(label, ix, Q, tm, live_per_tile, 40)
+        out["adc"][label] = chk
+        traced.append((chk, ops.ivf_scan_adc, args, kw,
+                       "ivf_scan_adc_kernel"))
+    chk, args, kw = check_grouped_kernel(index, Q, X_all, tm, live_per_tile)
+    out["grouped"] = chk
+    traced.append((chk, ops.ivf_scan_grouped, args, kw,
+                   "ivf_scan_grouped_kernel"))
+    # device time per launch, traced after all the event timings above
+    for chk, fn, args, kw, name in traced:
+        chk["device_us"] = kernel_device_us(lambda: fn(*args, **kw), [()],
+                                            name, 5)
+        log(f"{name} kernel device time per launch: {chk['device_us']} us "
+            "(torch.profiler)")
+    return out
+
+
+def profile_serving(index, Q, label="f32", **search_kw):
     """One nprobe=16 batch loop (40 batches of 64, each synchronised, as
-    served), traced (after the counted run)."""
+    served), traced (after the counted runs)."""
     import torch
     from repro_torch import index as ivf
     b = SERVE["batch"]
 
     def loop():
         for b0 in range(0, min(40 * b, Q.shape[0] - b + 1), b):
-            ivf.search(index, Q[b0:b0 + b], topk=SERVE["topk"], nprobe=16)
+            ivf.search(index, Q[b0:b0 + b], topk=SERVE["topk"], nprobe=16,
+                       **search_kw)
             torch.cuda.synchronize()
     loop()
-    profile_window("IVF serving nprobe=16, 40 batches of 64", loop)
+    profile_window(f"IVF serving {label} nprobe=16, 40 batches of 64", loop)
 
 
 def _short(name: str) -> str:
     for key in ("gather_score_kernel", "refine_merge_kernel",
                 "centroid_kernel<true", "centroid_kernel<false",
-                "ivf_scan_kernel"):
+                "ivf_scan_kernel", "ivf_scan_adc_kernel",
+                "ivf_scan_grouped_kernel"):
         if key in name:
             return key
     return name if len(name) <= 70 else name[:67] + "..."
@@ -1069,7 +1400,7 @@ def main() -> int:
     if not ok_main:
         failures.append("main path")
     profile_main_path(X, res)
-    ok_serve, serve_launches, index, Q, X_all = serve_path(X, res)
+    ok_serve, serve_launches, index, Q, X_all, gt = serve_path(X, res)
     if not ok_serve:
         failures.append("serving path")
     launches.update({k: serve_launches[k] for k in
@@ -1078,6 +1409,17 @@ def main() -> int:
     if not sc["ok"]:
         failures.append("ivf_scan vs plain")
     profile_serving(index, Q)
+    del X
+    ok_codec, runs = serve_codec_paths(index, Q, gt)
+    if not ok_codec:
+        failures.append("codec / grouped serving paths")
+    cc = check_codec_kernels(index, runs, Q, X_all)
+    if not all(c["ok"] for c in cc["adc"].values()):
+        failures.append("ivf_scan_adc vs plain")
+    if not cc["grouped"]["ok"]:
+        failures.append("ivf_scan_grouped vs plain")
+    profile_serving(runs["pq"]["index"], Q, "codec pq nsub=8", codec="pq")
+    profile_serving(index, Q, "qgroup=8", qgroup=8)
 
     kernels = [
         dict(name="gather_score", route="cuda",
@@ -1165,6 +1507,45 @@ def main() -> int:
              near_tie_slots={f"{a}/{b}": sc[(a, b)]["near_tie_slots"]
                              for a, b in ((16, 10), (64, 10), (1, 100))},
              check=sel),
+    ]
+    adc, grp = cc["adc"], cc["grouped"]
+    a8 = adc["pq8"]
+    adc_launch = {k: runs[k]["launches"]["ivf_scan_adc"]
+                  for k in ("int8", "pq")}
+
+    def brief(chk, *extra):
+        return {key: chk[key] for key in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "device_us",
+                                          "max_abs_err", "near_tie_slots")
+                + extra}
+    kernels += [
+        dict(name="ivf_scan_adc", route="cuda",
+             source="src/repro_torch/kernels/csrc/ivf_scan_adc.cu",
+             replaces="src/repro/kernels/ivf_scan_adc.py:76",
+             launches=sum(adc_launch.values()), launches_by_path=adc_launch,
+             max_abs_err=max(v["max_abs_err"] for v in adc.values()),
+             ms=a8["ms"], plain_ms=a8["plain_ms"], bound_ms=a8["bound_ms"],
+             bound_by=a8["bound_by"], library_ms=None,
+             shape=f"nq={nq} nprobe=16 topk=40 PQ nsub=8 (M=8, W=256)",
+             device_us=a8["device_us"], near_tie_slots=a8["near_tie_slots"],
+             int8=brief(adc["int8"], "lut_bytes"),
+             pq32=brief(adc["pq32"], "lut_bytes"),
+             check="vs plain: |part err| <= 1e-5*(vnorm + sum_m "
+                   "|lut[m,code[m]]| + |qconst|) per slot, -1/+inf pattern "
+                   "exact, positions and ids equal but at near-ties; planted "
+                   "faults fail"),
+        dict(name="ivf_scan_grouped", route="cuda",
+             source="src/repro_torch/kernels/csrc/ivf_scan_grouped.cu",
+             replaces="src/repro/kernels/ivf_scan.py:149",
+             launches=runs["qgroup8"]["launches"]["ivf_scan_grouped"],
+             max_abs_err=grp["max_abs_err"], ms=grp["ms"],
+             plain_ms=grp["plain_ms"], bound_ms=grp["bound_ms"],
+             bound_by=grp["bound_by"], library_ms=None,
+             shape=f"nq={nq} G=8 nprobe=16 topk=10 d=128",
+             device_us=grp["device_us"], bmm_ms=grp["bmm_ms"],
+             near_tie_slots=grp["near_tie_slots"],
+             union_rows_per_group=grp["union_rows_per_group"],
+             rows_per_query=grp["rows_per_query"], check=sel),
     ]
     log(f"total {time.perf_counter() - t_all:.1f} s; failures: {failures}")
     if failures:

@@ -21,9 +21,12 @@ Differences from the reference, all stated:
   epoch itself syncs nothing: the visit order is made on the CPU and copied
   without blocking (``core.permute``).
 
-Out of this slice (raise ``NotImplementedError``): ``shards > 1``,
-``payload_bf16``, ``valid`` masks, the dense and probe candidate sources
-and ``telemetry``.  ``sparse_updates`` is accepted: on one device it is the
+Candidate sources: ``graph`` (the clusters of the sample's κ neighbours)
+and ``dense`` (all k clusters, scored with one ``(B, k)`` matmul, as the
+reference's ``_score_dense`` computes them outside any kernel; PQ training
+runs it in lloyd mode).  Out of scope (raise ``NotImplementedError``):
+``shards > 1``, ``payload_bf16``, ``valid`` masks, the probe source and
+``telemetry``.  ``sparse_updates`` is accepted: on one device it is the
 same plain scatter (``repro/core/engine.py:620-622``).
 """
 from __future__ import annotations
@@ -45,7 +48,8 @@ class BKMState(NamedTuple):
 
 
 class CandidateSource(NamedTuple):
-    """Which clusters each sample may move to; only kind='graph' here."""
+    """Which clusters each sample may move to: kind='graph' (the clusters
+    of the (n, κ) neighbour ids ``G``) or kind='dense' (all k clusters)."""
 
     kind: str
     G: Optional[torch.Tensor] = None   # (n, κ) neighbour ids, int64
@@ -76,7 +80,8 @@ def graph_source(G: torch.Tensor) -> CandidateSource:
 
 
 def dense_source() -> CandidateSource:
-    raise NotImplementedError("dense candidate source: not ported yet")
+    """Candidates = all k clusters, scored with one matmul per batch."""
+    return CandidateSource("dense")
 
 
 def probe_source(p: int) -> CandidateSource:
@@ -90,7 +95,7 @@ def _check_cfg(cfg: EngineConfig, source: CandidateSource) -> None:
         raise NotImplementedError("payload_bf16: not ported yet")
     if cfg.telemetry:
         raise NotImplementedError("telemetry: not ported yet")
-    if source.kind != "graph":
+    if source.kind not in ("graph", "dense"):
         raise NotImplementedError(f"{source.kind} source: not ported yet")
     if cfg.mode not in ("bkm", "lloyd"):
         raise ValueError(f"mode must be 'bkm' or 'lloyd', got {cfg.mode!r}")
@@ -114,14 +119,52 @@ def _score_gathered(xb, u, cand, D, cnt, mode, eps, force):
     return moved, want_v
 
 
+def _score_dense(xb, u, D, cnt, mode, eps):
+    """Best move per sample over all k clusters, from one (B, k) matmul
+    (``repro/core/engine.py::_score_dense``, same op order)."""
+    k = D.shape[0]
+    ul = u.long()
+    dsq = (D * D).sum(-1)                                 # (k,)
+    dots = xb @ D.T                                       # (B, k)
+    xsq = (xb * xb).sum(-1)                               # (B,)
+    if mode == "bkm":
+        nv = cnt[None, :]
+        gain_v = ((dsq[None, :] + 2.0 * dots + xsq[:, None]) / (nv + 1.0)
+                  - torch.where(nv > 0, dsq[None, :] / torch.clamp(
+                      nv, min=1.0), 0.0))
+        du_sq = dsq[ul]
+        x_du = dots.gather(1, ul[:, None])[:, 0]
+        nu = cnt[ul]
+        num_u = du_sq - 2.0 * x_du + xsq
+        resid = torch.where(nu > 1, num_u / torch.clamp(nu - 1.0, min=1.0),
+                            0.0)
+        score = gain_v + (resid - du_sq / torch.clamp(nu, min=1.0))[:, None]
+        cols = torch.arange(k, device=xb.device)
+        score = torch.where(cols[None, :] == ul[:, None], float("-inf"),
+                            score)
+        best = score.argmax(dim=1)                        # first maximum
+        moved = score.gather(1, best[:, None])[:, 0] > eps
+    else:
+        csq_n = torch.clamp(cnt, min=1.0)
+        d2 = (dsq[None, :] / (csq_n * csq_n)[None, :]
+              - 2.0 * dots / csq_n[None, :])
+        d2 = torch.where(cnt[None, :] > 0, d2, float("inf"))
+        best = d2.argmin(dim=1)                           # first minimum
+        moved = best != ul
+    return moved, best.to(torch.int32)
+
+
 def _move_step(X, st: BKMState, idx, lookup, source, cfg: EngineConfig):
     """One batched candidate -> score -> move step, in place on ``st``."""
     k = st.cnt.shape[0]
     xb = X[idx]
     u = st.assign[idx]
-    cand = lookup[source.G[idx]]                          # (B, κ) int32
-    moved, want_v = _score_gathered(xb, u, cand, st.D, st.cnt, cfg.mode,
-                                    cfg.eps, cfg.force)
+    if source.kind == "dense":
+        moved, want_v = _score_dense(xb, u, st.D, st.cnt, cfg.mode, cfg.eps)
+    else:
+        cand = lookup[source.G[idx]]                      # (B, κ) int32
+        moved, want_v = _score_gathered(xb, u, cand, st.D, st.cnt, cfg.mode,
+                                        cfg.eps, cfg.force)
     # leaver guard: block all leavers of a cluster whose leaver count would
     # reach its population (conservative, rare)
     ul = u.long()

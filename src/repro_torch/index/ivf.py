@@ -14,6 +14,13 @@ host and no step loops over the k lists in Python.  The pack, the repack
 and the overflow test of ``add`` sync the host (they size new buffers);
 ``search`` never does: ``max_list_tiles`` is a plain int fixed at pack time.
 Every function returns a new index and leaves its argument as it was.
+
+An index may carry a compressed payload (``index/quantize.py``): ``codes``
+and ``vnorm`` mirror ``vecs`` row for row, ``codes == encode(vecs)`` (the
+lockstep rule), so every path that rewrites ``vecs`` re-encodes the same
+rows: a hole-filling ``add`` encodes exactly the rows it wrote, on the
+device; an overflowing ``add`` and ``repack`` re-attach the codec;
+``remove`` only tombstones ids and leaves the codes as they are.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch._device import DeviceLike, as_f32, resolve_device
+from repro_torch.index import quantize as _q
 from repro_torch.kernels import ops as kops
 
 
@@ -36,15 +44,21 @@ class IvfIndex:
     block_rows: int           # rows per scan tile
     max_list_tiles: int       # max(caps) // block_rows, fixed at pack time
     repack_threshold: float = 0.5   # repack when live/capacity falls below
+    # optional compressed payload, row for row with vecs (the lockstep rule)
+    codec: Optional[_q.Codec] = None
+    codes: Optional[torch.Tensor] = None   # (n_rows, code_width) uint8
+    vnorm: Optional[torch.Tensor] = None   # (n_rows,) f32 ||decode(codes)||²
 
     @classmethod
     def from_arrays(cls, centroids, vecs, ids, starts, caps, block_rows: int,
-                    repack_threshold: float = 0.5) -> "IvfIndex":
+                    repack_threshold: float = 0.5, codec=None, codes=None,
+                    vnorm=None) -> "IvfIndex":
         """The index over packed tensors (all on one device), with
         ``max_list_tiles`` read from ``caps`` (syncs the host once)."""
         biggest = int(caps.max()) if caps.numel() else 0
         return cls(centroids, vecs, ids, starts, caps, int(block_rows),
-                   biggest // int(block_rows), float(repack_threshold))
+                   biggest // int(block_rows), float(repack_threshold),
+                   codec, codes, vnorm)
 
     @property
     def device(self) -> torch.device:
@@ -71,6 +85,11 @@ class IvfIndex:
     @property
     def null_tile(self) -> int:
         return self.capacity_rows // self.block_rows
+
+    @property
+    def codec_kind(self) -> str:
+        """Codec of the packed payload: 'f32' when uncompressed."""
+        return "f32" if self.codec is None else self.codec.kind
 
     @property
     def size(self) -> int:
@@ -152,20 +171,37 @@ def _gather_live(index: IvfIndex
     return index.vecs[rows], index.ids[rows], _row_lists(index, rows)
 
 
-def _no_codec(name: str):
-    raise NotImplementedError(
-        f"{name}: compressed lists (int8/PQ codecs) are not ported yet "
-        "(ROADMAP.md, item 1.9b: quantize.py with ivf_scan_adc)")
+def attach_codec(index: IvfIndex, codec: _q.Codec) -> IvfIndex:
+    """Encode the whole slab with ``codec`` (moved to the index's device).
+
+    Re-attaching after a layout change keeps ``codes == encode(vecs)``; the
+    coarse quantizer and the f32 rows stay: they serve the probe and the
+    exact-rerank tail.
+    """
+    codec = codec.to(index.device)
+    codes, vnorm = _q.pack_codes(codec, index.vecs)
+    return replace(index, codec=codec, codes=codes, vnorm=vnorm)
 
 
-def attach_codec(index: IvfIndex, codec) -> IvfIndex:
-    """Not ported yet (compressed lists)."""
-    _no_codec("attach_codec")
+def quantize_index(index: IvfIndex, kind: str, *, nsub: int = 8,
+                   generator: Optional[torch.Generator] = None,
+                   iters: int = 8) -> IvfIndex:
+    """Train a codec on the index's live rows and attach it.
 
-
-def quantize_index(index: IvfIndex, kind: str, **kw) -> IvfIndex:
-    """Not ported yet (compressed lists)."""
-    _no_codec("quantize_index")
+    kind='int8' fits the per-dimension affine; kind='pq' trains ``nsub``
+    sub-codebooks with the engine's own k-means (``quantize.train_pq``,
+    drawing from ``generator``, default seed 0).
+    """
+    X_live, _, _ = _gather_live(index)
+    if kind == "int8":
+        codec = _q.train_int8(X_live)
+    elif kind == "pq":
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        codec = _q.train_pq(X_live, nsub, generator=generator, iters=iters)
+    else:
+        raise ValueError(f"unknown codec kind: {kind!r}")
+    return attach_codec(index, codec)
 
 
 def shard_lists(index: IvfIndex, shards: int):
@@ -178,8 +214,13 @@ def shard_lists(index: IvfIndex, shards: int):
 def repack(index: IvfIndex) -> IvfIndex:
     """Rebuild the packed layout with all holes squeezed out."""
     X, ids, assign = _gather_live(index)
-    return _pack(X, ids, assign, index.centroids, index.k, index.block_rows,
-                 index.repack_threshold)
+    return _with_codec(_pack(X, ids, assign, index.centroids, index.k,
+                             index.block_rows, index.repack_threshold),
+                       index.codec)
+
+
+def _with_codec(index: IvfIndex, codec: Optional[_q.Codec]) -> IvfIndex:
+    return index if codec is None else attach_codec(index, codec)
 
 
 def _maybe_repack(index: IvfIndex) -> IvfIndex:
@@ -197,8 +238,10 @@ def add(index: IvfIndex, X_new, new_ids=None, *,
     row order; a row whose list has no r-th hole overflows, and any overflow
     folds everything into a full repack — the reference's loop
     (``repro/index/ivf.py``, ``add``) as whole-tensor ops.  ``new_ids``
-    defaults to ``max(ids) + 1 + arange``.  Syncs the host once (the
-    overflow test), twice more on a repack.
+    defaults to ``max(ids) + 1 + arange``.  With a codec, a hole fill
+    encodes the rows it wrote and scatters their codes; a repack re-attaches
+    the codec.  Syncs the host once (the overflow test), twice more on a
+    repack.
     """
     dev = index.device
     X_new = as_f32(X_new, dev)
@@ -236,19 +279,29 @@ def add(index: IvfIndex, X_new, new_ids=None, *,
     vecs[target] = torch.where(fits[:, None], X_new, 0.0)
     out = replace(index, ids=ids, vecs=vecs)
     if bool(fits.all()):
-        return out
+        if index.codec is None:
+            return out
+        # lockstep: encode exactly the rows written, from the same tensor
+        c_new, v_new = _q.pack_codes(index.codec, X_new)
+        codes = index.codes.clone()
+        vnorm = index.vnorm.clone()
+        codes[target] = c_new
+        vnorm[target] = v_new
+        return replace(out, codes=codes, vnorm=vnorm)
     # some list is full: fold the stragglers in via a full repack
     over = torch.nonzero(~fits, as_tuple=True)[0]
     X_all, id_all, a_all = _gather_live(out)
-    return _pack(torch.cat([X_all, X_new[over]]),
-                 torch.cat([id_all, new_ids[over]]),
-                 torch.cat([a_all, assign[over]]), index.centroids, index.k,
-                 index.block_rows, index.repack_threshold)
+    return _with_codec(_pack(torch.cat([X_all, X_new[over]]),
+                             torch.cat([id_all, new_ids[over]]),
+                             torch.cat([a_all, assign[over]]),
+                             index.centroids, index.k, index.block_rows,
+                             index.repack_threshold), index.codec)
 
 
 def remove(index: IvfIndex, rm_ids) -> IvfIndex:
-    """Tombstone the given original ids; repack when the live fraction of
-    the packed buffer drops below ``repack_threshold``."""
+    """Tombstone the given original ids (codes stay as they are); repack
+    when the live fraction of the packed buffer drops below
+    ``repack_threshold``."""
     rm = torch.as_tensor(rm_ids).reshape(-1).to(device=index.device,
                                                 dtype=torch.int32)
     ids = torch.where(torch.isin(index.ids, rm),

@@ -1,11 +1,13 @@
-"""Index persistence in the reference's on-disk format (f32 payloads).
+"""Index persistence in the reference's on-disk format.
 
 Counterpart of ``repro.index.store``.  Flat format (``.ivf``): an 8-byte
 little-endian header length, a JSON header padded so the data starts on a
 64-byte boundary, then each array's raw bytes, every section 64-byte
-aligned.  ``.npz`` (compressed) is also read and written.  An index saved
-by either package loads in the other.  Files that carry a codec (int8/PQ
-sections) are refused: compressed lists are not ported yet.
+aligned.  ``.npz`` (compressed) is also read and written.  An index with a
+codec has the header key ``codec`` and the sections ``codes``, ``vnorm``
+and ``int8_scale``/``int8_zero`` or ``pq_codebook``.  An index saved by
+either package loads in the other.  ``load_index(mmap=True)`` (memmapped
+host arrays) is not ported.
 """
 from __future__ import annotations
 
@@ -17,12 +19,17 @@ import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.index.ivf import IvfIndex
+from repro_torch.index.quantize import Int8Codec, PqCodec
 
 _ALIGN = 64
 _MAGIC = "repro-ivf-v1"
 _ARRAYS = ("centroids", "vecs", "ids", "starts", "caps")
+# extra sections when a codec is attached, by codec kind
+_CODEC_ARRAYS = {"int8": ("int8_scale", "int8_zero"), "pq": ("pq_codebook",)}
 _DTYPES = {"centroids": np.float32, "vecs": np.float32, "ids": np.int32,
-           "starts": np.int32, "caps": np.int32}
+           "starts": np.int32, "caps": np.int32, "codes": np.uint8,
+           "vnorm": np.float32, "int8_scale": np.float32,
+           "int8_zero": np.float32, "pq_codebook": np.float32}
 
 
 def _pad(n: int) -> int:
@@ -31,10 +38,19 @@ def _pad(n: int) -> int:
 
 def save_index(index: IvfIndex, path: str) -> None:
     """Write the index to ``path`` (.npz suffix -> npz, else flat binary)."""
-    arrays = {name: getattr(index, name).detach().cpu().numpy().astype(
-        _DTYPES[name], copy=False) for name in _ARRAYS}
+    tensors = {name: getattr(index, name) for name in _ARRAYS}
     meta = {"magic": _MAGIC, "block_rows": index.block_rows,
             "repack_threshold": index.repack_threshold}
+    if index.codec is not None:
+        meta["codec"] = index.codec.kind
+        tensors["codes"], tensors["vnorm"] = index.codes, index.vnorm
+        if index.codec.kind == "int8":
+            tensors["int8_scale"] = index.codec.scale
+            tensors["int8_zero"] = index.codec.zero
+        else:
+            tensors["pq_codebook"] = index.codec.codebook
+    arrays = {name: t.detach().cpu().numpy().astype(_DTYPES[name], copy=False)
+              for name, t in tensors.items()}
     if path.endswith(".npz"):
         np.savez_compressed(path, meta=json.dumps(meta), **arrays)
         return
@@ -57,16 +73,25 @@ def save_index(index: IvfIndex, path: str) -> None:
         f.truncate(base + off)  # pad the last section, as the reference
 
 
-def _refuse_codec(meta: dict, path: str) -> None:
-    if "codec" in meta:
-        raise NotImplementedError(
-            f"{path} carries a {meta['codec']!r} codec: compressed lists are "
-            "not ported yet (ROADMAP.md, item 1.9b)")
+def _names(meta: dict, path: str):
+    """The sections a file must hold: the f32 index, plus its codec's."""
+    kind = meta.get("codec")
+    if kind is None:
+        return _ARRAYS
+    if kind not in _CODEC_ARRAYS:
+        raise ValueError(f"{path}: unknown codec kind {kind!r}")
+    return _ARRAYS + ("codes", "vnorm") + _CODEC_ARRAYS[kind]
 
 
-def load_index(path: str, *, device: DeviceLike = None) -> IvfIndex:
+def load_index(path: str, *, device: DeviceLike = None,
+               mmap: bool = False) -> IvfIndex:
     """Read an index written by ``save_index`` (either package) onto
-    ``device`` (default ``cuda``; pass ``device="cpu"`` for the CPU)."""
+    ``device`` (default ``cuda``; pass ``device="cpu"`` for the CPU).
+    ``mmap=True`` is not ported and raises."""
+    if mmap:
+        raise NotImplementedError(
+            "load_index(mmap=True): memmapped host arrays are not ported "
+            "(ROADMAP.md, item 1.9b)")
     dev = resolve_device(device)
     if path.endswith(".npz"):
         with np.load(path, allow_pickle=False) as z:
@@ -76,8 +101,7 @@ def load_index(path: str, *, device: DeviceLike = None) -> IvfIndex:
                 raise ValueError(f"not a repro IVF index: {path}") from e
             if meta.get("magic") != _MAGIC:
                 raise ValueError(f"not a repro IVF index: {path}")
-            _refuse_codec(meta, path)
-            arrays = {name: z[name] for name in _ARRAYS}
+            arrays = {name: z[name] for name in _names(meta, path)}
     else:
         with open(path, "rb") as f:
             hlen = int.from_bytes(f.read(8), "little")
@@ -89,20 +113,24 @@ def load_index(path: str, *, device: DeviceLike = None) -> IvfIndex:
                 raise ValueError(f"not a repro IVF index: {path}") from e
             if meta.get("magic") != _MAGIC:
                 raise ValueError(f"not a repro IVF index: {path}")
-            _refuse_codec(meta, path)
             base = 8 + hlen
             arrays = {}
-            for name in _ARRAYS:
+            for name in _names(meta, path):
                 sec = meta["sections"][name]
                 f.seek(base + sec["offset"])
                 a = np.fromfile(f, dtype=sec["dtype"],
                                 count=int(np.prod(sec["shape"])))
                 arrays[name] = a.reshape(sec["shape"])
     t = {name: torch.from_numpy(np.ascontiguousarray(
-        arrays[name], dtype=_DTYPES[name])).to(dev) for name in _ARRAYS}
+        a, dtype=_DTYPES[name])).to(dev) for name, a in arrays.items()}
+    codec = None
+    if meta.get("codec") == "int8":
+        codec = Int8Codec(scale=t.pop("int8_scale"), zero=t.pop("int8_zero"))
+    elif meta.get("codec") == "pq":
+        codec = PqCodec(codebook=t.pop("pq_codebook"))
     return IvfIndex.from_arrays(block_rows=meta["block_rows"],
                                 repack_threshold=meta["repack_threshold"],
-                                **t)
+                                codec=codec, **t)
 
 
 def index_nbytes(path: str) -> int:

@@ -14,6 +14,7 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core.engine import BKMState
 from repro_torch.core.knn_graph import KnnGraph
 from repro_torch.index.ivf import IvfIndex
+from repro_torch.index.quantize import Int8Codec, PqCodec
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -49,15 +50,31 @@ def epoch_words(words) -> torch.Tensor:
 
 
 def ivf_index(centroids, vecs, ids, starts, caps, block_rows: int,
-              repack_threshold: float = 0.5,
-              device: DeviceLike = None) -> IvfIndex:
+              repack_threshold: float = 0.5, device: DeviceLike = None, *,
+              codes=None, vnorm=None, int8_scale=None, int8_zero=None,
+              pq_codebook=None) -> IvfIndex:
     """IvfIndex from a packed index's arrays (a ``repro.index.IvfIndex``'s
     fields as numpy), row for row, on ``device`` (default ``cuda``; pass
-    ``device="cpu"`` for the CPU)."""
+    ``device="cpu"`` for the CPU).
+
+    A compressed payload comes across with ``codes`` and ``vnorm`` and the
+    codec's arrays: ``int8_scale`` and ``int8_zero`` (the reference's
+    ``Int8Codec.scale``/``.zero``) or ``pq_codebook`` (``PqCodec.codebook``)
+    — the sections a saved index holds.
+    """
     dev = resolve_device(device)
-    return IvfIndex.from_arrays(_tensor(centroids, np.float32, dev),
-                                _tensor(vecs, np.float32, dev),
-                                _tensor(ids, np.int32, dev),
-                                _tensor(starts, np.int32, dev),
-                                _tensor(caps, np.int32, dev), block_rows,
-                                repack_threshold)
+    codec = None
+    if int8_scale is not None:
+        codec = Int8Codec(_tensor(int8_scale, np.float32, dev),
+                          _tensor(int8_zero, np.float32, dev))
+    elif pq_codebook is not None:
+        codec = PqCodec(_tensor(pq_codebook, np.float32, dev))
+    if (codec is None) != (codes is None) or (codes is None) != (
+            vnorm is None):
+        raise ValueError("a codec needs codes, vnorm and its own arrays")
+    return IvfIndex.from_arrays(
+        _tensor(centroids, np.float32, dev), _tensor(vecs, np.float32, dev),
+        _tensor(ids, np.int32, dev), _tensor(starts, np.int32, dev),
+        _tensor(caps, np.int32, dev), block_rows, repack_threshold, codec,
+        None if codes is None else _tensor(codes, np.uint8, dev),
+        None if vnorm is None else _tensor(vnorm, np.float32, dev))

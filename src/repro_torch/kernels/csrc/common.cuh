@@ -2,6 +2,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace repro_torch {
@@ -12,6 +13,60 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
   return v;
+}
+
+// The largest running top-k list of the scan kernels.
+constexpr int kMaxTopk = 1024;
+
+// Insert (v, id) into the sorted list (ld, li) of length k (shared memory);
+// the caller has checked v < ld[k-1].  Whole warp, uniform arguments.  The
+// insert position is the count of entries <= v, so an equal value never
+// displaces an earlier one.
+__device__ __forceinline__ void list_insert(float* ld, int* li, int k,
+                                            float v, int id, int lane) {
+  int cnt = 0;
+  for (int j = lane; j < k; j += 32) cnt += ld[j] <= v;
+  const int pos = __reduce_add_sync(kFullMask, cnt);
+  // shift [pos, k-2] up by one: read everything first, then write
+  float tv[kMaxTopk / 32];
+  int ti[kMaxTopk / 32];
+  const int hi = (k + 31) / 32;
+  for (int s = 0; s < hi; ++s) {
+    const int j = lane + 32 * s;
+    if (j > pos && j < k) { tv[s] = ld[j - 1]; ti[s] = li[j - 1]; }
+  }
+  __syncwarp();
+  for (int s = 0; s < hi; ++s) {
+    const int j = lane + 32 * s;
+    if (j > pos && j < k) { ld[j] = tv[s]; li[j] = ti[s]; }
+    if (j == pos) { ld[j] = v; li[j] = id; }
+  }
+  __syncwarp();
+}
+
+// Merge n candidates (part[c], payload[c]) in index order into the sorted
+// list (ld, li) of length k.  Whole warp.  The lanes test 32 candidates at a
+// time against the k-th entry, and the ones strictly below it are inserted
+// one by one in index order, so among equal values the earlier one stays
+// ahead (the reference's old-list-first, first-minimum order).
+__device__ __forceinline__ void merge_candidates(float* ld, int* li, int k,
+                                                 const float* part,
+                                                 const int* payload, int n,
+                                                 int lane) {
+  float thr = ld[k - 1];
+  for (int c0 = 0; c0 < n; c0 += 32) {
+    const int c = c0 + lane;
+    const float v = c < n ? part[c] : INFINITY;
+    unsigned m = __ballot_sync(kFullMask, v < thr);
+    while (m) {
+      const int src = __ffs(m) - 1;
+      m &= m - 1;
+      const float cv = __shfl_sync(kFullMask, v, src);
+      if (!(cv < thr)) continue;  // uniform
+      list_insert(ld, li, k, cv, payload[c0 + src], lane);
+      thr = ld[k - 1];
+    }
+  }
 }
 
 // Four consecutive floats row[e..e+3], zero past d.  kAligned: d % 4 == 0

@@ -41,15 +41,15 @@
 namespace {
 
 using repro_torch::dot4;
-using repro_torch::kFullMask;
+using repro_torch::kMaxTopk;
 using repro_torch::load4;
+using repro_torch::merge_candidates;
 using repro_torch::WarpVec;
 using repro_torch::warp_sum;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsInFlight = 4;
-constexpr int kMaxTopk = 1024;
 
 // This lane's share of (q·v, v·v) for row v.
 template <int NS, bool kAligned>
@@ -72,30 +72,6 @@ __device__ __forceinline__ void dot_sq(const WarpVec<NS, kAligned>& qv,
       sq += dot4(r, r);
     }
   }
-}
-
-// Insert (v, id) into the sorted list (ld, li) of length k; the caller has
-// checked v < ld[k-1].  Whole warp, uniform arguments.
-__device__ __forceinline__ void list_insert(float* ld, int* li, int k,
-                                            float v, int id, int lane) {
-  int cnt = 0;
-  for (int j = lane; j < k; j += 32) cnt += ld[j] <= v;
-  const int pos = __reduce_add_sync(kFullMask, cnt);
-  // shift [pos, k-2] up by one: read everything first, then write
-  float tv[kMaxTopk / 32];
-  int ti[kMaxTopk / 32];
-  const int hi = (k + 31) / 32;
-  for (int s = 0; s < hi; ++s) {
-    const int j = lane + 32 * s;
-    if (j > pos && j < k) { tv[s] = ld[j - 1]; ti[s] = li[j - 1]; }
-  }
-  __syncwarp();
-  for (int s = 0; s < hi; ++s) {
-    const int j = lane + 32 * s;
-    if (j > pos && j < k) { ld[j] = tv[s]; li[j] = ti[s]; }
-    if (j == pos) { ld[j] = v; li[j] = id; }
-  }
-  __syncwarp();
 }
 
 template <int NS, bool kAligned>
@@ -165,22 +141,7 @@ ivf_scan_kernel(const float* __restrict__ Q, const float* __restrict__ vecs,
     prev = tile;
     prev_empty = !live;
     if (!live) continue;
-    if (warp == 0) {
-      float thr = ld[topk - 1];
-      for (int c0 = 0; c0 < block_rows; c0 += 32) {
-        const int c = c0 + lane;
-        const float v = c < block_rows ? part[c] : INFINITY;
-        unsigned m = __ballot_sync(kFullMask, v < thr);
-        while (m) {
-          const int src = __ffs(m) - 1;
-          m &= m - 1;
-          const float cv = __shfl_sync(kFullMask, v, src);
-          if (!(cv < thr)) continue;  // uniform
-          list_insert(ld, li, topk, cv, cid[c0 + src], lane);
-          thr = ld[topk - 1];
-        }
-      }
-    }
+    if (warp == 0) merge_candidates(ld, li, topk, part, cid, block_rows, lane);
     __syncthreads();
   }
 

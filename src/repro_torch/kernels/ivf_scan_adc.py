@@ -1,0 +1,83 @@
+"""Wrapper of the hand-written CUDA ``ivf_scan_adc`` kernel.
+
+Counterpart of ``repro.kernels.ivf_scan_adc.ivf_scan_adc`` (the Pallas TPU
+kernel).  The kernel (``csrc/ivf_scan_adc.cu``) walks each query's probed
+tiles of the packed u8 code slab, one CTA per query, with the query's
+distance table in shared memory, and keeps a running top-k of packed row
+positions.  This wrapper checks its inputs, allocates the outputs, launches
+on the current stream, then gathers the ids by position and adds the query
+constant to the selected partials, in the reference's op order.  It takes
+CUDA tensors only: CPU tensors go to ``kernels.ref.ivf_scan_adc`` through
+``kernels.ops``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+MAX_TOPK = 1024         # the kernel's largest list (csrc/common.cuh)
+MAX_LUT_FLOATS = 32768  # M·W floats of table in shared memory (128 KiB)
+
+
+def _fn():
+    f = _build.library("ivf_scan_adc").ivf_scan_adc_launch
+    if f.argtypes is None:
+        f.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                      + [ctypes.c_void_p])
+        f.restype = ctypes.c_int
+    return f
+
+
+def ivf_scan_adc(lut: torch.Tensor, qconst: torch.Tensor,
+                 vnorm: torch.Tensor, codes: torch.Tensor,
+                 pids: torch.Tensor, tile_map: torch.Tensor, *,
+                 block_rows: int, topk: int = 10
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(ids, pos, part), each (q, topk), computed by the CUDA kernel.
+
+    lut (q, M, W) f32 and qconst (q,) f32 (``index.quantize.build_lut``);
+    vnorm (n_pad,) f32; codes (n_pad, M) uint8; pids (n_pad,) int32, -1 at
+    holes; tile_map (q, T) int32 — all contiguous on one CUDA device, n_pad
+    a multiple of block_rows.  Returns ids (-1 at empty slots), the packed
+    row positions (-1 at empty slots) and the raw partials plus qconst
+    (+inf at empty slots).  1 <= topk <= 1024; M·W <= 32,768.
+    """
+    if lut.dim() != 3 or codes.dim() != 2 or tile_map.dim() != 2:
+        raise ValueError("lut must be 3-D, codes and tile_map 2-D")
+    if not 1 <= topk <= MAX_TOPK:
+        raise ValueError(f"need 1 <= topk <= {MAX_TOPK}, got {topk}")
+    nq, m, w = lut.shape
+    if m * w > MAX_LUT_FLOATS:
+        raise ValueError(f"the table of M*W = {m * w} floats exceeds the "
+                         f"kernel's {MAX_LUT_FLOATS} in shared memory")
+    n_pad = codes.shape[0]
+    if block_rows < 1 or n_pad % block_rows:
+        raise ValueError(f"n_pad {n_pad} is not a multiple of block_rows "
+                         f"{block_rows}")
+    T = tile_map.shape[1]
+    dev = lut.device
+    _build.check_tensor(lut, "lut", torch.float32, (nq, m, w), dev)
+    _build.check_tensor(qconst, "qconst", torch.float32, (nq,), dev)
+    _build.check_tensor(vnorm, "vnorm", torch.float32, (n_pad,), dev)
+    _build.check_tensor(codes, "codes", torch.uint8, (n_pad, m), dev)
+    _build.check_tensor(pids, "pids", torch.int32, (n_pad,), dev)
+    _build.check_tensor(tile_map, "tile_map", torch.int32, (nq, T), dev)
+    opos = torch.empty((nq, topk), dtype=torch.int32, device=dev)
+    od = torch.empty((nq, topk), dtype=torch.float32, device=dev)
+    if nq > 0:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _fn()(lut.data_ptr(), vnorm.data_ptr(), codes.data_ptr(),
+                   pids.data_ptr(), tile_map.data_ptr(), opos.data_ptr(),
+                   od.data_ptr(), nq, T, m, w, block_rows,
+                   n_pad // block_rows, topk, stream)
+        if rc != 0:
+            raise RuntimeError(f"ivf_scan_adc launch failed: CUDA error {rc}")
+        _build.launch_counts["ivf_scan_adc"] += 1
+    empty = opos < 0
+    ids = torch.where(empty, -1, pids[opos.clamp(min=0).long()])
+    part = torch.where(empty, float("inf"), od + qconst[:, None])
+    return ids, opos, part

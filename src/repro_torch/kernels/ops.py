@@ -15,6 +15,8 @@ import torch
 from repro_torch.kernels import centroid_assign as _ca
 from repro_torch.kernels import gather_score as _gs
 from repro_torch.kernels import ivf_scan as _ivf
+from repro_torch.kernels import ivf_scan_adc as _adc
+from repro_torch.kernels import ivf_scan_grouped as _grp
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import refine_merge as _rm
 
@@ -75,3 +77,33 @@ def ivf_scan(Q: torch.Tensor, vecs: torch.Tensor, pids: torch.Tensor,
                              topk=topk, raw=raw)
     return _ref.ivf_scan(Q, vecs, pids, tile_map, block_rows=block_rows,
                          topk=topk, raw=raw)
+
+
+def ivf_scan_grouped(Qg: torch.Tensor, vecs: torch.Tensor,
+                     pids: torch.Tensor, union_tiles: torch.Tensor,
+                     qmask: torch.Tensor, *, block_rows: int, topk: int = 10,
+                     force: Optional[str] = None, raw: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Query-grouped scan: each union tile read once per group of queries
+    -> (ids, d2) top-k in grouped order."""
+    if _use_kernel(Qg, force):
+        return _grp.ivf_scan_grouped(Qg, vecs, pids, union_tiles, qmask,
+                                     block_rows=block_rows, topk=topk,
+                                     raw=raw)
+    return _ref.ivf_scan_grouped(Qg, vecs, pids, union_tiles, qmask,
+                                 block_rows=block_rows, topk=topk, raw=raw)
+
+
+def ivf_scan_adc(lut: torch.Tensor, qconst: torch.Tensor,
+                 vnorm: torch.Tensor, codes: torch.Tensor,
+                 pids: torch.Tensor, tile_map: torch.Tensor, *,
+                 block_rows: int, topk: int = 10,
+                 force: Optional[str] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Asymmetric-distance scan of compressed lists through a per-query
+    table -> (ids, packed-row pos, raw partials) top-k."""
+    if _use_kernel(lut, force):
+        return _adc.ivf_scan_adc(lut, qconst, vnorm, codes, pids, tile_map,
+                                 block_rows=block_rows, topk=topk)
+    return _ref.ivf_scan_adc(lut, qconst, vnorm, codes, pids, tile_map,
+                             block_rows=block_rows, topk=topk)

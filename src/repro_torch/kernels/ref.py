@@ -2,7 +2,8 @@
 
 Counterparts of ``repro.kernels.ref`` (``scores_from_dots``,
 ``gather_score``, ``merge_lists``, ``refine_merge``, ``stable_topk``,
-``finalize_d2``, ``probe_centroids``, ``assign_centroids``, ``ivf_scan``).
+``finalize_d2``, ``probe_centroids``, ``assign_centroids``, ``ivf_scan``,
+``ivf_scan_grouped``, ``ivf_scan_adc``).
 They run on any device: ``kernels.ops`` sends CPU tensors here, and
 ``chip_smoke.py`` holds the CUDA kernels against them on the card
 (``force="ref"``).  Every op is elementwise per row or a batched product,
@@ -256,6 +257,12 @@ def assign_centroids(X: torch.Tensor, C: torch.Tensor
     return torch.cat(out_a), torch.cat(out_d)
 
 
+def _empty_topk(topk: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ids, d) of zero queries."""
+    return (torch.empty((0, topk), dtype=torch.int32, device=device),
+            torch.empty((0, topk), device=device))
+
+
 def ivf_scan(Q: torch.Tensor, vecs: torch.Tensor, pids: torch.Tensor,
              tile_map: torch.Tensor, *, block_rows: int, topk: int = 10,
              raw: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -291,11 +298,120 @@ def ivf_scan(Q: torch.Tensor, vecs: torch.Tensor, pids: torch.Tensor,
         d, ids = stable_topk(part, cids, topk)
         out_i.append(ids)
         out_d.append(d)
-    if not out_i:
-        ids = torch.empty((0, topk), dtype=torch.int32, device=dev)
-        d = torch.empty((0, topk), device=dev)
-    else:
+    if out_i:
         ids, d = torch.cat(out_i), torch.cat(out_d)
+    else:
+        ids, d = _empty_topk(topk, dev)
     if raw:
         return ids, torch.where(ids < 0, torch.full_like(d, INF), d)
     return finalize_d2(ids, d, Q)
+
+
+def ivf_scan_grouped(Qg: torch.Tensor, vecs: torch.Tensor,
+                     pids: torch.Tensor, union_tiles: torch.Tensor,
+                     qmask: torch.Tensor, *, block_rows: int, topk: int = 10,
+                     raw: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Query-grouped scan (``repro.kernels.ref.ivf_scan_grouped``).
+
+    Qg (ngroups·G, d) queries permuted into groups; union_tiles (ngroups,
+    U) int32 deduped tile indices per group; qmask (ngroups·G, U) nonzero
+    where the query probed that union slot.  Query j of group g takes the
+    rows of the slots it probed, in union slot order then row order, scored
+    ``||v||² − 2q·v`` (+inf at holes and at slots it did not probe), and
+    the top-k is taken with the first-minimum rule.  Returns (ids, d2) of
+    shape (ngroups·G, topk) in the grouped order, d2 as ``ivf_scan``'s.
+
+    Groups are chunked, and only the (query, row) pairs that count are
+    computed: a pair a query did not probe, or a hole, scores +inf whatever
+    its vector.
+    """
+    ngroups, U = union_tiles.shape
+    nqg = Qg.shape[0]
+    G = nqg // ngroups if ngroups else 0
+    L = U * block_rows
+    Qf = Qg.float()
+    dev = Qg.device
+    offs = torch.arange(block_rows, device=dev)
+    starts, step = _row_chunks(ngroups, G * L)
+    out_i, out_d = [], []
+    for a in starts:
+        ut = union_tiles[a:a + step].long()
+        c = ut.shape[0]
+        pos = (ut[:, :, None] * block_rows + offs).reshape(c, L)
+        cids = pids[pos]                                       # (c, L)
+        probed = qmask[a * G:(a + c) * G].reshape(c, G, U) != 0
+        ok = probed.repeat_interleave(block_rows, dim=2) & (
+            cids[:, None, :] >= 0)                             # (c, G, L)
+        ids = torch.where(ok, cids[:, None, :], -1)
+        part = torch.full((c, G, L), INF, device=dev)
+        gi, ji, li = torch.nonzero(ok, as_tuple=True)
+        v = vecs[pos[gi, li]].float()
+        q = Qf[(a + gi) * G + ji]
+        part[gi, ji, li] = (v * v).sum(-1) - 2.0 * (v * q).sum(-1)
+        d, sel = stable_topk(part.reshape(c * G, L), ids.reshape(c * G, L),
+                             topk)
+        out_i.append(sel)
+        out_d.append(d)
+    if out_i:
+        ids, d = torch.cat(out_i), torch.cat(out_d)
+    else:
+        ids, d = _empty_topk(topk, dev)
+    if raw:
+        return ids, torch.where(ids < 0, torch.full_like(d, INF), d)
+    return finalize_d2(ids, d, Qg)
+
+
+def ivf_scan_adc(lut: torch.Tensor, qconst: torch.Tensor,
+                 vnorm: torch.Tensor, codes: torch.Tensor,
+                 pids: torch.Tensor, tile_map: torch.Tensor, *,
+                 block_rows: int, topk: int = 10
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Asymmetric-distance scan of compressed lists
+    (``repro.kernels.ref.ivf_scan_adc``).
+
+    lut (q, M, W) per-query table and qconst (q,)
+    (``index.quantize.build_lut``); vnorm (n_pad,) reconstruction norms;
+    codes (n_pad, M) uint8; pids/tile_map as in ``ivf_scan``.  A live row
+    scores ``vnorm + sum_m lut[m, code[m]]`` (W > 1; a code >= W adds 0,
+    as the reference's one-hot) or ``vnorm + sum_m lut[m, 0] · code[m]``
+    (W = 1), +inf at holes; candidates in slot order then row order, top-k
+    by the first-minimum rule with the packed row position as payload
+    (-1 at holes).  Returns (ids, pos, part) of shape (q, topk): ids
+    gathered by position, the raw partials with ``qconst`` added to the
+    selected values only, +inf and -1 at empty slots.
+    """
+    nq, M, W = lut.shape
+    T = tile_map.shape[1]
+    L = T * block_rows
+    dev = lut.device
+    lf = lut.float().reshape(-1)
+    cols = torch.arange(M, device=dev)
+    offs = torch.arange(block_rows, device=dev)
+    starts, step = _row_chunks(nq, L * M)
+    out = ([], [], [])
+    for a in starts:
+        tm = tile_map[a:a + step].long()
+        c = tm.shape[0]
+        pos = (tm[:, :, None] * block_rows + offs).reshape(c, L)
+        cids = pids[pos]
+        part = torch.full((c, L), INF, device=dev)
+        qi, li = torch.nonzero(cids >= 0, as_tuple=True)
+        rows = pos[qi, li]
+        cd = codes[rows].long()                                # (n, M)
+        if W == 1:
+            cross = (lut[a + qi, :, 0].float() * cd.float()).sum(-1)
+        else:
+            at = ((a + qi)[:, None] * M + cols) * W + cd.clamp(max=W - 1)
+            cross = torch.where(cd < W, lf[at], 0.0).sum(-1)
+        part[qi, li] = vnorm[rows] + cross
+        ppos = torch.where(cids < 0, -1, pos).to(torch.int32)
+        d, psel = stable_topk(part, ppos, topk)
+        empty = psel < 0
+        out[0].append(torch.where(empty, -1, pids[psel.clamp(min=0).long()]))
+        out[1].append(psel)
+        out[2].append(torch.where(empty, INF,
+                                  d + qconst[a:a + step, None].float()))
+    if not out[0]:
+        ids, d = _empty_topk(topk, dev)
+        return ids, ids.clone(), d
+    return tuple(torch.cat(o) for o in out)

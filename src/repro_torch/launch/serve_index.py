@@ -7,13 +7,19 @@ flags and the same table.  Runs on the card unless ``--device cpu``; each
 batch is timed to ``torch.cuda.synchronize()``.  The ground truth is a
 chunked brute-force product, never the whole (nq, n) distance matrix.
 
-Not ported yet: ``--qgroup`` (the query-grouped scan) and ``--codec``,
-``--rerank`` and ``--nsub`` (compressed lists); they exit with a message.
+``--qgroup G`` serves through the query-grouped scan.  ``--codec int8|pq``
+trains the codec on the index's rows at build time (``--nsub`` PQ
+subspaces), saves it with ``--save`` (a ``--load`` run serves it without
+retraining), and serves through the compressed-list scan with an exact
+rerank of the top ``--rerank`` candidates (default 4·topk; 0 disables).
+``--codec`` is per-query only and refuses ``--qgroup``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve_index --n 32768 --d 64
   PYTHONPATH=src python -m repro_torch.launch.serve_index --save /tmp/ix.ivf
   PYTHONPATH=src python -m repro_torch.launch.serve_index --load /tmp/ix.ivf
+  PYTHONPATH=src python -m repro_torch.launch.serve_index --qgroup 8
+  PYTHONPATH=src python -m repro_torch.launch.serve_index --codec pq --nsub 8
   PYTHONPATH=src python -m repro_torch.launch.serve_index --device cpu \\
       --n 4096 --d 24 --k 32 --nq 96 --batch 32 --tau 2 --iters 4
 """
@@ -22,7 +28,7 @@ from __future__ import annotations
 import argparse
 import time
 import warnings
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -51,6 +57,9 @@ def build(args, device: DeviceLike = None):
         if (args.n, args.d) != (size, index.dim):
             print(f"[load] overriding --n/--d with the index's "
                   f"n={size} d={index.dim}")
+        if args.codec != "f32" and index.codec_kind != args.codec:
+            raise SystemExit(f"--codec {args.codec} but the saved index "
+                             f"carries {index.codec_kind!r}")
         return index, _data(size, index.dim, args.components, args.seed, dev)
     X = _data(args.n, args.d, args.components, args.seed, dev)
     t0 = time.perf_counter()
@@ -63,6 +72,15 @@ def build(args, device: DeviceLike = None):
     _sync(dev)
     print(f"[build] gk_means k={res.k} in {t_cluster:.1f}s, "
           f"pack {index.n_rows} rows in {time.perf_counter() - t0:.2f}s")
+    if args.codec != "f32":
+        t0 = time.perf_counter()
+        index = ivf.quantize_index(
+            index, args.codec, nsub=args.nsub,
+            generator=torch.Generator().manual_seed(args.seed + 2))
+        _sync(dev)
+        print(f"[build] {args.codec} codec in {time.perf_counter() - t0:.2f}s"
+              f" ({ivf.bytes_per_row(index.codec, index.dim)} B/row vs "
+              f"{4 * index.dim} f32)")
     if args.save:
         ivf.save_index(index, args.save)
         print(f"[build] saved -> {args.save} "
@@ -101,20 +119,27 @@ def recall(ids: torch.Tensor, gt: torch.Tensor) -> float:
 
 
 def sweep(index: ivf.IvfIndex, Q: torch.Tensor, gt: torch.Tensor, *,
-          topk: int, probes, batch: int, rounds: int) -> List[dict]:
+          topk: int, probes, batch: int, rounds: int,
+          qgroup: Optional[int] = None, codec: str = "f32",
+          rerank: Optional[int] = None) -> List[dict]:
     """Serve Q in batches at each nprobe; print and return one row each:
     recall@topk (all of Q at once), scan share, p50/p90/p99 ms per batch,
-    QPS, and the host syncs seen inside the timed ``search`` calls
-    (``torch.cuda.set_sync_debug_mode``; 0 expected)."""
+    QPS, the host syncs seen inside the timed ``search`` calls
+    (``torch.cuda.set_sync_debug_mode``; 0 expected) and the bytes a scan
+    streams per candidate row.  ``qgroup``, ``codec`` and ``rerank`` go to
+    ``search``."""
     dev = index.device
     nq = Q.shape[0]
     batch = min(batch, nq)
+    kw = dict(topk=topk, qgroup=qgroup, codec=codec, rerank=rerank)
+    bpr = ivf.bytes_per_row(index.codec if codec != "f32" else "f32",
+                            index.dim)
     print(f"{'nprobe':>6} {'recall@%d' % topk:>10} {'scan%':>7} "
           f"{'p50_ms':>8} {'p90_ms':>8} {'p99_ms':>8} {'QPS':>10}")
     rows = []
     for p in probes:
-        ids, _ = ivf.search(index, Q, topk=topk, nprobe=p)     # for recall
-        ivf.search(index, Q[:batch], topk=topk, nprobe=p)       # warm batch
+        ids, _ = ivf.search(index, Q, nprobe=p, **kw)          # for recall
+        ivf.search(index, Q[:batch], nprobe=p, **kw)            # warm batch
         _sync(dev)
         lat = []
         with warnings.catch_warnings(record=True) as caught:
@@ -126,7 +151,7 @@ def sweep(index: ivf.IvfIndex, Q: torch.Tensor, gt: torch.Tensor, *,
                     if dev.type == "cuda":
                         torch.cuda.set_sync_debug_mode("warn")
                     try:
-                        ivf.search(index, qb, topk=topk, nprobe=p)
+                        ivf.search(index, qb, nprobe=p, **kw)
                     finally:
                         if dev.type == "cuda":
                             torch.cuda.set_sync_debug_mode(0)
@@ -143,20 +168,23 @@ def sweep(index: ivf.IvfIndex, Q: torch.Tensor, gt: torch.Tensor, *,
               f"{pct[0]:>8.2f} {pct[1]:>8.2f} {pct[2]:>8.2f} {qps:>10.0f}")
         rows.append({"nprobe": p, "recall": rec, "scan_frac": frac,
                      "p50_ms": pct[0], "p90_ms": pct[1], "p99_ms": pct[2],
-                     "qps": qps, "batches": len(lat), "host_syncs": syncs})
+                     "qps": qps, "batches": len(lat), "host_syncs": syncs,
+                     "bytes_per_row": bpr})
     return rows
 
 
 def serve_sweep(index: ivf.IvfIndex, X: torch.Tensor, *, nq: int, topk: int,
-                probes, batch: int, rounds: int, seed: int) -> List[dict]:
-    """Queries ``X[:nq]`` plus noise, served at each nprobe (see ``sweep``);
-    recall is against brute force over X, whose row i holds id i."""
+                probes, batch: int, rounds: int, seed: int,
+                **search_kw) -> List[dict]:
+    """Queries ``X[:nq]`` plus noise, served at each nprobe (see ``sweep``,
+    which takes ``search_kw``); recall is against brute force over X, whose
+    row i holds id i."""
     batch = min(batch, nq)
     nq -= nq % batch              # whole batches only, as the reference
     Q = make_queries(X, nq, seed)
     gt = ground_truth(Q, X, topk)
     return sweep(index, Q, gt, topk=topk, probes=probes, batch=batch,
-                 rounds=rounds)
+                 rounds=rounds, **search_kw)
 
 
 def main(argv=None):
@@ -178,29 +206,25 @@ def main(argv=None):
     ap.add_argument("--save", default=None, help="write index after build")
     ap.add_argument("--load", default=None, help="serve a saved index")
     ap.add_argument("--qgroup", type=int, default=None,
-                    help="query-grouped scan layout (not ported yet)")
+                    help="query-grouped scan layout: queries per group")
     ap.add_argument("--codec", default="f32", choices=["f32", "int8", "pq"],
-                    help="compressed-list scan (not ported yet)")
+                    help="compressed-list ADC scan path (exact-rerank tail)")
     ap.add_argument("--rerank", type=int, default=None,
-                    help="codec rerank depth (not ported yet)")
-    ap.add_argument("--nsub", type=int, default=None,
-                    help="pq subspaces (not ported yet)")
+                    help="codec rerank depth (default 4*topk; 0 disables)")
+    ap.add_argument("--nsub", type=int, default=8,
+                    help="pq subspaces (code bytes per vector)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' for the CPU)")
     args = ap.parse_args(argv)
-    if args.qgroup is not None and args.qgroup > 1:
-        raise SystemExit("--qgroup: the query-grouped scan is not ported to "
-                         "repro_torch yet (ROADMAP.md, item 1.9b)")
-    for flag, unset in (("codec", "f32"), ("rerank", None), ("nsub", None)):
-        if getattr(args, flag) != unset:
-            raise SystemExit(f"--{flag}: compressed lists are not ported to "
-                             "repro_torch yet (ROADMAP.md, item 1.9b)")
+    if args.codec != "f32" and args.qgroup:
+        raise SystemExit("--codec is per-query only (drop --qgroup)")
 
     index, X = build(args, args.device)
     probes = [int(p) for p in args.probes.split(",") if int(p) <= index.k]
     return serve_sweep(index, X, nq=args.nq, topk=args.topk, probes=probes,
                        batch=args.batch, rounds=args.rounds,
-                       seed=args.seed + 9)
+                       seed=args.seed + 9, qgroup=args.qgroup,
+                       codec=args.codec, rerank=args.rerank)
 
 
 if __name__ == "__main__":

@@ -269,3 +269,141 @@ def test_search_kernels_match_plain_on_card(dev):
             before["probe_centroids"] + 1
         assert _build.launch_counts["ivf_scan"] == before["ivf_scan"] + 1
         _assert_sel((gi, gd), (wi, wd), _pair_scale(Q, X, wi))
+
+
+# --------------------------------------- compressed-list and grouped scans
+
+def _adc_scale(lut, vnorm, codes, pos):
+    """vnorm + Σ_m |lut[m, code[m]]| of each selected row: the size of the
+    terms an ADC partial sums."""
+    p = pos.long().clamp(min=0)
+    c = codes[p].long()                                   # (q, k, M)
+    if lut.shape[2] == 1:
+        terms = lut[:, None, :, 0] * c.float()
+    else:
+        terms = torch.gather(lut[:, None].expand(-1, c.shape[1], -1, -1), 3,
+                             c[..., None])[..., 0]
+    return vnorm[p].abs() + terms.abs().sum(-1)
+
+
+def _codec_index(dev, d, kind, nsub):
+    from repro_torch import index as ivf
+    X, index = _small_index(dev, d)
+    return X, ivf.quantize_index(index, kind, nsub=nsub, iters=2,
+                                 generator=torch.Generator().manual_seed(d))
+
+
+@pytest.mark.parametrize("kind,d,nsub,nprobe,topk", [
+    ("int8", 128, 0, 4, 40), ("pq", 128, 8, 4, 40), ("pq", 128, 32, 3, 10),
+    ("int8", 37, 0, 2, 16), ("pq", 24, 4, 40, 1024), ("pq", 24, 6, 1, 100)])
+def test_ivf_scan_adc_kernel_matches_plain(dev, kind, d, nsub, nprobe, topk):
+    """int8 at M=128 and 37 (16-byte and 1-byte code loads), PQ at nsub 8
+    (8-byte loads), 32 (a 32 KB table), 4 and 6 (4-byte and 1-byte loads);
+    topk up to 1024, and past the candidates at nprobe=1."""
+    from repro_torch.index import quantize as q
+    X, index = _codec_index(dev, d, kind, nsub)
+    Q = (X[:65] + 0.1 * torch.randn(65, d, device=dev)).contiguous()
+    tm = _tile_map(index, Q, nprobe)
+    lut, qc = q.build_lut(index.codec, Q)
+    args = (lut, qc, index.vnorm, index.codes, index.ids, tm)
+    kw = dict(block_rows=index.block_rows, topk=topk)
+    before = _build.launch_counts["ivf_scan_adc"]
+    gi, gp, gd = ops.ivf_scan_adc(*args, **kw)
+    wi, wp, wd = ops.ivf_scan_adc(*args, force="ref", **kw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["ivf_scan_adc"] == before + 1
+    scale = _adc_scale(lut, index.vnorm, index.codes, wp) + qc.abs()[:, None]
+    _assert_sel((gp, gd), (wp, wd), scale)
+    _assert_sel((gi, gd), (wi, wd), scale)
+    if nprobe == 1:
+        assert bool((gp == -1).any())          # lists exhausted
+
+
+@pytest.mark.parametrize("W", [1, 256])
+def test_ivf_scan_adc_kernel_ties_exact(dev, W):
+    """Integer tables, codes and norms: every sum exact, many ties, and
+    the kernel equals its plain version bit for bit."""
+    g = torch.Generator().manual_seed(W)
+    nq, M, bl, ntiles = 40, 16, 32, 30
+    lut = torch.randint(-3, 4, (nq, M, W), generator=g).float()
+    codes = torch.randint(0, 4 if W == 1 else 256, (ntiles * bl, M),
+                          generator=g).to(torch.uint8)
+    vnorm = torch.randint(0, 6, (ntiles * bl,), generator=g).float()
+    pids = torch.arange(ntiles * bl, dtype=torch.int32)
+    pids[torch.rand(ntiles * bl, generator=g) < 0.2] = -1
+    pids[-bl:] = -1
+    tm = torch.randint(0, ntiles, (nq, 7), generator=g, dtype=torch.int32)
+    tm[:, -2:] = ntiles - 1                     # null-tile padding
+    qc = torch.randint(-2, 3, (nq,), generator=g).float()
+    args = [t.to(dev) for t in (lut, qc, vnorm, codes, pids, tm)]
+    got = ops.ivf_scan_adc(*args, block_rows=bl, topk=50)
+    want = ops.ivf_scan_adc(*args, block_rows=bl, topk=50, force="ref")
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def _group_inputs(index, Q, nprobe, G):
+    from repro_torch import index as ivf
+    order, union, qmask = ivf.build_group_map(
+        _tile_map(index, Q, nprobe), group=G, null_tile=index.null_tile)
+    Qg = Q[order.clamp(max=Q.shape[0] - 1).long()].contiguous()
+    return order, (Qg, index.vecs, index.ids, union, qmask)
+
+
+@pytest.mark.parametrize("d,G,nprobe,topk,raw", [
+    (128, 8, 4, 10, False), (37, 3, 3, 16, True), (1100, 4, 2, 10, False),
+    (24, 8, 40, 1024, False), (128, 8, 1, 200, False)])
+def test_ivf_scan_grouped_kernel_matches_plain(dev, d, G, nprobe, topk, raw):
+    """d=128 and 37 (float4 and scalar row loads), 1100 (the re-read
+    path), topk up to 1024, and lists exhausted at nprobe=1."""
+    X, index = _small_index(dev, d)
+    Q = (X[:67] + 0.1 * torch.randn(67, d, device=dev)).contiguous()
+    order, args = _group_inputs(index, Q, nprobe, G)
+    kw = dict(block_rows=index.block_rows, topk=topk, raw=raw)
+    before = _build.launch_counts["ivf_scan_grouped"]
+    got = ops.ivf_scan_grouped(*args, **kw)
+    want = ops.ivf_scan_grouped(*args, force="ref", **kw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["ivf_scan_grouped"] == before + 1
+    _assert_sel(got, want, _pair_scale(args[0], X, want[0]))
+    if nprobe == 1:
+        assert bool((got[0] == -1).any())
+
+
+def test_ivf_scan_grouped_kernel_ties_exact(dev):
+    X, index = _small_index(dev, 16, integer=True)
+    _, args = _group_inputs(index, X[:64].contiguous(), 5, 8)
+    kw = dict(block_rows=index.block_rows, topk=20)
+    gi, gd = ops.ivf_scan_grouped(*args, **kw)
+    wi, wd = ops.ivf_scan_grouped(*args, force="ref", **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(gi, wi) and torch.equal(gd, wd)
+
+
+def test_search_codec_and_grouped_match_plain_on_card(dev):
+    from repro_torch import index as ivf
+    X, index = _small_index(dev, 32)
+    Q = (X[:100] + 0.05 * torch.randn(100, 32, device=dev)).contiguous()
+    for kind in ("int8", "pq"):
+        cx = ivf.quantize_index(index, kind, nsub=8, iters=2,
+                                generator=torch.Generator().manual_seed(1))
+        for rerank in (None, 0):
+            before = _build.launch_counts["ivf_scan_adc"]
+            kw = dict(topk=10, nprobe=8, codec=kind, rerank=rerank)
+            gi, gd = ivf.search(cx, Q, **kw)
+            wi, wd = ivf.search(cx, Q, force="ref", **kw)
+            torch.cuda.synchronize()
+            assert _build.launch_counts["ivf_scan_adc"] == before + 1
+            scale = _pair_scale(Q, X, wi)
+            if rerank == 0:   # distances to the reconstructions
+                scale = scale + wd.abs().nan_to_num(posinf=0.0)
+            _assert_sel((gi, gd), (wi, wd), scale)
+    for qgroup in (4, 8):
+        before = _build.launch_counts["ivf_scan_grouped"]
+        gi, gd = ivf.search(index, Q, topk=10, nprobe=8, qgroup=qgroup)
+        wi, wd = ivf.search(index, Q, topk=10, nprobe=8, qgroup=qgroup,
+                            force="ref")
+        torch.cuda.synchronize()
+        assert _build.launch_counts["ivf_scan_grouped"] == before + 1
+        _assert_sel((gi, gd), (wi, wd), _pair_scale(Q, X, wi))

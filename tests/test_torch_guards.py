@@ -95,6 +95,7 @@ def test_ops_dispatches_cpu_tensors_to_ref():
 
 
 def test_out_of_slice_options_raise():
+    """What stays out of scope raises; the dense source now runs."""
     X = torch.zeros((64, 4))
     st = teng.init_state(X, torch.zeros(64, dtype=torch.int32), 2)
     src = teng.graph_source(torch.zeros((64, 2), dtype=torch.int32))
@@ -102,13 +103,18 @@ def test_out_of_slice_options_raise():
                 teng.EngineConfig(payload_bf16=True)):
         with pytest.raises(NotImplementedError):
             teng.epoch(X, st, src, [1, 2, 3, 4], cfg)
+        with pytest.raises(NotImplementedError):
+            teng.epoch(X, st, teng.dense_source(), [1, 2, 3, 4], cfg)
     with pytest.raises(NotImplementedError):
-        teng.dense_source()
+        teng.probe_source(2)
     with pytest.raises(NotImplementedError):
         tgb.build_graph(X, tgb.GraphBuildConfig(source="descent"),
                         generator=torch.Generator())
     with pytest.raises(NotImplementedError):
         gk_means(X, 2, telemetry=True, device="cpu")
+    out = teng.epoch(X, st, teng.dense_source(), [1, 2, 3, 4],
+                     teng.EngineConfig(batch_size=16, mode="lloyd"))
+    assert out.assign.shape == (64,) and int(out.cnt.sum()) == 64
 
 
 def test_sparse_updates_is_the_plain_scatter_on_one_device():
@@ -130,15 +136,41 @@ def test_sparse_updates_is_the_plain_scatter_on_one_device():
 def test_ivf_kernel_wrappers_reject_cpu_tensors():
     from repro_torch.kernels import centroid_assign as kca
     from repro_torch.kernels import ivf_scan as kivf
+    from repro_torch.kernels import ivf_scan_adc as kadc
+    from repro_torch.kernels import ivf_scan_grouped as kgrp
     X, C = torch.randn(8, 16), torch.randn(5, 16)
     before = dict(kca._build.launch_counts)
     with pytest.raises(ValueError, match="CPU tensors dispatch"):
         kca.assign_centroids(X, C)
     with pytest.raises(ValueError, match="CPU tensors dispatch"):
         kca.probe_centroids(X, C, 2)
+    pids = torch.zeros(16, dtype=torch.int32)
     with pytest.raises(ValueError, match="CPU tensors dispatch"):
-        kivf.ivf_scan(X, torch.zeros(16, 16), torch.zeros(16, dtype=torch.int32),
+        kivf.ivf_scan(X, torch.zeros(16, 16), pids,
                       torch.zeros((8, 2), dtype=torch.int32), block_rows=8)
+    with pytest.raises(ValueError, match="CPU tensors dispatch"):
+        kadc.ivf_scan_adc(torch.zeros(8, 4, 256), torch.zeros(8),
+                          torch.zeros(16), torch.zeros((16, 4),
+                                                       dtype=torch.uint8),
+                          pids, torch.zeros((8, 2), dtype=torch.int32),
+                          block_rows=8)
+    with pytest.raises(ValueError, match="CPU tensors dispatch"):
+        kgrp.ivf_scan_grouped(X, torch.zeros(16, 16), pids,
+                              torch.zeros((2, 3), dtype=torch.int32),
+                              torch.zeros((8, 3), dtype=torch.int32),
+                              block_rows=8)
+    # shapes no kernel takes are refused before any launch
+    with pytest.raises(ValueError, match="shared memory"):
+        kadc.ivf_scan_adc(torch.zeros(1, 129, 256), torch.zeros(1),
+                          torch.zeros(8), torch.zeros((8, 129),
+                                                      dtype=torch.uint8),
+                          pids[:8], torch.zeros((1, 1), dtype=torch.int32),
+                          block_rows=8)
+    with pytest.raises(ValueError, match="G <= 8"):
+        kgrp.ivf_scan_grouped(torch.zeros(18, 16), torch.zeros(16, 16), pids,
+                              torch.zeros((2, 3), dtype=torch.int32),
+                              torch.zeros((18, 3), dtype=torch.int32),
+                              block_rows=8)
     assert dict(kca._build.launch_counts) == before
 
 
@@ -153,24 +185,31 @@ def _tiny_index():
                                 device="cpu")
 
 
-def test_ivf_out_of_slice_options_raise():
+def test_ivf_out_of_slice_options_raise(tmp_path):
+    """Sharded lists and memmapped loads stay out of scope; a codec search
+    on an index without that codec, or with qgroup, is a ValueError."""
     tivf, index = _tiny_index()
     Q = torch.randn(3, 8)
-    with pytest.raises(NotImplementedError, match="query-grouped"):
-        tivf.search(index, Q, qgroup=2)
-    for codec in ("int8", "pq"):
-        with pytest.raises(NotImplementedError, match="compressed"):
-            tivf.search(index, Q, codec=codec)
-    with pytest.raises(NotImplementedError, match="compressed"):
-        tivf.search(index, Q, rerank=40)
-    with pytest.raises(NotImplementedError):
-        tivf.attach_codec(index, None)
-    with pytest.raises(NotImplementedError):
-        tivf.quantize_index(index, "pq")
     with pytest.raises(NotImplementedError):
         tivf.shard_lists(index, 2)
+    path = str(tmp_path / "ix.ivf")
+    tivf.save_index(index, path)
+    with pytest.raises(NotImplementedError, match="mmap"):
+        tivf.load_index(path, device="cpu", mmap=True)
+    for codec in ("int8", "pq"):
+        with pytest.raises(ValueError, match="payload is 'f32'"):
+            tivf.search(index, Q, codec=codec)
+    q8 = tivf.quantize_index(index, "int8")
+    with pytest.raises(ValueError, match="payload is 'int8'"):
+        tivf.search(q8, Q, codec="pq")
+    with pytest.raises(ValueError, match="per-query only"):
+        tivf.search(q8, Q, codec="int8", qgroup=2)
+    with pytest.raises(ValueError, match="unknown codec kind"):
+        tivf.quantize_index(index, "opq")
     ids, _ = tivf.search(index, Q, qgroup=1, nprobe=2)   # per-query layout
     assert ids.shape == (3, 10)
+    # rerank belongs to the codec scan: the f32 scan does not read it
+    assert torch.equal(tivf.search(index, Q, rerank=40, nprobe=2)[0], ids)
 
 
 def test_serve_index_without_device_raises_when_no_cuda(monkeypatch,
@@ -184,10 +223,10 @@ def test_serve_index_without_device_raises_when_no_cuda(monkeypatch,
     tivf.save_index(index, path)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tivf.load_index(path)
-    for flag in (["--qgroup", "4"], ["--codec", "pq"], ["--rerank", "40"],
-                 ["--nsub", "16"]):
-        with pytest.raises(SystemExit, match="not ported"):
-            tserve.main(["--device", "cpu"] + flag)
+    with pytest.raises(SystemExit, match="per-query only"):
+        tserve.main(["--device", "cpu", "--codec", "pq", "--qgroup", "4"])
+    with pytest.raises(SystemExit, match="carries 'f32'"):
+        tserve.main(["--device", "cpu", "--load", path, "--codec", "int8"])
 
 
 def test_interop_without_device_raises_when_no_cuda(monkeypatch):

@@ -312,13 +312,28 @@ def test_port_saved_index_loads_in_jax(tmp_path, fname):
 
 
 def test_codec_index_file_is_refused(tmp_path):
+    """A codec file loads (tests/test_torch_ivf_codec.py); what is refused
+    is a codec kind neither package knows, and ``mmap=True``, which the
+    port does not have."""
     X, C, a = _case(256, 16, 8, 13)
     j = jivf.quantize_index(
         jivf.build_ivf(X, FakeResult(a, C, 8), block_rows=16), "int8")
     for fname in ("q.ivf", "q.npz"):
         path = os.path.join(tmp_path, fname)
         jivf.save_index(j, path)
-        with pytest.raises(NotImplementedError, match="codec"):
+        assert tivf.load_index(path, device="cpu").codec_kind == "int8"
+        with pytest.raises(NotImplementedError, match="mmap"):
+            tivf.load_index(path, device="cpu", mmap=True)
+        if fname.endswith(".npz"):
+            with np.load(path) as z:
+                arrays = dict(z)
+            arrays["meta"] = str(arrays["meta"]).replace('"int8"', '"opq8"')
+            np.savez(path, **arrays)
+        else:
+            raw = open(path, "rb").read()
+            open(path, "wb").write(raw.replace(b'"codec": "int8"',
+                                               b'"codec": "opq8"', 1))
+        with pytest.raises(ValueError, match="unknown codec kind"):
             tivf.load_index(path, device="cpu")
 
 
