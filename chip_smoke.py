@@ -27,6 +27,13 @@ plain PyTorch version, or when any phase fails.  Phases:
      n=1,000,000 (a Lloyd assignment), with k rows of the data as
      centroids: distances per slot within 1e-5·(||x||² + ||c||²), ids equal
      except at near-ties (counted);
+   - ``pairwise_sq``, which no path of the system calls, so one counted
+     call per shape through ``ops.pairwise_sq`` is its path: SIFT1M's
+     graph-build shape (phase 2's X as B=15,625 clusters of m=64, d=128),
+     VLAD10M's width (B=2,048, m=64, d=512) in f32 and bf16, GIST1M's width
+     (B=1,024, m=64, d=960) and m=128 at d=128: every element within
+     1e-5·(||x_i||² + ||x_j||²), finite and non-negative; timed beside
+     ``torch.bmm`` and ``torch.baddbmm`` yardsticks;
    planted faults in the plain versions must fail these limits;
 3. parity on the card at the SIFT_SMALL shape (n=65,536, d=128, k=1,024,
    κ=32, ξ=64, τ=8): ``gk_means`` through the kernels and with
@@ -87,6 +94,7 @@ HERE = Path(__file__).resolve().parent
 # published peaks of one H100 SXM (NVIDIA data sheet) for the bounds
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12  # dense tensor-core rate, f32 accumulation
 
 SIFT_SMALL = dict(n=65_536, d=128, k=1_024, kappa=32, xi=64, tau=8)
 SIFT1M = dict(n=1_000_000, d=128, k=10_000, kappa=50, xi=64, tau=10)
@@ -174,8 +182,8 @@ def kernel_device_us(fn, sets, name, reps=20, tries=4):
     return sum(kept) / len(kept) if kept else None
 
 
-def bound_ms(nbytes, flops):
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+def bound_ms(nbytes, flops, peak=FP32_FLOPS):
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -1263,6 +1271,127 @@ def check_codec_kernels(index, runs, Q, X_all):
     return out
 
 
+# --------------------------------------------------------------- pairwise_sq
+
+# pairwise_sq vs plain: |got - want| <= PAIR_RTOL·(||x_i||² + ||x_j||²) per
+# element, the size of the terms that cancel in each distance.  A d-term f32
+# dot rounds by at most d·2^-24 of it (7.6e-6 at d=128) and in practice by
+# about √d·2^-24; the two sides sum in different orders.
+PAIR_RTOL = 1e-5
+TAIL_FROM = 512         # the reference's d_tile: the GIST-width fault drops
+                        # the features past it
+
+
+def pairwise_shapes(X):
+    """{label: Xb} at the shapes the paper's configurations give the kernel:
+    SIFT1M's graph build (phase 2's X as 15,625 clusters of ξ=64 rows,
+    d=128), VLAD10M's width (the JAX bench's B=2,048, m=64, d=512) in f32
+    and bf16, GIST1M's width (B=1,024, m=64, d=960: a partial last chunk at
+    any chunk size) and m=128 (the JAX tests' largest capacity) at d=128 on
+    phase 2's X."""
+    import torch
+    from repro_torch.data import sift_like
+    g = torch.Generator(device=DEV).manual_seed(SEED + 20)
+    n, d = X.shape
+    xi = SIFT1M["xi"]
+    vlad = sift_like(2048 * 64, 512, COMPONENTS, generator=g)
+    gist = sift_like(1024 * 64, 960, COMPONENTS, generator=g)
+    return {"sift1m": X.view(n // xi, xi, d),
+            "vlad_f32": vlad.view(2048, 64, 512),
+            "vlad_bf16": vlad.view(2048, 64, 512).to(torch.bfloat16),
+            "gist": gist.view(1024, 64, 960),
+            "m128": X[:n // 128 * 128].view(-1, 128, d)}
+
+
+def _pair_plain(Xi, Xj, j_norm=True):
+    """The plain version's arithmetic on rows Xi against rows Xj (the
+    planted faults pass shifted rows, or drop the j norm)."""
+    import torch
+    sq_i = (Xi * Xi).sum(-1)[:, :, None]
+    sq_j = (Xj * Xj).sum(-1)[:, None, :] if j_norm else 0.0
+    return torch.clamp(sq_i + sq_j - 2.0 * torch.einsum("bid,bjd->bij", Xi, Xj),
+                       min=0.0)
+
+
+def pair_errors(got, want, Xb):
+    """(max |got - want| / limit, max |got - want|, share of entries over
+    the limit), limit = PAIR_RTOL·(||x_i||² + ||x_j||²)."""
+    sq = (Xb.float() ** 2).sum(-1)
+    lim = PAIR_RTOL * (sq[:, :, None] + sq[:, None, :])
+    diff = (got - want).abs()
+    r = diff / lim.clamp(min=1e-30)
+    return float(r.max()), float(diff.max()), float((r > 1).float().mean())
+
+
+def check_pairwise_sq(X):
+    """pairwise_sq through ``ops.pairwise_sq`` at the shapes of
+    ``pairwise_shapes``: one counted call per shape (no path of the system
+    calls the kernel, so this is its path), then the kernel against its plain
+    version with planted faults, and times of kernel, plain version and two
+    yardsticks."""
+    import torch
+    from repro_torch.kernels import _build, ops, ref
+    shapes = pairwise_shapes(X)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    got = {key: ops.pairwise_sq(Xb) for key, Xb in shapes.items()}
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    out = {"launches": launches["pairwise_sq"], "shapes": {}}
+    path_ok = launches["pairwise_sq"] == len(shapes) and not any(
+        v for key, v in launches.items() if key != "pairwise_sq")
+    log(f"pairwise_sq counted calls through ops.pairwise_sq: "
+        f"{json.dumps(launches)} ({'OK' if path_ok else 'FAIL'})")
+    for key, Xb in shapes.items():
+        B, m, d = Xb.shape
+        g = got.pop(key)
+        want = ops.pairwise_sq(Xb, force="ref")
+        ratio, err, _ = pair_errors(g, want, Xb)
+        sane = bool(torch.isfinite(g).all()) and bool((g >= 0).all())
+        Xf = Xb.float()
+        faults = {"norm_dropped": _pair_plain(Xf, Xf, j_norm=False),
+                  "j_shifted": _pair_plain(Xf, Xf.roll(-1, 1))}
+        if d > TAIL_FROM:
+            faults["tail_dropped"] = ref.pairwise_sq(Xb[..., :TAIL_FROM])
+        caught = {name: pair_errors(bad, want, Xb)[2]
+                  for name, bad in faults.items()}
+        del faults, Xf
+        chk = dict(shape=f"B={B} m={m} d={d} {str(Xb.dtype)[6:]}",
+                   max_abs_err=err, max_err_over_limit=ratio,
+                   finite_nonneg=sane, symmetric_exact=torch.equal(g, g.mT),
+                   fault_frac_over=caught,
+                   ok=ratio <= 1.0 and sane and all(
+                       v > 0.5 for v in caught.values()))
+        del g, want
+        chk["ms"] = time_ms(lambda: ops.pairwise_sq(Xb), [()], 40)
+        chk["plain_ms"] = time_ms(
+            lambda: ops.pairwise_sq(Xb, force="ref"), [()], 10)
+        # yardsticks the port never calls: no PyTorch call computes the
+        # function (torch.cdist returns roots); bmm gives the dots alone,
+        # baddbmm adds precomputed norms (no clamp), in the input's dtype
+        sq = (Xb.float() ** 2).sum(-1).to(Xb.dtype)
+        chk["bmm_ms"] = time_ms(lambda: torch.bmm(Xb, Xb.mT), [()], 20)
+        chk["baddbmm_ms"] = time_ms(lambda: torch.baddbmm(
+            sq[:, :, None] + sq[:, None, :], Xb, Xb.mT, alpha=-2), [()], 20)
+        # the function needs one triangle of each symmetric D[b], diagonal
+        # included (the norms): B·m(m+1)/2 dots of d FMAs.  A bf16×bf16
+        # product is exact in f32, so bf16 input is held to the tensor-core
+        # rate with f32 accumulation, f32 input to the FP32 rate (no TF32)
+        nbytes = 4 * B * m * m + Xb.element_size() * B * m * d
+        chk["bound_ms"], chk["bound_by"] = bound_ms(
+            nbytes, B * m * (m + 1) * d,
+            BF16_FLOPS if Xb.dtype == torch.bfloat16 else FP32_FLOPS)
+        out["shapes"][key] = chk
+    # device time per launch, traced after all the event timings above
+    for key, Xb in shapes.items():
+        out["shapes"][key]["device_us"] = kernel_device_us(
+            lambda: ops.pairwise_sq(Xb), [()], "pairwise_sq_kernel")
+    for key, chk in out["shapes"].items():
+        log(f"pairwise_sq[{key}]: {json.dumps(chk)}")
+    out["ok"] = path_ok and all(c["ok"] for c in out["shapes"].values())
+    return out
+
+
 def profile_serving(index, Q, label="f32", **search_kw):
     """One nprobe=16 batch loop (40 batches of 64, each synchronised, as
     served), traced (after the counted runs)."""
@@ -1283,7 +1412,7 @@ def _short(name: str) -> str:
     for key in ("gather_score_kernel", "refine_merge_kernel",
                 "centroid_kernel<true", "centroid_kernel<false",
                 "ivf_scan_kernel", "ivf_scan_adc_kernel",
-                "ivf_scan_grouped_kernel"):
+                "ivf_scan_grouped_kernel", "pairwise_sq_kernel"):
         if key in name:
             return key
     return name if len(name) <= 70 else name[:67] + "..."
@@ -1390,6 +1519,9 @@ def main() -> int:
     ca = check_centroid_kernels(X, k2)
     if not ca["ok"]:
         failures.append("probe/assign_centroids vs plain")
+    pw = check_pairwise_sq(X)
+    if not pw["ok"]:
+        failures.append("pairwise_sq vs plain")
     ok_small, X_small, r_small = parity_small()
     if not ok_small:
         failures.append("SIFT_SMALL parity")
@@ -1547,6 +1679,28 @@ def main() -> int:
              union_rows_per_group=grp["union_rows_per_group"],
              rows_per_query=grp["rows_per_query"], check=sel),
     ]
+    pws = pw["shapes"]
+    s1m = pws["sift1m"]
+    kernels.append(dict(
+        name="pairwise_sq", route="cuda",
+        source="src/repro_torch/kernels/csrc/pairwise_sq.cu",
+        replaces="src/repro/kernels/pairwise_topk.py:49",
+        launches=pw["launches"],
+        launches_note="the phase's own counted ops.pairwise_sq calls, one "
+                      "per shape: no path of the system calls the kernel",
+        max_abs_err=max(v["max_abs_err"] for v in pws.values()),
+        max_err_over_limit=max(v["max_err_over_limit"]
+                               for v in pws.values()),
+        ms=s1m["ms"], plain_ms=s1m["plain_ms"], bound_ms=s1m["bound_ms"],
+        bound_by=s1m["bound_by"], library_ms=None, shape=s1m["shape"],
+        device_us=s1m["device_us"], bmm_ms=s1m["bmm_ms"],
+        baddbmm_ms=s1m["baddbmm_ms"],
+        other_shapes={key: {k: v[k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by", "device_us",
+            "bmm_ms", "baddbmm_ms", "max_abs_err", "max_err_over_limit")}
+            for key, v in pws.items() if key != "sift1m"},
+        check=f"vs plain: |err| <= {PAIR_RTOL:g}*(||x_i||²+||x_j||²) per "
+              "element, finite and >= 0; planted faults fail"))
     log(f"total {time.perf_counter() - t_all:.1f} s; failures: {failures}")
     if failures:
         return 1

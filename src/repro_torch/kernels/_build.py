@@ -10,8 +10,9 @@ into ``kernels/build/`` (git-ignored), at first use.  The file name carries a
 hash of the sources and flags, so an edited kernel rebuilds and an unchanged
 one loads at once; ``ptxas``'s register and spill report is kept beside it
 as ``<name>-<hash>.log``.  ``build()`` starts one ``nvcc`` per source, all at
-once, and waits for them.  ``csrc/centroid_assign.cu`` holds two kernels
-(``assign_centroids`` and ``probe_centroids``); every other source one.
+once, and waits for them: seven sources, eight kernels.
+``csrc/centroid_assign.cu`` holds two kernels (``assign_centroids`` and
+``probe_centroids``); every other source one.
 ``csrc/common.cuh`` holds the helpers they share (warp sums, row loads, the
 sorted top-k list of the scans).  Nothing here runs at import: the CPU
 tests import every module, on machines that may have no ``nvcc``.
@@ -33,9 +34,10 @@ from typing import Dict, Iterable, Optional
 import torch
 
 SOURCES = ("gather_score", "refine_merge", "centroid_assign", "ivf_scan",
-           "ivf_scan_adc", "ivf_scan_grouped")
+           "ivf_scan_adc", "ivf_scan_grouped", "pairwise_sq")
 KERNELS = ("gather_score", "refine_merge", "probe_centroids",
-           "assign_centroids", "ivf_scan", "ivf_scan_adc", "ivf_scan_grouped")
+           "assign_centroids", "ivf_scan", "ivf_scan_adc", "ivf_scan_grouped",
+           "pairwise_sq")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

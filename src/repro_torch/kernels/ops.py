@@ -17,6 +17,7 @@ from repro_torch.kernels import gather_score as _gs
 from repro_torch.kernels import ivf_scan as _ivf
 from repro_torch.kernels import ivf_scan_adc as _adc
 from repro_torch.kernels import ivf_scan_grouped as _grp
+from repro_torch.kernels import pairwise_sq as _pw
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import refine_merge as _rm
 
@@ -107,3 +108,13 @@ def ivf_scan_adc(lut: torch.Tensor, qconst: torch.Tensor,
                                  block_rows=block_rows, topk=topk)
     return _ref.ivf_scan_adc(lut, qconst, vnorm, codes, pids, tile_map,
                              block_rows=block_rows, topk=topk)
+
+
+def pairwise_sq(Xb: torch.Tensor, *, force: Optional[str] = None
+                ) -> torch.Tensor:
+    """Batched (B, m, d) -> (B, m, m) squared L2, float32 out; Xb float32
+    or bfloat16.  The reference's ``tile=`` and ``force="pallas"`` /
+    ``"interpret"`` are TPU knobs and have no counterpart here."""
+    if _use_kernel(Xb, force):
+        return _pw.pairwise_sq(Xb)
+    return _ref.pairwise_sq(Xb)

@@ -1,0 +1,58 @@
+"""Wrapper of the hand-written CUDA ``pairwise_sq`` kernel.
+
+Counterpart of ``repro.kernels.pairwise_topk.pairwise_sq`` (the Pallas TPU
+kernel).  The kernel (``csrc/pairwise_sq.cu``) computes each cluster's
+(m, m) squared-L2 matrix in 64x64 tiles, one CTA per (cluster, tile), with
+register-blocked FP32 products and the row norms taken in the same d loop.
+This wrapper checks its input, allocates the output and launches on the
+current stream.  It takes CUDA tensors only: CPU tensors go to
+``kernels.ref.pairwise_sq`` through ``kernels.ops``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+TILE = 64                # output tile edge of the kernel (csrc/pairwise_sq.cu)
+INT_MAX = 2**31 - 1      # gridDim.x takes B * ceil(m / TILE)**2; d is a C int
+
+
+def _fn():
+    f = _build.library("pairwise_sq").pairwise_sq_launch
+    if f.argtypes is None:
+        f.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                      + [ctypes.c_void_p])
+        f.restype = ctypes.c_int
+    return f
+
+
+def pairwise_sq(Xb: torch.Tensor) -> torch.Tensor:
+    """(B, m, m) float32 squared L2 within each cluster, computed by the
+    CUDA kernel.
+
+    Xb: contiguous (B, m, d) float32 or bfloat16 on a CUDA device; any
+    B, m, d.  ``D[b,i,j] = max(||x_i||² + ||x_j||² − 2 x_i·x_j, 0)`` in f32.
+    """
+    if Xb.dim() != 3:
+        raise ValueError(f"Xb must be 3-D (B, m, d), got {Xb.dim()}-D")
+    if Xb.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"Xb: expected float32 or bfloat16, got {Xb.dtype}")
+    B, m, d = Xb.shape
+    _build.check_tensor(Xb, "Xb", Xb.dtype, (B, m, d), Xb.device)
+    tiles = -(-m // TILE)
+    if B * tiles * tiles > INT_MAX or d > INT_MAX:
+        raise ValueError(f"Xb {tuple(Xb.shape)}: more than {INT_MAX} output "
+                         "tiles or features")
+    out = torch.empty((B, m, m), dtype=torch.float32, device=Xb.device)
+    if B == 0 or m == 0:
+        return out
+    stream = torch.cuda.current_stream(Xb.device).cuda_stream
+    rc = _fn()(Xb.data_ptr(), out.data_ptr(), B, m, d,
+               int(Xb.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"pairwise_sq launch failed: CUDA error {rc}")
+    _build.launch_counts["pairwise_sq"] += 1
+    return out

@@ -3,7 +3,7 @@
 Counterparts of ``repro.kernels.ref`` (``scores_from_dots``,
 ``gather_score``, ``merge_lists``, ``refine_merge``, ``stable_topk``,
 ``finalize_d2``, ``probe_centroids``, ``assign_centroids``, ``ivf_scan``,
-``ivf_scan_grouped``, ``ivf_scan_adc``).
+``ivf_scan_grouped``, ``ivf_scan_adc``, ``pairwise_sq``).
 They run on any device: ``kernels.ops`` sends CPU tensors here, and
 ``chip_smoke.py`` holds the CUDA kernels against them on the card
 (``force="ref"``).  Every op is elementwise per row or a batched product,
@@ -415,3 +415,17 @@ def ivf_scan_adc(lut: torch.Tensor, qconst: torch.Tensor,
         ids, d = _empty_topk(topk, dev)
         return ids, ids.clone(), d
     return tuple(torch.cat(o) for o in out)
+
+
+def pairwise_sq(Xb: torch.Tensor) -> torch.Tensor:
+    """Batched within-cluster squared L2 (``repro.kernels.ref.pairwise_sq``).
+
+    Xb: (B, m, d) float32 or bfloat16 -> (B, m, m) float32 with
+    ``D[b,i,j] = max(||x_i||² + ||x_j||² − 2 x_i·x_j, 0)``, computed in
+    float32.  The reference's ``tile`` only chunks its ``lax.map`` over
+    clusters and never changes the result, so it has no counterpart here.
+    """
+    Xf = Xb.to(torch.float32)
+    sq = (Xf * Xf).sum(-1)                                  # (B, m)
+    dots = torch.einsum("bid,bjd->bij", Xf, Xf)             # (B, m, m)
+    return torch.clamp(sq[:, :, None] + sq[:, None, :] - 2.0 * dots, min=0.0)

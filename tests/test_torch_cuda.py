@@ -10,8 +10,9 @@ Tolerances: scores within 1e-5·``ref.score_scale`` element by element (the
 size of the terms that cancel in each score); refine distances rtol 1e-5 +
 1e-6·max squared norm, ids exact; centroid and scan distances within
 1e-5·(||x||² + ||c||²) of each selected pair, ids equal except where the two
-selected distances agree within that limit; on integer data everything
-exact.
+selected distances agree within that limit; within-cluster distances
+(``pairwise_sq``) within 1e-5·(||x_i||² + ||x_j||²) element by element; on
+integer data everything exact.
 """
 from __future__ import annotations
 
@@ -407,3 +408,77 @@ def test_search_codec_and_grouped_match_plain_on_card(dev):
         torch.cuda.synchronize()
         assert _build.launch_counts["ivf_scan_grouped"] == before + 1
         _assert_sel((gi, gd), (wi, wd), _pair_scale(Q, X, wi))
+
+
+# ------------------------------------------------- pairwise_sq
+
+def _pw_case(B, m, d, seed, dev, dtype, integer=False):
+    g = torch.Generator().manual_seed(seed)
+    if integer:        # integer coordinates: every distance is exact
+        X = torch.randint(0, 3, (B, m, d), generator=g).float()
+    else:
+        X = torch.randn(B, m, d, generator=g) * 3 + 1
+    return X.to(dtype).to(dev)
+
+
+def _assert_pairwise(got, want, Xb):
+    """Within 1e-5·(||x_i||² + ||x_j||²) per element, finite, non-negative
+    and exactly symmetric (both sides of the kernel run the same sums)."""
+    sq = (Xb.float() ** 2).sum(-1)
+    lim = 1e-5 * (sq[:, :, None] + sq[:, None, :])
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert bool(torch.isfinite(got).all()) and bool((got >= 0).all())
+    gap = (got - want).abs()
+    assert bool((gap <= lim).all()), float((gap / lim.clamp(min=1e-30)).max())
+    assert torch.equal(got, got.mT)
+
+
+@pytest.mark.parametrize("B", [1, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [1, 8, 130, 512, 960])
+@pytest.mark.parametrize("m", [1, 16, 48, 64, 128, 200])
+def test_pairwise_sq_kernel_matches_plain(dev, m, d, dtype, B):
+    Xb = _pw_case(B, m, d, m * 1000 + d, dev, dtype)
+    before = _build.launch_counts["pairwise_sq"]
+    got = ops.pairwise_sq(Xb)
+    want = ops.pairwise_sq(Xb, force="ref")
+    torch.cuda.synchronize()
+    assert _build.launch_counts["pairwise_sq"] == before + 1
+    _assert_pairwise(got, want, Xb)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_pairwise_sq_kernel_exact_on_integers(dev, dtype):
+    """Integer data: norms, dots and distances are exact, so kernel and
+    plain version agree bit for bit (duplicate rows give exact zeros)."""
+    Xb = _pw_case(50, 72, 33, 5, dev, dtype, integer=True)
+    got = ops.pairwise_sq(Xb)
+    want = ops.pairwise_sq(Xb, force="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_pairwise_sq_kernel_unaligned_view(dev):
+    """A contiguous view that starts mid-allocation (not 16-byte aligned)
+    takes the kernel's scalar loads."""
+    base = _pw_case(1, 1, 3 * 40 * 64 + 1, 9, dev, torch.float32).flatten()
+    Xb = base[1:].view(3, 40, 64)
+    _assert_pairwise(ops.pairwise_sq(Xb), ops.pairwise_sq(Xb, force="ref"),
+                     Xb)
+
+
+def test_pairwise_sq_kernel_rejects_bad_input(dev):
+    Xb = _pw_case(4, 16, 8, 3, dev, torch.float32)
+    before = _build.launch_counts["pairwise_sq"]
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.pairwise_sq(Xb.transpose(1, 2))
+    with pytest.raises(ValueError, match="3-D"):
+        ops.pairwise_sq(Xb[0])
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.pairwise_sq(Xb.double())
+    assert _build.launch_counts["pairwise_sq"] == before
+    for _ in range(3):
+        ops.pairwise_sq(Xb)
+    assert _build.launch_counts["pairwise_sq"] == before + 3

@@ -92,6 +92,11 @@ def test_ops_dispatches_cpu_tensors_to_ref():
                            tref.gather_score(*args, mode=mode))
     with pytest.raises(ValueError, match="force"):
         tops.gather_score(*args, force="interpret")
+    Xb = torch.randn(2, 5, 3, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(tops.pairwise_sq(Xb), tref.pairwise_sq(Xb))
+    for force in ("pallas", "interpret", "cuda"):
+        with pytest.raises(ValueError, match="force"):
+            tops.pairwise_sq(Xb, force=force)
 
 
 def test_out_of_slice_options_raise():
@@ -172,6 +177,29 @@ def test_ivf_kernel_wrappers_reject_cpu_tensors():
                               torch.zeros((18, 3), dtype=torch.int32),
                               block_rows=8)
     assert dict(kca._build.launch_counts) == before
+
+
+def test_pairwise_wrapper_rejects_cpu_tensors():
+    from repro_torch.kernels import pairwise_sq as kpw
+    before = dict(kpw._build.launch_counts)
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="CPU tensors dispatch"):
+            kpw.pairwise_sq(torch.zeros(2, 8, 4, dtype=dtype))
+    assert dict(kpw._build.launch_counts) == before
+
+
+def test_every_kernel_source_has_a_guarded_wrapper():
+    """Each CUDA source is built, has its ctypes wrapper beside it, and that
+    wrapper is among the files the import guard above checks."""
+    from repro_torch.kernels import _build
+    assert len(set(_build.SOURCES)) == len(_build.SOURCES)
+    assert set(_build.launch_counts) == set(_build.KERNELS)
+    for name in _build.SOURCES:
+        assert (_build.CSRC / f"{name}.cu").is_file(), name
+        wrapper = _build.CSRC.parent / f"{name}.py"
+        assert wrapper in PORT_FILES, name
+    assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == sorted(
+        _build.SOURCES)
 
 
 def _tiny_index():
