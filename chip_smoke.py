@@ -23,10 +23,13 @@ plain PyTorch version, or when any phase fails.  Phases:
      share ids with the candidates); scores are held per element against
      the size of the terms that cancel in them;
    - ``probe_centroids`` at nq=10,000, k=16,384, d=128, p in {1, 16, 64},
-     and ``assign_centroids`` at n=10,000 (an ``add`` batch) and
-     n=1,000,000 (a Lloyd assignment), with k rows of the data as
-     centroids: distances per slot within 1e-5·(||x||² + ||c||²), ids equal
-     except at near-ties (counted);
+     and at one served batch (64 queries, p=16), each with its split plan
+     printed (row tile, centroids per chunk, chunks S, CTAs), and
+     ``assign_centroids`` at n=10,000 (an ``add`` batch) and n=1,000,000 (a
+     Lloyd assignment), with k rows of the data as centroids: distances per
+     slot within 1e-5·(||x||² + ||c||²), ids equal except at near-ties
+     (counted); device time per call is the sum of a call's launches (the
+     split kernels make two when their plan splits);
    - ``pairwise_sq``, which no path of the system calls, so one counted
      call per shape through ``ops.pairwise_sq`` is its path: SIFT1M's
      graph-build shape (phase 2's X as B=15,625 clusters of m=64, d=128),
@@ -73,8 +76,10 @@ plain PyTorch version, or when any phase fails.  Phases:
    nprobe: see ``serve_codec_paths``); then ``ivf_scan_adc`` against its
    plain version at nprobe=16, topk=40 for int8 (M=128), PQ nsub=8 and PQ
    nsub=32 (a 32 KB table, codebooks from 65,536 sampled rows) and
-   ``ivf_scan_grouped`` at G=8, nprobe=16, topk=10, each with planted
-   faults, and traces of a PQ and a qgroup=8 batch loop;
+   ``ivf_scan_grouped`` at G=8, nprobe=16, topk=10 for all 10,000 queries
+   and for one served batch of 64 (8 groups, its split plan printed), each
+   with planted faults (for the split kernels: the plan's last chunk
+   dropped), and traces of a PQ and a qgroup=8 batch loop;
 6. one JSON line of the kernels, the card's ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -155,31 +160,42 @@ def _device_events(fn):
             if ev.device_type == torch.autograd.DeviceType.CUDA], wall
 
 
-def kernel_device_us(fn, sets, name, reps=20, tries=4):
-    """Mean device time (us) of the kernel ``name`` per launch, from a
-    torch.profiler trace of ``reps`` calls.
+def kernel_device_us(fn, sets, names, reps=20, tries=4, *, launches=1):
+    """Mean device time (us) per call of ``fn``: the summed durations of
+    the launches of the kernels ``names`` (one name or a tuple; a launch
+    matches when one of them is in its kernel's name), ``launches`` of them
+    per call, from a torch.profiler trace of ``reps`` calls.
 
     On the H100 machines, from a minute or so into the process, a trace now
     and then loses the records of its first launches, all of them in a
     short trace (framing the window with spin kernels did not prevent it:
     the frame was lost with them).  Such a trace is taken again, up to
-    ``tries`` times; the mean is over the first trace that kept all
-    ``reps`` launches, else over every launch kept, and None when none was.
+    ``tries`` times; the result is from the first trace that kept all
+    ``launches * reps`` launches, else the sum over the kernels of each
+    one's mean time per launch over every launch kept, and None when none
+    was.
     """
+    if isinstance(names, str):
+        names = (names,)
+
     def run():
         for i in range(reps):
             fn(*sets[i % len(sets)])
-    kept = []
+    kept = {name: [] for name in names}
+    label = "+".join(names)
     for t in range(1, tries + 1):
         events, _ = _device_events(run)
-        ts = [ev.time_range.end - ev.time_range.start for ev in events
-              if name in ev.name]
-        log(f"kernel_device_us({name}): trace {t} kept {len(ts)} of {reps} "
-            "launches")
-        if len(ts) == reps:
-            return sum(ts) / reps
-        kept += ts
-    return sum(kept) / len(kept) if kept else None
+        ts = {name: [ev.time_range.end - ev.time_range.start
+                     for ev in events if name in ev.name] for name in names}
+        count = sum(len(v) for v in ts.values())
+        log(f"kernel_device_us({label}): trace {t} kept {count} of "
+            f"{launches * reps} launches")
+        if count == launches * reps:
+            return sum(sum(v) for v in ts.values()) / reps
+        for name, v in ts.items():
+            kept[name] += v
+    means = [sum(v) / len(v) for v in kept.values() if v]
+    return sum(means) if means else None
 
 
 def bound_ms(nbytes, flops, peak=FP32_FLOPS):
@@ -576,20 +592,39 @@ def sel_check(got, want, scale):
         max_err_over_limit=float((gap / lim)[fin].max()) if has else 0.0)
 
 
-def _csq_dropped(X, C, p):
-    """The plain probe with a planted fault: ``||c||²`` dropped."""
+def _probe_fault(X, C, p, *, csq=True, keep=None):
+    """The plain probe with a planted fault: ``||c||²`` dropped, or only the
+    first ``keep`` centroids scanned (a merge that loses the split plan's
+    last chunk)."""
     import torch
     from repro_torch.kernels import ref
-    part = -2.0 * (X @ C.T)
-    cols = torch.arange(C.shape[0], dtype=torch.int32, device=DEV)
+    Ck = C if keep is None else C[:keep]
+    part = -2.0 * (X @ Ck.T)
+    if csq:
+        part = (Ck * Ck).sum(-1)[None, :] + part
+    cols = torch.arange(Ck.shape[0], dtype=torch.int32, device=DEV)
     d, ids = ref.stable_topk(part, cols.expand(X.shape[0], -1), p)
     return ids, torch.clamp(d + (X * X).sum(-1)[:, None], min=0.0)
 
 
+def probe_plan(n, k, p):
+    """The probe's split plan on this card, as a dict."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.centroid_assign import split_plan
+    return split_plan(n, k, p, _build.sm_count(0))._asdict()
+
+
+PROBE_KERNELS = ("probe_partial_kernel", "probe_merge_kernel")
+GROUPED_KERNELS = ("ivf_scan_grouped_kernel", "ivf_scan_grouped_merge_kernel")
+
+
 def check_centroid_kernels(X, k):
-    """probe_centroids at nq=10,000, k, d=128, p in {1, 16, 64} and
-    assign_centroids at n=10,000 and n=1,000,000 against their plain
-    versions; the centroids are k distinct rows of X."""
+    """probe_centroids at nq=10,000, k, d=128, p in {1, 16, 64} and one
+    served batch (64 queries, p=16), and assign_centroids at n=10,000 and
+    n=1,000,000, against their plain versions; the centroids are k distinct
+    rows of X.  Planted faults in the plain probe: ``||c||²`` dropped, and
+    the split plan's last centroid chunk dropped (the merge losing a
+    list)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch.serve_index import make_queries
@@ -600,33 +635,39 @@ def check_centroid_kernels(X, k):
     Q = make_queries(X, nq, SEED + 9)
     csq = (C * C).sum(-1)
     out = {"probe": {}, "assign": {}}
-    for p in (1, 16, 64):
-        got = ops.probe_centroids(Q, C, p)
-        want = ops.probe_centroids(Q, C, p, force="ref")
-        scale = (Q * Q).sum(-1)[:, None] + csq[want[0].long()]
+
+    def probe_check(Qp, p, reps):
+        plan = probe_plan(Qp.shape[0], k, p)
+        got = ops.probe_centroids(Qp, C, p)
+        want = ops.probe_centroids(Qp, C, p, force="ref")
+        scale = (Qp * Qp).sum(-1)[:, None] + csq[want[0].long()]
         chk = sel_check(got, want, scale)
-        fault = sel_check(_csq_dropped(Q, C, p), want, scale)
-        chk["ok"] = chk["ok"] and not fault["ok"]
-        chk["fault_csq_dropped_fails"] = not fault["ok"]
-        chk["ms"] = time_ms(lambda: ops.probe_centroids(Q, C, p), [()], 20)
+        faults = {"csq_dropped": _probe_fault(Qp, C, p, csq=False),
+                  "last_chunk_dropped": _probe_fault(
+                      Qp, C, p, keep=(plan["splits"] - 1) * plan["chunk"])}
+        for name, bad in faults.items():
+            chk[f"fault_{name}_fails"] = not sel_check(bad, want, scale)["ok"]
+        chk["ok"] = chk["ok"] and all(chk[f"fault_{f}_fails"] for f in faults)
+        chk["plan"] = plan
+        chk["ms"] = time_ms(lambda: ops.probe_centroids(Qp, C, p), [()], 20)
         chk["plain_ms"] = time_ms(
-            lambda: ops.probe_centroids(Q, C, p, force="ref"), [()], 4)
-        nbytes = 4 * (nq * d + k * d + 2 * nq * p)
-        chk["bound_ms"], chk["bound_by"] = bound_ms(nbytes, 2 * nq * k * d)
-        out["probe"][p] = chk
+            lambda: ops.probe_centroids(Qp, C, p, force="ref"), [()], reps)
+        m = Qp.shape[0]
+        nbytes = 4 * (m * d + k * d + 2 * m * p)
+        chk["bound_ms"], chk["bound_by"] = bound_ms(nbytes, 2 * m * k * d)
+        log(f"probe_centroids nq={m} k={k} d={d} p={p}: split plan "
+            f"{json.dumps(plan)} (row tile, centroids per chunk, chunks S, "
+            "pass-1 CTAs)")
+        return chk
+
+    for p in (1, 16, 64):
+        out["probe"][p] = probe_check(Q, p, 4)
     # the serving path's own launch: one batch of queries at p=16
     b, pb = SERVE["batch"], 16
     Qb = Q[:b].contiguous()
-    want = ops.probe_centroids(Qb, C, pb, force="ref")
-    chk = sel_check(ops.probe_centroids(Qb, C, pb), want,
-                    (Qb * Qb).sum(-1)[:, None] + csq[want[0].long()])
-    chk["ms"] = time_ms(lambda: ops.probe_centroids(Qb, C, pb), [()], 20)
-    chk["plain_ms"] = time_ms(
-        lambda: ops.probe_centroids(Qb, C, pb, force="ref"), [()], 20)
-    chk["mm_ms"] = time_ms(lambda: torch.matmul(Qb, C.T), [()], 20)
-    nbytes = 4 * (b * d + k * d + 2 * b * pb)
-    chk["bound_ms"], chk["bound_by"] = bound_ms(nbytes, 2 * b * k * d)
-    out["probe_batch"] = chk
+    out["probe_batch"] = probe_check(Qb, pb, 20)
+    out["probe_batch"]["mm_ms"] = time_ms(lambda: torch.matmul(Qb, C.T),
+                                          [()], 20)
     assign_rows = {nq: Q, n: X}
     for m, A in assign_rows.items():
         ga, gd = ops.assign_centroids(A, C)
@@ -635,7 +676,7 @@ def check_centroid_kernels(X, k):
         chk = sel_check((ga[:, None], gd[:, None]), (wa[:, None], wd[:, None]),
                         scale[:, None])
         if m == nq:
-            fi, fd = _csq_dropped(A, C, 1)
+            fi, fd = _probe_fault(A, C, 1, csq=False)
             fault = sel_check((fi, fd), (wa[:, None], wd[:, None]),
                               scale[:, None])
             chk["ok"] = chk["ok"] and not fault["ok"]
@@ -647,18 +688,18 @@ def check_centroid_kernels(X, k):
         nbytes = 4 * (m * d + k * d + 2 * m)
         chk["bound_ms"], chk["bound_by"] = bound_ms(nbytes, 2 * m * k * d)
         out["assign"][m] = chk
-    # device time per launch, traced after the event timings
-    out["probe"][16]["device_us"] = kernel_device_us(
-        lambda: ops.probe_centroids(Q, C, 16), [()], "centroid_kernel<true")
-    out["probe"][64]["device_us"] = kernel_device_us(
-        lambda: ops.probe_centroids(Q, C, 64), [()], "centroid_kernel<true")
+    # device time per call (both passes), traced after the event timings
+    for p, chk in out["probe"].items():
+        chk["device_us"] = kernel_device_us(
+            lambda: ops.probe_centroids(Q, C, p), [()], PROBE_KERNELS,
+            launches=1 + (chk["plan"]["splits"] > 1))
     out["probe_batch"]["device_us"] = kernel_device_us(
-        lambda: ops.probe_centroids(Qb, C, pb), [()], "centroid_kernel<true")
+        lambda: ops.probe_centroids(Qb, C, pb), [()], PROBE_KERNELS,
+        launches=1 + (out["probe_batch"]["plan"]["splits"] > 1))
     out["assign"][nq]["device_us"] = kernel_device_us(
-        lambda: ops.assign_centroids(Q, C), [()], "centroid_kernel<false")
+        lambda: ops.assign_centroids(Q, C), [()], "assign_kernel")
     out["assign"][n]["device_us"] = kernel_device_us(
-        lambda: ops.assign_centroids(X, C), [()], "centroid_kernel<false",
-        reps=3)
+        lambda: ops.assign_centroids(X, C), [()], "assign_kernel", reps=3)
     # yardstick: the (rows, k) product alone, no selection; at n=10^6 the
     # (n, k) output is 65 GB, so one 131,072-row chunk is timed and scaled
     mm = time_ms(lambda: torch.matmul(Q, C.T), [()], 10)
@@ -1158,10 +1199,37 @@ def _grouped_tile_maps(union, qmask, G, null_tile):
                        null_tile).to(torch.int32)
 
 
+def grouped_plan(qmask, G, topk):
+    """The grouped scan's split plan on this card for these groups, as a
+    dict, with the live chunks the kernel cuts (``slot_chunks``)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ivf_scan_grouped import slot_chunks, split_plan
+    ngroups, U = qmask.shape[0] // G, qmask.shape[1]
+    plan = split_plan(ngroups, U, topk, _build.sm_count(0))._asdict()
+    bounds = slot_chunks(qmask, G, plan["splits"])
+    live = (bounds[:, 1:] > bounds[:, :-1]).sum(1).float()
+    plan["live_span_mean"] = float(bounds[:, -1].float().mean())
+    plan["live_chunks_per_group_mean"] = float(live.mean())
+    return plan, bounds
+
+
+def _last_chunk_dropped(qmask, bounds, G):
+    """qmask with each group's last live slot chunk cleared (a merge that
+    loses that chunk's lists)."""
+    import torch
+    live = bounds[:, 1:] > bounds[:, :-1]
+    start = torch.where(live, bounds[:, :-1], -1).max(1).values
+    start = torch.where(start < 0, qmask.shape[1], start)
+    slots = torch.arange(qmask.shape[1], device=qmask.device)
+    drop = slots[None, :] >= start.repeat_interleave(G)[:, None]
+    return torch.where(drop, 0, qmask)
+
+
 def check_grouped_kernel(index, Q, X_all, tm, live_per_tile, G=8, topk=10):
     """ivf_scan_grouped vs its plain version at G queries per group, with
     planted faults in the plain version: each query given the next group
-    member's qmask, the union tiles off by one, ||v||² dropped."""
+    member's qmask, the union tiles off by one, ||v||² dropped, and each
+    group's last live slot chunk of the split plan dropped."""
     import torch
     from repro_torch import index as ivf
     from repro_torch.kernels import ops, ref
@@ -1174,11 +1242,12 @@ def check_grouped_kernel(index, Q, X_all, tm, live_per_tile, G=8, topk=10):
     Qg = Q[order.clamp(max=nq - 1).long()].contiguous()
     args = (Qg, index.vecs, index.ids, union, qmask)
     kw = dict(block_rows=bl, topk=topk)
+    plan, bounds = grouped_plan(qmask, G, topk)
     got = ops.ivf_scan_grouped(*args, **kw)
     want = ops.ivf_scan_grouped(*args, force="ref", **kw)
     scale = (Qg * Qg).sum(-1)[:, None] + xsq[want[0].long().clamp(min=0)]
     chk = sel_check(got, want, scale)
-    gs = FAULT_Q // G
+    gs = min(FAULT_Q // G, union.shape[0])
     rs, us = slice(0, gs * G), slice(0, gs)
     wsub = (want[0][rs], want[1][rs])
     faults = {
@@ -1192,11 +1261,15 @@ def check_grouped_kernel(index, Q, X_all, tm, live_per_tile, G=8, topk=10):
         "vsq_dropped": _vsq_dropped(
             Qg[rs], index.vecs, index.ids,
             _grouped_tile_maps(union[us], qmask[rs], G, index.null_tile),
-            bl, topk)}
+            bl, topk),
+        "last_chunk_dropped": ref.ivf_scan_grouped(
+            Qg[rs], index.vecs, index.ids, union[us],
+            _last_chunk_dropped(qmask[rs], bounds[us], G), **kw)}
     for name, bad in faults.items():
         chk[f"fault_{name}_fails"] = not sel_check(bad, wsub,
                                                    scale[rs])["ok"]
     chk["ok"] = chk["ok"] and all(chk[f"fault_{f}_fails"] for f in faults)
+    chk["plan"] = plan
     chk["ms"] = time_ms(lambda: ops.ivf_scan_grouped(*args, **kw), [()], 10)
     chk["plain_ms"] = time_ms(
         lambda: ops.ivf_scan_grouped(*args, force="ref", **kw), [()], 2)
@@ -1209,7 +1282,7 @@ def check_grouped_kernel(index, Q, X_all, tm, live_per_tile, G=8, topk=10):
     chk["bound_ms"], chk["bound_by"] = bound_ms(nbytes, 2 * pairs * d)
     # yardstick: torch.bmm of each group's queries against its union's live
     # rows gathered beforehand (dots only, no mask, no selection), for
-    # FAULT_Q // G groups, padded to the widest, scaled to all groups
+    # up to FAULT_Q // G groups, padded to the widest, scaled to all groups
     pos = (union[us].long()[:, :, None] * bl
            + torch.arange(bl, device=DEV)).reshape(gs, -1)
     live = index.ids[pos] >= 0
@@ -1221,6 +1294,8 @@ def check_grouped_kernel(index, Q, X_all, tm, live_per_tile, G=8, topk=10):
                             10) * union.shape[0] / gs
     del rows
     log(f"ivf_scan_grouped nq={nq} G={G} topk={topk} U={union.shape[1]}: "
+        f"split plan {json.dumps(plan)} (chunks S, slots per chunk of U, "
+        f"pass-1 CTAs; the kernel cuts each group's live span); "
         f"{json.dumps(chk)}")
     return chk, args, kw
 
@@ -1258,16 +1333,21 @@ def check_codec_kernels(index, runs, Q, X_all):
         out["adc"][label] = chk
         traced.append((chk, ops.ivf_scan_adc, args, kw,
                        "ivf_scan_adc_kernel"))
-    chk, args, kw = check_grouped_kernel(index, Q, X_all, tm, live_per_tile)
-    out["grouped"] = chk
-    traced.append((chk, ops.ivf_scan_grouped, args, kw,
-                   "ivf_scan_grouped_kernel"))
-    # device time per launch, traced after all the event timings above
-    for chk, fn, args, kw, name in traced:
+    for key, rows in (("grouped", slice(None)),
+                      ("grouped_batch", slice(0, SERVE["batch"]))):
+        # nq=10,000, and one served batch of 64 queries (8 groups)
+        chk, args, kw = check_grouped_kernel(
+            index, Q[rows].contiguous(), X_all, tm[rows].contiguous(),
+            live_per_tile)
+        out[key] = chk
+        traced.append((chk, ops.ivf_scan_grouped, args, kw, GROUPED_KERNELS))
+    # device time per call, traced after all the event timings above
+    for chk, fn, args, kw, names in traced:
+        launches = 1 + (chk.get("plan", {}).get("splits", 1) > 1)
         chk["device_us"] = kernel_device_us(lambda: fn(*args, **kw), [()],
-                                            name, 5)
-        log(f"{name} kernel device time per launch: {chk['device_us']} us "
-            "(torch.profiler)")
+                                            names, 5, launches=launches)
+        log(f"{names} device time per call: {chk['device_us']} us "
+            f"({launches} launch(es) a call; torch.profiler)")
     return out
 
 
@@ -1410,9 +1490,9 @@ def profile_serving(index, Q, label="f32", **search_kw):
 
 def _short(name: str) -> str:
     for key in ("gather_score_kernel", "refine_merge_kernel",
-                "centroid_kernel<true", "centroid_kernel<false",
-                "ivf_scan_kernel", "ivf_scan_adc_kernel",
-                "ivf_scan_grouped_kernel", "pairwise_sq_kernel"):
+                *PROBE_KERNELS, "assign_kernel", "ivf_scan_kernel",
+                "ivf_scan_adc_kernel", *GROUPED_KERNELS,
+                "pairwise_sq_kernel"):
         if key in name:
             return key
     return name if len(name) <= 70 else name[:67] + "..."
@@ -1548,7 +1628,7 @@ def main() -> int:
     cc = check_codec_kernels(index, runs, Q, X_all)
     if not all(c["ok"] for c in cc["adc"].values()):
         failures.append("ivf_scan_adc vs plain")
-    if not cc["grouped"]["ok"]:
+    if not (cc["grouped"]["ok"] and cc["grouped_batch"]["ok"]):
         failures.append("ivf_scan_grouped vs plain")
     profile_serving(runs["pq"]["index"], Q, "codec pq nsub=8", codec="pq")
     profile_serving(index, Q, "qgroup=8", qgroup=8)
@@ -1581,6 +1661,9 @@ def main() -> int:
              check="vs plain: distances rtol 1e-5 + 1e-6*max norm², ids "
                    "distinct per row and equal but at near-ties"),
     ]
+    split_note = ("wrapper calls on the main path; each makes one device "
+                  "launch, or two (pass 1 and the merge) when its split "
+                  "plan has more than one chunk")
     sel = (f"vs plain: |d2 err| <= {DIST_RTOL:g}*(||x||²+||c||²) per slot, "
            "-1/+inf pattern exact, ids equal but at near-ties; planted "
            "faults fail")
@@ -1590,19 +1673,23 @@ def main() -> int:
         dict(name="probe_centroids", route="cuda",
              source="src/repro_torch/kernels/csrc/centroid_assign.cu",
              replaces="src/repro/kernels/centroid_assign.py:103",
-             launches=launches["probe_centroids"],
+             launches=launches["probe_centroids"], launches_note=split_note,
              max_abs_err=max(v["max_abs_err"] for v in ca["probe"].values()),
              ms=pr["ms"], plain_ms=pr["plain_ms"], bound_ms=pr["bound_ms"],
              bound_by=pr["bound_by"], library_ms=None, shape=f"nq={nq} "
              f"k={k2} d=128 p=16", device_us=pr["device_us"],
-             mm_ms=ca["mm_ms"], p64_ms=ca["probe"][64]["ms"],
+             split_plan=pr["plan"], mm_ms=ca["mm_ms"],
+             p64_ms=ca["probe"][64]["ms"],
              p64_plain_ms=ca["probe"][64]["plain_ms"],
              p64_bound_ms=ca["probe"][64]["bound_ms"],
              p64_device_us=ca["probe"][64]["device_us"],
+             p64_split_plan=ca["probe"][64]["plan"],
              p1_ms=ca["probe"][1]["ms"],
+             p1_device_us=ca["probe"][1]["device_us"],
+             p1_split_plan=ca["probe"][1]["plan"],
              served_batch={key: ca["probe_batch"][key] for key in
                            ("ms", "plain_ms", "bound_ms", "bound_by",
-                            "device_us", "mm_ms", "max_abs_err")}
+                            "device_us", "mm_ms", "max_abs_err", "plan")}
              | {"shape": f"nq={SERVE['batch']} k={k2} d=128 p=16"},
              near_tie_slots={p: v["near_tie_slots"]
                              for p, v in ca["probe"].items()}, check=sel),
@@ -1640,7 +1727,7 @@ def main() -> int:
                              for a, b in ((16, 10), (64, 10), (1, 100))},
              check=sel),
     ]
-    adc, grp = cc["adc"], cc["grouped"]
+    adc, grp, grb = cc["adc"], cc["grouped"], cc["grouped_batch"]
     a8 = adc["pq8"]
     adc_launch = {k: runs[k]["launches"]["ivf_scan_adc"]
                   for k in ("int8", "pq")}
@@ -1670,14 +1757,19 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/ivf_scan_grouped.cu",
              replaces="src/repro/kernels/ivf_scan.py:149",
              launches=runs["qgroup8"]["launches"]["ivf_scan_grouped"],
-             max_abs_err=grp["max_abs_err"], ms=grp["ms"],
-             plain_ms=grp["plain_ms"], bound_ms=grp["bound_ms"],
-             bound_by=grp["bound_by"], library_ms=None,
-             shape=f"nq={nq} G=8 nprobe=16 topk=10 d=128",
-             device_us=grp["device_us"], bmm_ms=grp["bmm_ms"],
-             near_tie_slots=grp["near_tie_slots"],
+             launches_note=split_note,
+             max_abs_err=max(grp["max_abs_err"], grb["max_abs_err"]),
+             ms=grp["ms"], plain_ms=grp["plain_ms"],
+             bound_ms=grp["bound_ms"], bound_by=grp["bound_by"],
+             library_ms=None, shape=f"nq={nq} G=8 nprobe=16 topk=10 d=128",
+             device_us=grp["device_us"], split_plan=grp["plan"],
+             bmm_ms=grp["bmm_ms"], near_tie_slots=grp["near_tie_slots"],
              union_rows_per_group=grp["union_rows_per_group"],
-             rows_per_query=grp["rows_per_query"], check=sel),
+             rows_per_query=grp["rows_per_query"],
+             served_batch=brief(grb, "plan", "bmm_ms", "union_slots")
+             | {"shape": f"nq={SERVE['batch']} G=8 nprobe=16 topk=10 "
+                         "d=128"},
+             check=sel),
     ]
     pws = pw["shapes"]
     s1m = pws["sift1m"]

@@ -14,15 +14,20 @@ once, and waits for them: seven sources, eight kernels.
 ``csrc/centroid_assign.cu`` holds two kernels (``assign_centroids`` and
 ``probe_centroids``); every other source one.
 ``csrc/common.cuh`` holds the helpers they share (warp sums, row loads, the
-sorted top-k list of the scans).  Nothing here runs at import: the CPU
+sorted top-k list of the scans, ``cp.async`` copies, and the merge pass of
+the split kernels).  Nothing here runs at import: the CPU
 tests import every module, on machines that may have no ``nvcc``.
 
 ``launch_counts`` holds one integer per kernel; each wrapper adds one where
-it launches its kernel, and nowhere else.
+it launches its kernel, and nowhere else.  It counts wrapper calls: the
+split kernels (``probe_centroids``, ``ivf_scan_grouped``) make one or two
+device launches per call (a partial pass, and a merge pass when the split
+plan cuts the work into more than one chunk).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -127,6 +132,13 @@ def library(name: str) -> ctypes.CDLL:
         build([name])
         lib = _libs[name] = ctypes.CDLL(str(_target(name)))
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``device_index`` (read once;
+    the split plans size their grids by it)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, shape,

@@ -69,6 +69,229 @@ __device__ __forceinline__ void merge_candidates(float* ld, int* li, int k,
   }
 }
 
+// An asynchronous 4-byte global -> shared copy (cp.async, sm_80+); with
+// src_bytes == 0 it reads nothing and writes a zero.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// The merge pass of the split kernels (probe_centroids, ivf_scan_grouped).
+// Pass 1 leaves, for each output row, S sorted partial lists of length k
+// (one per chunk of its candidates, chunks in candidate order) in global
+// scratch, row-major as (rows, S, k).  The merge keeps merge_candidates'
+// strict-insert rule — a candidate enters only strictly below the running
+// k-th entry, so among equal values the earlier chunk's entry stays ahead,
+// as the lower candidate index does in a single pass — but applies it a
+// whole list at a time: inserting a sorted list's entries one by one in
+// order leaves exactly the first k of the stable merge (running list first
+// on ties) of the running list and the list's entries below the k-th, and
+// a warp computes that merge in parallel (merge path: each lane finds where
+// its run of outputs starts by binary search, then merges the run).  A few
+// lists are merged by one warp per row; for many, a CTA of W warps takes
+// one row: warp w merges lists [w·S/W, (w+1)·S/W) in order into its own
+// running list, then warp 0 merges the W results in warp order, so the
+// chain of dependent merges is about S/W + W long, not S.
+
+constexpr int kMergeSeg = 512;        // candidates staged per segment, at least
+constexpr int kMergeMaxWarps = 8;
+constexpr int kMergeSmem = 96 * 1024; // shared memory budget of a merge CTA
+
+// Whole lists of length k staged per segment, and the staging buffer's size.
+__host__ __device__ constexpr int merge_seg_lists(int k) {
+  return k >= kMergeSeg ? 1 : kMergeSeg / k;
+}
+__host__ __device__ constexpr int merge_seg_floats(int k) {
+  return merge_seg_lists(k) * k;
+}
+
+// Floats of shared memory one merging warp needs for lists of length k: two
+// running lists and two staging buffers, each (values, ids).
+__host__ __device__ constexpr int merge_warp_floats(int k) {
+  return 4 * k + 4 * merge_seg_floats(k);
+}
+
+// Warps that merge one row's S lists of length k: one for a few lists (and
+// then kMergeRows rows share a CTA), else up to kMergeMaxWarps within the
+// shared-memory budget.
+constexpr int kMergeRows = 4;
+constexpr int kMergeTreeFrom = 16;    // lists per row from which W > 1
+inline int merge_warps(int S, int k) {
+  if (S < kMergeTreeFrom) return 1;
+  int w = kMergeSmem / (4 * merge_warp_floats(k));
+  w = w < kMergeMaxWarps ? w : kMergeMaxWarps;
+  w = w < S ? w : S;
+  return w > 1 ? w : 1;
+}
+
+// Rows of a merge CTA with W warps per row.
+__host__ __device__ constexpr int merge_cta_rows(int W) {
+  return W == 1 ? kMergeRows : 1;
+}
+
+// Count of the sorted a[0, n) strictly below v (binary search; every lane
+// the same).
+__device__ __forceinline__ int count_below(const float* a, int n, float v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] < v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// (ov, oi)[0, k) = the first k of the stable merge of the sorted running list
+// (av, ai)[0, k) and the sorted (bv, bi)[0, nb), running entries first on
+// ties.  Whole warp; lane l writes outputs [l·q, l·q + q), q = ceil(k / 32).
+__device__ __forceinline__ void merge_sorted(const float* av, const int* ai,
+                                             const float* bv, const int* bi,
+                                             int nb, int k, float* ov,
+                                             int* oi, int lane) {
+  const int q = (k + 31) >> 5;
+  const int o0 = min(lane * q, k), o1 = min(o0 + q, k);
+  int lo = max(0, o0 - nb), hi = o0;   // running entries among the first o0
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (av[mid] <= bv[o0 - 1 - mid]) lo = mid + 1; else hi = mid;
+  }
+  int a = lo, b = o0 - lo;
+  for (int o = o0; o < o1; ++o) {
+    if (b >= nb || av[a] <= bv[b]) {   // a < k: o < k outputs so far
+      ov[o] = av[a];
+      oi[o] = ai[a++];
+    } else {
+      ov[o] = bv[b];
+      oi[o] = bi[b++];
+    }
+  }
+  __syncwarp();
+}
+
+// Merge lists [first, last) of a row (pv, pi: global, list after list, each
+// of length k) in order into the warp's running list, which starts empty
+// (all +inf / -1).  ws: merge_warp_floats(k) floats of shared memory.
+// Segments of whole lists are copied in with cp.async, the next one in
+// flight while the current one is merged; a list whose first entry is not
+// below the running k-th entry cannot enter and is skipped.  Returns the
+// running buffer (0 or 1) that holds the result, at ws + r·2k (values) and
+// ws + r·2k + k (ids).
+__device__ __forceinline__ int merge_list_range(const float* __restrict__ pv,
+                                                const int* __restrict__ pi,
+                                                int first, int last, int k,
+                                                float* ws, int lane) {
+  const int L = merge_seg_lists(k), F = merge_seg_floats(k);
+  float* sv = ws + 4 * k;                        // [2][F]
+  int* si = reinterpret_cast<int*>(sv + 2 * F);  // [2][F]
+  for (int j = lane; j < k; j += 32) {
+    ws[j] = INFINITY;
+    reinterpret_cast<int*>(ws + k)[j] = -1;
+  }
+  int cur = 0;
+  const int S = max(last - first, 0);
+  const int nseg = (S + L - 1) / L;
+  auto stage = [&](int seg) {
+    if (seg < nseg) {
+      const size_t a = (size_t)(first + seg * L) * k;
+      const int m = min(L, S - seg * L) * k;
+      const int b = (seg & 1) * F;
+      for (int j = lane; j < m; j += 32) {
+        cp_async4(sv + b + j, pv + a + j, 4);
+        cp_async4(si + b + j, pi + a + j, 4);
+      }
+    }
+    cp_async_commit();
+  };
+  stage(0);
+  for (int seg = 0; seg < nseg; ++seg) {
+    stage(seg + 1);      // its buffer was last read before the last syncwarp
+    cp_async_wait<1>();
+    __syncwarp();        // every lane's copies of this segment are visible
+    const int nl = min(L, S - seg * L);
+    for (int l = 0; l < nl; ++l) {
+      const float* bv = sv + (seg & 1) * F + l * k;
+      const int* bi = si + (seg & 1) * F + l * k;
+      float* av = ws + cur * 2 * k;
+      const float thr = av[k - 1];
+      if (!(bv[0] < thr)) continue;  // uniform
+      float* ov = ws + (cur ^ 1) * 2 * k;
+      merge_sorted(av, reinterpret_cast<const int*>(av + k), bv, bi,
+                   count_below(bv, k, thr), k, ov,
+                   reinterpret_cast<int*>(ov + k), lane);
+      cur ^= 1;
+    }
+    __syncwarp();
+  }
+  return cur;
+}
+
+// A merge CTA's work: with W = 1 (merge_cta_rows) each warp merges its own
+// row; else the CTA's W warps share one row: they merge their ranges of its
+// S lists, then warp 0 merges their W results in order.  Returns, in the
+// warp that holds a row's final list, that list (values; ids k floats
+// after), else nullptr.  ws: (blockDim.x / 32) · merge_warp_floats(k)
+// floats of shared memory; pv, pi point at the row's lists.
+__device__ __forceinline__ const float* merge_row(const float* __restrict__ pv,
+                                                  const int* __restrict__ pi,
+                                                  int S, int k, int W,
+                                                  float* smem) {
+  __shared__ int cur[kMergeMaxWarps];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* ws = smem + warp * merge_warp_floats(k);
+  if (W == 1) {
+    const int c = merge_list_range(pv, pi, 0, S, k, ws, lane);
+    return ws + c * 2 * k;
+  }
+  const int per = (S + W - 1) / W;
+  const int c = merge_list_range(pv, pi, warp * per, min(S, (warp + 1) * per),
+                                 k, ws, lane);
+  if (lane == 0) cur[warp] = c;
+  __syncthreads();
+  if (warp != 0) return nullptr;
+  int r = cur[0];
+  for (int w = 1; w < W; ++w) {
+    const float* bv = smem + w * merge_warp_floats(k) + cur[w] * 2 * k;
+    float* av = ws + r * 2 * k;
+    const float thr = av[k - 1];
+    if (!(bv[0] < thr)) continue;  // uniform
+    float* ov = ws + (r ^ 1) * 2 * k;
+    merge_sorted(av, reinterpret_cast<const int*>(av + k), bv,
+                 reinterpret_cast<const int*>(bv + k), count_below(bv, k, thr),
+                 k, ov, reinterpret_cast<int*>(ov + k), lane);
+    r ^= 1;
+  }
+  return ws + r * 2 * k;
+}
+
+// Write the warp's final list of length k as the row's result: ids, and
+// d2 = max(v + rowsq, 0) in that op order, or with raw the value itself;
+// +inf where the id is -1.
+__device__ __forceinline__ void write_final_row(const float* ld,
+                                                const int* li, int k,
+                                                float rowsq, bool raw,
+                                                int* __restrict__ out_i,
+                                                float* __restrict__ out_d,
+                                                int lane) {
+  for (int j = lane; j < k; j += 32) {
+    const int id = li[j];
+    const float v = ld[j];
+    out_i[j] = id;
+    out_d[j] = id < 0 ? INFINITY : (raw ? v : fmaxf(v + rowsq, 0.f));
+  }
+}
+
 // Four consecutive floats row[e..e+3], zero past d.  kAligned: d % 4 == 0
 // and the row base is 16-byte aligned, so one float4 load serves (e and d
 // are both multiples of 4, hence e < d means the whole slice is in range).

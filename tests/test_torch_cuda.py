@@ -192,10 +192,43 @@ def test_probe_centroids_kernel_matches_plain(dev, n, k, d, p):
     _assert_sel(got, want, _pair_scale(X, C, want[0]))
 
 
-def test_centroid_kernels_ties_exact(dev):
+def _sms():
+    return _build.sm_count(torch.cuda.current_device())
+
+
+@pytest.mark.parametrize("n,k,d,p", [(64, 16384, 128, 16),
+                                     (10, 5000, 24, 128),
+                                     (200, 3000, 37, 16),
+                                     (200, 3000, 37, 64)])
+def test_probe_centroids_split_matches_plain(dev, n, k, d, p):
+    """Shapes whose split plan has several centroid chunks (two launches
+    per call): the served batch, p=128 with a partial last tile, and
+    d=37 (4-byte copies)."""
+    from repro_torch.kernels.centroid_assign import split_plan
+    assert split_plan(n, k, p, _sms()).splits > 1
+    X, C = _centroid_case(n, k, d, n + p, dev)
+    before = _build.launch_counts["probe_centroids"]
+    got = ops.probe_centroids(X, C, p)
+    want = ops.probe_centroids(X, C, p, force="ref")
+    torch.cuda.synchronize()
+    assert _build.launch_counts["probe_centroids"] == before + 1
+    _assert_sel(got, want, _pair_scale(X, C, want[0]))
+
+
+@pytest.mark.parametrize("n,k,d,seed,repeat", [(300, 260, 16, 4, False),
+                                               (64, 3000, 16, 5, True),
+                                               (200, 5000, 8, 6, True)])
+def test_centroid_kernels_ties_exact(dev, n, k, d, seed, repeat):
     """Integer data: the partials are exact and tie everywhere, so the
-    first-minimum rule decides, bit for bit."""
-    X, C = _centroid_case(300, 260, 16, 4, dev, integer=True)
+    first-minimum rule decides, bit for bit.  The split shapes repeat the
+    centroid before every 64-centroid boundary after it, so equal partials
+    straddle each chunk boundary of the probe's plan."""
+    from repro_torch.kernels.centroid_assign import UNIT, split_plan
+    X, C = _centroid_case(n, k, d, seed, dev, integer=True)
+    if repeat:
+        at = torch.arange(UNIT, k, UNIT, device=dev)
+        C[at] = C[at - 1]
+        assert split_plan(n, k, 64, _sms()).splits > 1
     for p in (1, 7, 64):
         gi, gd = ops.probe_centroids(X, C, p)
         wi, wd = ops.probe_centroids(X, C, p, force="ref")
@@ -372,10 +405,37 @@ def test_ivf_scan_grouped_kernel_matches_plain(dev, d, G, nprobe, topk, raw):
         assert bool((got[0] == -1).any())
 
 
-def test_ivf_scan_grouped_kernel_ties_exact(dev):
+@pytest.mark.parametrize("d,G,nprobe,topk,raw", [
+    (128, 8, 4, 10, False), (24, 8, 40, 1024, False), (37, 8, 3, 16, True),
+    (128, 8, 16, 10, False)])
+def test_ivf_scan_grouped_split_matches_plain(dev, d, G, nprobe, topk, raw):
+    """64 queries at G=8 (8 groups), whose split plan cuts each union into
+    several slot chunks (two launches per call): topk up to 1024, raw."""
+    from repro_torch.kernels.ivf_scan_grouped import split_plan
+    X, index = _small_index(dev, d)
+    Q = (X[:64] + 0.1 * torch.randn(64, d, device=dev)).contiguous()
+    _, args = _group_inputs(index, Q, nprobe, G)
+    assert split_plan(*args[3].shape, topk, _sms()).splits > 1
+    kw = dict(block_rows=index.block_rows, topk=topk, raw=raw)
+    before = _build.launch_counts["ivf_scan_grouped"]
+    got = ops.ivf_scan_grouped(*args, **kw)
+    want = ops.ivf_scan_grouped(*args, force="ref", **kw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["ivf_scan_grouped"] == before + 1
+    _assert_sel(got, want, _pair_scale(args[0], X, want[0]))
+
+
+@pytest.mark.parametrize("nprobe,topk,raw", [(5, 20, False), (12, 50, False),
+                                             (12, 7, True)])
+def test_ivf_scan_grouped_kernel_ties_exact(dev, nprobe, topk, raw):
+    """Integer data at 8 groups: the plan splits each union, equal partials
+    fall in different chunks (repeated rows and tiles), and the result is
+    bit-identical to the plain version."""
+    from repro_torch.kernels.ivf_scan_grouped import split_plan
     X, index = _small_index(dev, 16, integer=True)
-    _, args = _group_inputs(index, X[:64].contiguous(), 5, 8)
-    kw = dict(block_rows=index.block_rows, topk=20)
+    _, args = _group_inputs(index, X[:64].contiguous(), nprobe, 8)
+    assert split_plan(*args[3].shape, topk, _sms()).splits > 1
+    kw = dict(block_rows=index.block_rows, topk=topk, raw=raw)
     gi, gd = ops.ivf_scan_grouped(*args, **kw)
     wi, wd = ops.ivf_scan_grouped(*args, force="ref", **kw)
     torch.cuda.synchronize()
