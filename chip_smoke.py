@@ -66,8 +66,11 @@ plain PyTorch version, or when any phase fails.  Phases:
    batch, QPS, host syncs inside the timed ``search`` calls (must be 0);
    recall must not fall with nprobe and must lie within 0.002 of the plain
    versions' on the same queries; then ``ivf_scan`` against its plain
-   version on that index (nprobe 16 and 64 at topk=10, nprobe 1 at
-   topk=100) with its planted faults, and a torch.profiler trace of an
+   version on that index (nq=10,000 at nprobe 16 and 64 with topk=10 and
+   at nprobe 1 with topk=100, and one served batch of 64 queries at
+   nprobe 16, topk=10), each with its split plan printed (chunks S of each
+   query's live slots, CTAs) and its planted faults (for a split plan also
+   each query's first chunk dropped), and a torch.profiler trace of an
    nprobe=16 batch loop; then three more sweeps on the same index and
    queries at nprobe 1, 4, 16, 64, each its own counted run: codec int8,
    codec PQ (nsub=8, trained on all live rows inside the run) and qgroup=8
@@ -736,39 +739,77 @@ def _vsq_dropped(Q, vecs, pids, tm, block_rows, topk):
     return ref.finalize_d2(ids, d, Q)
 
 
+def scan_plan(nq, T, topk):
+    """The per-query scan's split plan on this card, as a dict."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ivf_scan import split_plan
+    return split_plan(nq, T, topk, _build.sm_count(0))._asdict()
+
+
+def _scan_first_chunk_dropped(Q, index, tm, topk, splits):
+    """The plain scan with a planted fault: each query's first live-slot
+    chunk of the split plan pointed at the null tile (a merge that loses
+    that chunk's list; the first holds the nearest cell's tiles)."""
+    import torch
+    from repro_torch.kernels import ivf_scan as kivf, ref
+    bl = index.block_rows
+    live = kivf.live_slots(tm, index.ids, bl)
+    bounds = kivf.slot_chunks(live, splits)
+    rank = live.long().cumsum(1) - 1
+    drop = live & (rank < bounds[:, 1:2])
+    bad = torch.where(drop, index.null_tile, tm).to(torch.int32)
+    return ref.ivf_scan(Q, index.vecs, index.ids, bad, block_rows=bl,
+                        topk=topk)
+
+
+SCAN_KERNELS = ("ivf_scan_kernel", "ivf_scan_merge_kernel")
+
+
 def check_scan_kernel(index, Q, X_all):
     """ivf_scan on the SIFT1M index against its plain version, on one tile
-    map per case (the plain probe's cells): nprobe 16 and 64 at topk=10,
-    and nprobe 1 at topk=100 (lists exhausted)."""
+    map per case (the plain probe's cells): nq=10,000 at nprobe 16 and 64
+    (topk=10) and nprobe 1 (topk=100, lists exhausted), and one served
+    batch of 64 queries at nprobe 16, topk=10 (a split plan), each with its
+    split plan printed."""
     import torch
     from repro_torch import index as ivf
     from repro_torch.kernels import ops, ref
     bl = index.block_rows
-    nq, d = Q.shape
     xsq = (X_all * X_all).sum(-1)
     live_per_tile = (index.ids.view(-1, bl) >= 0).sum(1)
     n_tiles = index.n_rows // bl
     out, traced = {}, []
-    for nprobe, topk in ((16, 10), (64, 10), (1, 100)):
-        cids, _ = ops.probe_centroids(Q, index.centroids, nprobe, force="ref")
+    for key, nq, nprobe, topk in ((16, Q.shape[0], 16, 10),
+                                  (64, Q.shape[0], 64, 10),
+                                  (1, Q.shape[0], 1, 100),
+                                  ("batch", SERVE["batch"], 16, 10)):
+        q = Q[:nq].contiguous()
+        d = q.shape[1]
+        cids, _ = ops.probe_centroids(q, index.centroids, nprobe,
+                                      force="ref")
         tm = ivf.build_tile_map(cids, index.starts, index.caps,
                                 max_tiles=index.max_list_tiles,
                                 block_rows=bl, null_tile=index.null_tile)
-        args = (Q, index.vecs, index.ids, tm)
+        plan = scan_plan(nq, tm.shape[1], topk)
+        args = (q, index.vecs, index.ids, tm)
         kw = dict(block_rows=bl, topk=topk)
         got = ops.ivf_scan(*args, **kw)
         want = ops.ivf_scan(*args, force="ref", **kw)
-        scale = (Q * Q).sum(-1)[:, None] + xsq[want[0].long().clamp(min=0)]
+        scale = (q * q).sum(-1)[:, None] + xsq[want[0].long().clamp(min=0)]
         chk = sel_check(got, want, scale)
+        chk["plan"] = plan
         chk["exhausted_slots"] = int((want[0] < 0).sum())
-        sub = slice(0, FAULT_Q)
+        sub = slice(0, min(FAULT_Q, nq))
         wsub = (want[0][sub], want[1][sub])
         faults = {
-            "vsq_dropped": _vsq_dropped(Q[sub], index.vecs, index.ids,
+            "vsq_dropped": _vsq_dropped(q[sub], index.vecs, index.ids,
                                         tm[sub], bl, topk),
             "tile_map_off_by_one": ref.ivf_scan(
-                Q[sub], index.vecs, index.ids,
+                q[sub], index.vecs, index.ids,
                 torch.clamp(tm[sub] + 1, max=n_tiles - 1), **kw)}
+        if plan["splits"] > 1:
+            faults["first_chunk_dropped"] = _scan_first_chunk_dropped(
+                q[sub], index, tm[sub], topk, plan["splits"])
         for name, bad in faults.items():
             chk[f"fault_{name}_fails"] = not sel_check(bad, wsub,
                                                        scale[sub])["ok"]
@@ -784,30 +825,39 @@ def check_scan_kernel(index, Q, X_all):
         chk["bound_ms"], chk["bound_by"] = bound_ms(nbytes, 2 * R * d)
         if nprobe == 16:
             # yardstick: torch.bmm over rows gathered beforehand (dots only,
-            # no selection) for FAULT_Q queries, padded to the longest
+            # no selection) for up to FAULT_Q queries, padded to the longest
             # query's live rows, scaled to nq
+            m = sub.stop
             pos = (tm[sub].long()[:, :, None] * bl
-                   + torch.arange(bl, device=DEV)).reshape(FAULT_Q, -1)
+                   + torch.arange(bl, device=DEV)).reshape(m, -1)
             live = index.ids[pos] >= 0
             width = int(live.sum(1).max())
             order = torch.argsort((~live).to(torch.int8), dim=1,
                                   stable=True)[:, :width]
             G = index.vecs[torch.gather(pos, 1, order)]
-            chk["bmm_ms"] = time_ms(torch.bmm, [(G, Q[sub, :, None])],
-                                    10) * nq / FAULT_Q
+            chk["bmm_ms"] = time_ms(torch.bmm, [(G, q[sub, :, None])],
+                                    10) * nq / m
             del G
-        out[(nprobe, topk)] = chk
+        out[key] = chk
         log(f"ivf_scan nq={nq} nprobe={nprobe} topk={topk} T={tm.shape[1]} "
-            f"(max_list_tiles {index.max_list_tiles}): {json.dumps(chk)}")
-    # device time per launch, traced after all the event timings above
+            f"(max_list_tiles {index.max_list_tiles}): split plan "
+            f"{json.dumps(plan)} (chunks S of each query's live slots, "
+            f"pass-1 CTAs); {json.dumps(chk)}")
+    # device time per call (both launches when the plan splits), traced
+    # after all the event timings above
     for chk, args, kw in traced:
+        launches = 1 + (chk["plan"]["splits"] > 1)
         chk["device_us"] = kernel_device_us(
-            lambda: ops.ivf_scan(*args, **kw), [()], "ivf_scan_kernel", 5)
-        log(f"ivf_scan topk={kw['topk']} T={args[3].shape[1]} kernel device "
-            f"time per launch: {chk['device_us']} us (torch.profiler)")
+            lambda: ops.ivf_scan(*args, **kw), [()], SCAN_KERNELS, 5,
+            launches=launches)
+        log(f"ivf_scan nq={args[0].shape[0]} topk={kw['topk']} "
+            f"T={args[3].shape[1]} kernel device time per call: "
+            f"{chk['device_us']} us ({launches} launch(es) a call; "
+            "torch.profiler)")
     log("ivf_scan yardstick: torch.bmm over pre-gathered live rows (dots "
-        f"only), nprobe=16: {out[(16, 10)]['bmm_ms']:.4f} ms for {nq} "
-        f"queries (timed on {FAULT_Q}, scaled)")
+        f"only), nprobe=16: {out[16]['bmm_ms']:.4f} ms for {Q.shape[0]} "
+        f"queries (timed on {FAULT_Q}, scaled), "
+        f"{out['batch']['bmm_ms']:.4f} ms for the served batch")
     out["ok"] = all(v["ok"] for v in out.values())
     return out
 
@@ -1490,7 +1540,7 @@ def profile_serving(index, Q, label="f32", **search_kw):
 
 def _short(name: str) -> str:
     for key in ("gather_score_kernel", "refine_merge_kernel",
-                *PROBE_KERNELS, "assign_kernel", "ivf_scan_kernel",
+                *PROBE_KERNELS, "assign_kernel", *SCAN_KERNELS,
                 "ivf_scan_adc_kernel", *GROUPED_KERNELS,
                 "pairwise_sq_kernel"):
         if key in name:
@@ -1668,7 +1718,7 @@ def main() -> int:
            "-1/+inf pattern exact, ids equal but at near-ties; planted "
            "faults fail")
     nq, n1m = SERVE["nq"], c["n"]
-    pr, asg, s16 = ca["probe"][16], ca["assign"][nq], sc[(16, 10)]
+    pr, asg, s16 = ca["probe"][16], ca["assign"][nq], sc[16]
     kernels += [
         dict(name="probe_centroids", route="cuda",
              source="src/repro_torch/kernels/csrc/centroid_assign.cu",
@@ -1711,19 +1761,25 @@ def main() -> int:
         dict(name="ivf_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/ivf_scan.cu",
              replaces="src/repro/kernels/ivf_scan.py:64",
-             launches=launches["ivf_scan"],
+             launches=launches["ivf_scan"], launches_note=split_note,
              max_abs_err=max(v["max_abs_err"] for key, v in sc.items()
                              if key != "ok"),
              ms=s16["ms"], plain_ms=s16["plain_ms"], bound_ms=s16["bound_ms"],
              bound_by=s16["bound_by"], library_ms=None,
              shape=f"nq={nq} nprobe=16 topk=10 d=128",
              device_us=s16["device_us"], bmm_ms=s16["bmm_ms"],
-             nprobe64={key: sc[(64, 10)][key] for key in
-                       ("ms", "plain_ms", "bound_ms", "device_us")},
-             nprobe1_topk100={key: sc[(1, 100)][key] for key in
+             split_plan=s16["plan"],
+             nprobe64={key: sc[64][key] for key in
+                       ("ms", "plain_ms", "bound_ms", "device_us", "plan")},
+             nprobe1_topk100={key: sc[1][key] for key in
                               ("ms", "plain_ms", "bound_ms", "device_us",
-                               "exhausted_slots")},
-             near_tie_slots={f"{a}/{b}": sc[(a, b)]["near_tie_slots"]
+                               "exhausted_slots", "plan")},
+             served_batch={key: sc["batch"][key] for key in
+                           ("ms", "plain_ms", "bound_ms", "bound_by",
+                            "device_us", "bmm_ms", "max_abs_err",
+                            "near_tie_slots", "rows_per_query", "plan")}
+             | {"shape": f"nq={SERVE['batch']} nprobe=16 topk=10 d=128"},
+             near_tie_slots={f"{a}/{b}": sc[a]["near_tie_slots"]
                              for a, b in ((16, 10), (64, 10), (1, 100))},
              check=sel),
     ]

@@ -18,11 +18,13 @@ sorted top-k list of the scans, ``cp.async`` copies, and the merge pass of
 the split kernels).  Nothing here runs at import: the CPU
 tests import every module, on machines that may have no ``nvcc``.
 
-``launch_counts`` holds one integer per kernel; each wrapper adds one where
-it launches its kernel, and nowhere else.  It counts wrapper calls: the
-split kernels (``probe_centroids``, ``ivf_scan_grouped``) make one or two
-device launches per call (a partial pass, and a merge pass when the split
-plan cuts the work into more than one chunk).
+Every wrapper launches through ``launch``, which makes the tensors' device
+current, takes its current stream, raises on a failed launch and only then
+adds one to the kernel's entry of ``launch_counts``.  The counts are
+wrapper calls: the split kernels (``probe_centroids``, ``ivf_scan``,
+``ivf_scan_grouped``) make one or two device launches per call (a partial
+pass, and a merge pass when the split plan cuts the work into more than one
+chunk).
 """
 from __future__ import annotations
 
@@ -139,6 +141,24 @@ def sm_count(device_index: int) -> int:
     """Streaming multiprocessors of CUDA device ``device_index`` (read once;
     the split plans size their grids by it)."""
     return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def launch(name: str, fn, dev: torch.device, *args) -> None:
+    """Launch kernel ``name`` through its C function ``fn`` on CUDA device
+    ``dev``.
+
+    ``dev`` is made current first (the C launchers' ``cudaFuncSetAttribute``
+    calls and launches act on the current device), then its current stream
+    is taken and passed as ``fn``'s last argument.  A nonzero return code
+    (a ``cudaError_t``, or -1 for arguments the launcher refuses) raises
+    ``RuntimeError``; only a launch that returned 0 is counted.
+    """
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    launch_counts[name] += 1
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, shape,

@@ -132,13 +132,9 @@ def assign_centroids(X: torch.Tensor, C: torch.Tensor
     out_d = torch.empty((n,), dtype=torch.float32, device=X.device)
     if n == 0:
         return out_i, out_d
-    stream = torch.cuda.current_stream(X.device).cuda_stream
-    rc = _fn("assign_centroids_launch", 6, 3)(
-        X.data_ptr(), C.data_ptr(), csq.data_ptr(), xsq.data_ptr(),
-        out_i.data_ptr(), out_d.data_ptr(), n, k, d, stream)
-    if rc != 0:
-        raise RuntimeError(f"assign_centroids launch failed: CUDA error {rc}")
-    _build.launch_counts["assign_centroids"] += 1
+    _build.launch("assign_centroids", _fn("assign_centroids_launch", 6, 3),
+                  X.device, X.data_ptr(), C.data_ptr(), csq.data_ptr(),
+                  xsq.data_ptr(), out_i.data_ptr(), out_d.data_ptr(), n, k, d)
     return out_i, out_d
 
 
@@ -166,14 +162,10 @@ def probe_centroids(X: torch.Tensor, C: torch.Tensor, p: int
                              device=X.device)
         part_i = torch.empty((n, plan.splits, p), dtype=torch.int32,
                              device=X.device)
-    stream = torch.cuda.current_stream(X.device).cuda_stream
-    rc = _fn("probe_centroids_launch", 8, 7)(
-        X.data_ptr(), C.data_ptr(), csq.data_ptr(), xsq.data_ptr(),
-        out_i.data_ptr(), out_d.data_ptr(),
-        None if part_v is None else part_v.data_ptr(),
-        None if part_i is None else part_i.data_ptr(), n, k, d, p,
-        plan.rows, plan.chunk, plan.splits, stream)
-    if rc != 0:
-        raise RuntimeError(f"probe_centroids launch failed: CUDA error {rc}")
-    _build.launch_counts["probe_centroids"] += 1
+    _build.launch("probe_centroids", _fn("probe_centroids_launch", 8, 7),
+                  X.device, X.data_ptr(), C.data_ptr(), csq.data_ptr(),
+                  xsq.data_ptr(), out_i.data_ptr(), out_d.data_ptr(),
+                  None if part_v is None else part_v.data_ptr(),
+                  None if part_i is None else part_i.data_ptr(), n, k, d, p,
+                  plan.rows, plan.chunk, plan.splits)
     return out_i, out_d

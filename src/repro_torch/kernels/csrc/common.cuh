@@ -69,6 +69,32 @@ __device__ __forceinline__ void merge_candidates(float* ld, int* li, int k,
   }
 }
 
+// Exclusive prefix sum of v over a CTA of kWarps full warps, in thread
+// order; *total gets the sum of every thread's v.  Every thread of the CTA
+// calls it (two __syncthreads); wt: kWarps ints of shared memory.
+template <int kWarps>
+__device__ __forceinline__ int block_exclusive_scan(int v, int* wt,
+                                                    int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int inc = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(kFullMask, inc, o);
+    if (lane >= o) inc += t;
+  }
+  if (lane == 31) wt[warp] = inc;
+  __syncthreads();
+  int before = 0, all = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    before += w < warp ? wt[w] : 0;
+    all += wt[w];
+  }
+  __syncthreads();  // wt may be reused once every thread has read it
+  *total = all;
+  return before + inc - v;
+}
+
 // An asynchronous 4-byte global -> shared copy (cp.async, sm_80+); with
 // src_bytes == 0 it reads nothing and writes a zero.
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem,

@@ -56,11 +56,7 @@ def gather_score(x: torch.Tensor, u: torch.Tensor, cand: torch.Tensor,
     out = torch.empty((B, C), dtype=torch.float32, device=dev)
     if B == 0 or C == 0:
         return out
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _fn()(x.data_ptr(), u.data_ptr(), cand.data_ptr(), D.data_ptr(),
-               cnt.data_ptr(), dsq.data_ptr(), out.data_ptr(), B, C, d, k,
-               _MODES[mode], stream)
-    if rc != 0:
-        raise RuntimeError(f"gather_score launch failed: CUDA error {rc}")
-    _build.launch_counts["gather_score"] += 1
+    _build.launch("gather_score", _fn(), dev, x.data_ptr(), u.data_ptr(),
+                  cand.data_ptr(), D.data_ptr(), cnt.data_ptr(),
+                  dsq.data_ptr(), out.data_ptr(), B, C, d, k, _MODES[mode])
     return out

@@ -69,14 +69,10 @@ def ivf_scan_adc(lut: torch.Tensor, qconst: torch.Tensor,
     opos = torch.empty((nq, topk), dtype=torch.int32, device=dev)
     od = torch.empty((nq, topk), dtype=torch.float32, device=dev)
     if nq > 0:
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _fn()(lut.data_ptr(), vnorm.data_ptr(), codes.data_ptr(),
-                   pids.data_ptr(), tile_map.data_ptr(), opos.data_ptr(),
-                   od.data_ptr(), nq, T, m, w, block_rows,
-                   n_pad // block_rows, topk, stream)
-        if rc != 0:
-            raise RuntimeError(f"ivf_scan_adc launch failed: CUDA error {rc}")
-        _build.launch_counts["ivf_scan_adc"] += 1
+        _build.launch("ivf_scan_adc", _fn(), dev, lut.data_ptr(),
+                      vnorm.data_ptr(), codes.data_ptr(), pids.data_ptr(),
+                      tile_map.data_ptr(), opos.data_ptr(), od.data_ptr(),
+                      nq, T, m, w, block_rows, n_pad // block_rows, topk)
     empty = opos < 0
     ids = torch.where(empty, -1, pids[opos.clamp(min=0).long()])
     part = torch.where(empty, float("inf"), od + qconst[:, None])

@@ -138,12 +138,9 @@ def ivf_scan_grouped(Qg: torch.Tensor, vecs: torch.Tensor,
                         device=dev),
             torch.empty((nqg,), dtype=torch.float32, device=dev)]
     ptrs = [t.data_ptr() for t in scratch] or [None] * 3
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _fn()(Qg.data_ptr(), vecs.data_ptr(), pids.data_ptr(),
-               union_tiles.data_ptr(), qmask.data_ptr(), out_i.data_ptr(),
-               out_d.data_ptr(), *ptrs, ngroups, G, U, d, block_rows,
-               n_pad // block_rows, topk, int(raw), plan.splits, stream)
-    if rc != 0:
-        raise RuntimeError(f"ivf_scan_grouped launch failed: CUDA error {rc}")
-    _build.launch_counts["ivf_scan_grouped"] += 1
+    _build.launch("ivf_scan_grouped", _fn(), dev, Qg.data_ptr(),
+                  vecs.data_ptr(), pids.data_ptr(), union_tiles.data_ptr(),
+                  qmask.data_ptr(), out_i.data_ptr(), out_d.data_ptr(),
+                  *ptrs, ngroups, G, U, d, block_rows, n_pad // block_rows,
+                  topk, int(raw), plan.splits)
     return out_i, out_d

@@ -49,10 +49,6 @@ def pairwise_sq(Xb: torch.Tensor) -> torch.Tensor:
     out = torch.empty((B, m, m), dtype=torch.float32, device=Xb.device)
     if B == 0 or m == 0:
         return out
-    stream = torch.cuda.current_stream(Xb.device).cuda_stream
-    rc = _fn()(Xb.data_ptr(), out.data_ptr(), B, m, d,
-               int(Xb.dtype == torch.bfloat16), stream)
-    if rc != 0:
-        raise RuntimeError(f"pairwise_sq launch failed: CUDA error {rc}")
-    _build.launch_counts["pairwise_sq"] += 1
+    _build.launch("pairwise_sq", _fn(), Xb.device, Xb.data_ptr(),
+                  out.data_ptr(), B, m, d, int(Xb.dtype == torch.bfloat16))
     return out

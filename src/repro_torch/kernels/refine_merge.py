@@ -3,11 +3,13 @@
 Counterpart of ``repro.kernels.refine_merge`` (the Pallas TPU kernel).  The
 kernel (``csrc/refine_merge.cu``) computes each row's exact squared
 distances to its C candidate rows of ``Xsrc`` and merges them into the row's
-sorted, id-deduped top-κ list, one warp per row, without materialising the
-(B, C, d) gather or the (B, C) distance matrix.  This wrapper checks its
-inputs, takes (or computes) the hoisted source norms, allocates the outputs
-and launches on the current stream.  It takes CUDA tensors only: CPU tensors
-go to ``kernels.ref.refine_merge`` through ``kernels.ops``.
+sorted, id-deduped top-κ list, one CTA per row, without materialising the
+(B, C, d) gather or the (B, C) distance matrix: the κ-pass merge is done as
+a stable sort by (distance, position), a first-occurrence test per id and a
+prefix-sum compaction.  This wrapper checks its inputs, takes (or computes)
+the hoisted source norms, allocates the outputs and launches on the current
+stream of the tensors' device.  It takes CUDA tensors only: CPU tensors go
+to ``kernels.ref.refine_merge`` through ``kernels.ops``.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 
 from repro_torch.kernels import _build
 
+MAX_L = 4096    # κ + C the kernel merges in shared memory, at most
 
 def _fn():
     lib = _build.library("refine_merge")
@@ -44,7 +47,7 @@ def refine_merge(x: torch.Tensor, rows: torch.Tensor, cand_ids: torch.Tensor,
     int32 (-1 = invalid); old_ids (B, κ) int32 / old_d (B, κ) f32 sorted
     lists; Xsrc (N, d) f32; ysq (N,) f32 = ``source_norms(Xsrc)`` (computed
     here when omitted).  A candidate whose row lies outside [0, N) is
-    treated as invalid.
+    treated as invalid.  κ + C <= 4096.
     """
     if x.dim() != 2 or rows.dim() != 2 or old_ids.dim() != 2:
         raise ValueError("x, rows and old_ids must be 2-D")
@@ -52,6 +55,9 @@ def refine_merge(x: torch.Tensor, rows: torch.Tensor, cand_ids: torch.Tensor,
     C = rows.shape[1]
     kappa = old_ids.shape[1]
     N = Xsrc.shape[0]
+    if kappa + C > MAX_L:
+        raise ValueError(f"kappa + C = {kappa + C} exceeds the kernel's "
+                         f"{MAX_L} merged entries per row")
     dev = x.device
     _build.check_tensor(x, "x", torch.float32, (B, d), dev)
     _build.check_tensor(rows, "rows", torch.int32, (B, C), dev)
@@ -66,12 +72,8 @@ def refine_merge(x: torch.Tensor, rows: torch.Tensor, cand_ids: torch.Tensor,
     out_d = torch.empty((B, kappa), dtype=torch.float32, device=dev)
     if B == 0 or kappa == 0:
         return out_i, out_d
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _fn()(x.data_ptr(), rows.data_ptr(), cand_ids.data_ptr(),
-               old_ids.data_ptr(), old_d.data_ptr(), Xsrc.data_ptr(),
-               ysq.data_ptr(), out_i.data_ptr(), out_d.data_ptr(), B, C,
-               kappa, d, N, stream)
-    if rc != 0:
-        raise RuntimeError(f"refine_merge launch failed: CUDA error {rc}")
-    _build.launch_counts["refine_merge"] += 1
+    _build.launch("refine_merge", _fn(), dev, x.data_ptr(), rows.data_ptr(),
+                  cand_ids.data_ptr(), old_ids.data_ptr(), old_d.data_ptr(),
+                  Xsrc.data_ptr(), ysq.data_ptr(), out_i.data_ptr(),
+                  out_d.data_ptr(), B, C, kappa, d, N)
     return out_i, out_d

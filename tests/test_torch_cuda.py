@@ -54,7 +54,8 @@ def _rm_case(B, d, C, kappa, N, seed, dev, integer=False):
         x = torch.randn(B, d, generator=g)
     rows = torch.randint(0, N, (B, C), generator=g, dtype=torch.int32)
     cand = torch.where(torch.rand(B, C, generator=g) < 0.2, -1, rows)
-    cand[:, 1] = cand[:, 0]
+    if C > 1:
+        cand[:, 1] = cand[:, 0]
     old_ids = torch.randint(0, N, (B, kappa), generator=g, dtype=torch.int32)
     old_ids[:, -2:] = -1
     old_d = torch.sort(torch.rand(B, kappa, generator=g) * 40, 1).values
@@ -117,6 +118,55 @@ def test_refine_merge_kernel_ties_exact(dev):
     wi, wd = ops.refine_merge(*args, force="ref")
     torch.cuda.synchronize()
     assert torch.equal(gi, wi) and torch.equal(gd, wd)
+
+
+@pytest.mark.parametrize("C", [1, 31, 33, 127, 129, 200])
+@pytest.mark.parametrize("kappa", [1, 50, 64])
+def test_refine_merge_kernel_matches_plain_off_multiples(dev, C, kappa):
+    """C off the warp (32) and CTA (128) multiples, so the staging, the
+    8-row batches and the merge's padding to a power of two all have
+    ragged ends; κ at its extremes (the kernel runs for κ <= 64)."""
+    args = _rm_case(70, 24, C, kappa, 500, C * 100 + kappa, dev)
+    got = ops.refine_merge(*args)
+    want = ops.refine_merge(*args, force="ref")
+    torch.cuda.synchronize()
+    _assert_refine(got, want, args[0], args[-1])
+
+
+def test_refine_merge_kernel_largest_merge(dev):
+    """The largest κ + C the kernel merges (4,096 entries a row), on
+    integer data (exact, tie-heavy), and one entry more is refused."""
+    from repro_torch.kernels.refine_merge import MAX_L
+    args = _rm_case(9, 8, MAX_L - 64, 64, 3000, 11, dev, integer=True)
+    gi, gd = ops.refine_merge(*args)
+    wi, wd = ops.refine_merge(*args, force="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(gi, wi) and torch.equal(gd, wd)
+    args = _rm_case(2, 8, MAX_L - 63, 64, 300, 12, dev)
+    with pytest.raises(ValueError, match="4096"):
+        ops.refine_merge(*args)
+
+
+@pytest.mark.parametrize("kappa,C", [(50, 136), (1, 40), (64, 129)])
+def test_refine_merge_kernel_dedupe_ties_exact(dev, kappa, C):
+    """Integer data with ids drawn from a small range: duplicate ids within
+    and across the old and candidate lists, equal distances between them,
+    -1 ids and +inf old entries, and rows whose lists run out."""
+    x, rows, cand, old_ids, old_d, Xsrc = _rm_case(300, 8, C, kappa, 400,
+                                                   kappa + C, dev,
+                                                   integer=True)
+    g = torch.Generator().manual_seed(kappa)
+    cand = torch.randint(-1, 12, cand.shape, generator=g,
+                         dtype=torch.int32).to(dev)
+    old_ids = torch.randint(-1, 12, old_ids.shape, generator=g,
+                            dtype=torch.int32).to(dev)
+    args = (x, rows, cand, old_ids, old_d, Xsrc)
+    gi, gd = ops.refine_merge(*args)
+    wi, wd = ops.refine_merge(*args, force="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(gi, wi) and torch.equal(gd, wd)
+    if kappa > 12:                # more slots than the 12 ids: lists run out
+        assert bool((wi == -1).any())
 
 
 def test_gk_means_kernels_match_ref_on_card(dev):
@@ -288,6 +338,80 @@ def test_ivf_scan_kernel_ties_exact(dev):
     wi, wd = ops.ivf_scan(Q, index.vecs, index.ids, tm, force="ref", **kw)
     torch.cuda.synchronize()
     assert torch.equal(gi, wi) and torch.equal(gd, wd)
+
+
+def _scan_at(monkeypatch, sms, Q, index, tm, **kw):
+    """ops.ivf_scan with the split plan computed for ``sms`` SMs."""
+    monkeypatch.setattr(_build, "sm_count", lambda i: sms)
+    try:
+        return ops.ivf_scan(Q, index.vecs, index.ids, tm,
+                            block_rows=index.block_rows, **kw)
+    finally:
+        monkeypatch.undo()
+
+
+@pytest.mark.parametrize("d,nprobe,topk,raw", [(128, 6, 10, False),
+                                               (37, 3, 16, True),
+                                               (24, 12, 100, False)])
+def test_ivf_scan_split_matches_plain(dev, monkeypatch, d, nprobe, topk,
+                                      raw):
+    """The same queries at S = 1 (plan for 1 SM), at the card's own plan
+    and with S forced high (plan for 10,000 SMs, mostly one live slot a
+    chunk): every plan gives the same lists bit for bit, and they match the
+    plain version."""
+    from repro_torch.kernels.ivf_scan import split_plan
+    X, index = _small_index(dev, d)
+    Q = (X[:40] + 0.1 * torch.randn(40, d, device=dev)).contiguous()
+    tm = _tile_map(index, Q, nprobe)
+    kw = dict(topk=topk, raw=raw)
+    assert split_plan(40, tm.shape[1], topk, 1).splits == 1
+    assert split_plan(40, tm.shape[1], topk, 10_000).splits > 8
+    outs = [_scan_at(monkeypatch, sms, Q, index, tm, **kw)
+            for sms in (1, _sms(), 10_000)]
+    want = ops.ivf_scan(Q, index.vecs, index.ids, tm, force="ref",
+                        block_rows=index.block_rows, **kw)
+    torch.cuda.synchronize()
+    for got in outs[1:]:
+        assert torch.equal(got[0], outs[0][0])
+        assert torch.equal(got[1], outs[0][1])
+    _assert_sel(outs[0], want, _pair_scale(Q, X, want[0]))
+
+
+@pytest.mark.parametrize("sms", [1, 132, 10_000])
+def test_ivf_scan_split_ties_exact(dev, monkeypatch, sms):
+    """Integer data and a map that repeats two live tiles in turn, with
+    null-tile runs between: every chunk boundary has equal partials on
+    both sides, so chunk order decides the ties, bit for bit."""
+    X, index = _small_index(dev, 16, integer=True)
+    Q = X[:24].contiguous()
+    tm = _tile_map(index, Q, 3)
+    live = (index.ids.view(-1, index.block_rows) >= 0).any(1)
+    a, b = [int(t) for t in torch.nonzero(live)[:2, 0]]
+    pat = torch.tensor([a, b, index.null_tile, index.null_tile, a, b, b, a],
+                       dtype=torch.int32, device=dev)
+    tm = torch.cat([tm, pat.repeat(24, 3)], 1).contiguous()
+    kw = dict(topk=40)
+    gi, gd = _scan_at(monkeypatch, sms, Q, index, tm, **kw)
+    wi, wd = ops.ivf_scan(Q, index.vecs, index.ids, tm, force="ref",
+                          block_rows=index.block_rows, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(gi, wi) and torch.equal(gd, wd)
+
+
+@pytest.mark.parametrize("nq", [5, 300])
+def test_exhaustive_search_kernel_matches_plain(dev, nq):
+    """exhaustive_search's map (T = every tile of the slab, more than one
+    1,024-slot segment) at a split plan (5 queries) and at S = 1."""
+    from repro_torch import index as ivf
+    X, index = _small_index(dev, 16, n=12_000, k=30, block_rows=8)
+    assert index.capacity_rows // index.block_rows > 1024
+    Q = (X[:nq] + 0.1 * torch.randn(nq, 16, device=dev)).contiguous()
+    before = _build.launch_counts["ivf_scan"]
+    got = ivf.exhaustive_search(index, Q, topk=10)
+    want = ivf.exhaustive_search(index, Q, topk=10, force="ref")
+    torch.cuda.synchronize()
+    assert _build.launch_counts["ivf_scan"] == before + 1
+    _assert_sel(got, want, _pair_scale(Q, X, want[0]))
 
 
 def test_search_kernels_match_plain_on_card(dev):

@@ -273,3 +273,119 @@ def test_interop_without_device_raises_when_no_cuda(monkeypatch):
                           np.zeros(2))
     index = interop.ivf_index(*arrays, block, device="cpu")
     assert index.device.type == "cpu" and index.max_list_tiles == 2
+
+
+# ------------------------------------------------- the launch device guard
+
+class _FakeDeviceGuard:
+    """Stands in for ``torch.cuda.device``: records entry and exit."""
+    calls: list = []
+
+    def __init__(self, dev):
+        self.calls.append(("device", dev))
+
+    def __enter__(self):
+        self.calls.append(("enter",))
+        return self
+
+    def __exit__(self, *exc):
+        self.calls.append(("exit",))
+        return False
+
+
+def test_launch_enters_the_device_then_takes_its_stream(monkeypatch):
+    """``_build.launch`` makes the tensors' device current before it takes
+    that device's stream and calls the C function (with the stream last)
+    inside; it raises on a nonzero return code and counts only a launch
+    that returned 0."""
+    from repro_torch.kernels import _build
+
+    class Stream:
+        cuda_stream = 4242
+    calls = _FakeDeviceGuard.calls = []
+    monkeypatch.setattr(torch.cuda, "device", _FakeDeviceGuard)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: calls.append(("stream", d)) or Stream())
+    rcs = [0, 700, -1]
+
+    def fn(*args):
+        calls.append(("fn", args))
+        return rcs.pop(0)
+    dev = torch.device("cuda", 3)
+    before = _build.launch_counts["ivf_scan"]
+    _build.launch("ivf_scan", fn, dev, 7, 8)
+    assert calls == [("device", dev), ("enter",), ("stream", dev),
+                     ("fn", (7, 8, 4242)), ("exit",)]
+    assert _build.launch_counts["ivf_scan"] == before + 1
+    for rc in (700, -1):
+        calls.clear()
+        with pytest.raises(RuntimeError,
+                           match=f"ivf_scan launch failed: CUDA error {rc}"):
+            _build.launch("ivf_scan", fn, dev, 7, 8)
+        assert calls[:3] == [("device", dev), ("enter",), ("stream", dev)]
+        assert calls[-1] == ("exit",)
+        assert _build.launch_counts["ivf_scan"] == before + 1
+
+
+class _Launched(Exception):
+    pass
+
+
+class _FakeFn:
+    argtypes = None
+    restype = None
+
+
+class _FakeLib:
+    def __getattr__(self, name):
+        return _FakeFn()
+
+
+def test_every_wrapper_launches_through_the_guard(monkeypatch):
+    """Each of the eight wrappers hands its launch, with its tensors'
+    device, to ``_build.launch`` (stubbed here, with the input checks and
+    the library, so that the CPU can follow a wrapper to its launch), and
+    no wrapper takes a stream or counts a launch itself."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import centroid_assign as kca
+    from repro_torch.kernels import ivf_scan as kivf
+    from repro_torch.kernels import ivf_scan_adc as kadc
+    from repro_torch.kernels import ivf_scan_grouped as kgrp
+    from repro_torch.kernels import pairwise_sq as kpw
+    seen = []
+
+    def fake_launch(name, fn, dev, *args):
+        seen.append((name, dev))
+        raise _Launched(name)
+    monkeypatch.setattr(_build, "launch", fake_launch)
+    monkeypatch.setattr(_build, "check_tensor", lambda *a, **k: None)
+    monkeypatch.setattr(_build, "library", lambda name: _FakeLib())
+    monkeypatch.setattr(_build, "sm_count", lambda index: 132)
+    x, u, cand, D, cnt = _gs_args()
+    X, C = torch.randn(8, 16), torch.randn(5, 16)
+    pids = torch.zeros(16, dtype=torch.int32)
+    tm = torch.zeros((8, 2), dtype=torch.int32)
+    calls = [
+        lambda: kgs.gather_score(x, u, cand, D, cnt),
+        lambda: krm.refine_merge(x, cand, cand, cand, torch.zeros(8, 4), D),
+        lambda: kca.probe_centroids(X, C, 2),
+        lambda: kca.assign_centroids(X, C),
+        lambda: kivf.ivf_scan(X, torch.zeros(16, 16), pids, tm,
+                              block_rows=8),
+        lambda: kadc.ivf_scan_adc(torch.zeros(8, 4, 256), torch.zeros(8),
+                                  torch.zeros(16),
+                                  torch.zeros((16, 4), dtype=torch.uint8),
+                                  pids, tm, block_rows=8),
+        lambda: kgrp.ivf_scan_grouped(X, torch.zeros(16, 16), pids,
+                                      torch.zeros((2, 3), dtype=torch.int32),
+                                      torch.zeros((8, 3), dtype=torch.int32),
+                                      block_rows=8),
+        lambda: kpw.pairwise_sq(torch.zeros(2, 8, 4))]
+    for call in calls:
+        with pytest.raises(_Launched):
+            call()
+    assert [name for name, _ in seen] == list(_build.KERNELS)
+    assert all(dev == torch.device("cpu") for _, dev in seen)
+    for name in _build.SOURCES:
+        text = (_build.CSRC.parent / f"{name}.py").read_text()
+        assert "current_stream" not in text and "launch_counts" not in text
