@@ -16,12 +16,16 @@ plain PyTorch version, or when any phase fails.  Phases:
 2. hold each kernel against its plain version on the card, at the shapes
    the main paths give it, and time kernel, plain version and a PyTorch
    yardstick:
-   - ``gather_score`` in both modes at B=1024, C=50, d=128, k=16384, and
-     ``refine_merge`` at B=1024, C=136, κ=50, d=128, N=1,048,576, on states
-     a run reaches (consistent cluster sums with empty and one-row clusters;
-     a build round's member table with phantom twins and old lists that
-     share ids with the candidates); scores are held per element against
-     the size of the terms that cancel in them;
+   - ``gather_score`` in both modes at B=1024, C=50, d=128, k=16384 and at
+     GIST1M's width (d=960, k=10,000), each with its row layout (lanes a
+     row, rows a warp, samples a CTA), its byte bound beside the practical
+     floor (the gathered rows at the L2 rate, measured in the run) and its
+     device launches per call (must be 1), and ``refine_merge`` at B=1024,
+     C=136, κ=50, d=128, N=1,048,576, on states a run reaches (consistent
+     cluster sums with empty and one-row clusters; a build round's member
+     table with phantom twins and old lists that share ids with the
+     candidates); scores are held per element against the size of the
+     terms that cancel in them;
    - ``probe_centroids`` at nq=10,000, k=16,384, d=128, p in {1, 16, 64},
      and at one served batch (64 queries, p=16), each with its split plan
      printed (row tile, centroids per chunk, chunks S, CTAs), and
@@ -78,11 +82,13 @@ plain PyTorch version, or when any phase fails.  Phases:
    seconds, the same gates (PQ's recall is reported, not held to rise with
    nprobe: see ``serve_codec_paths``); then ``ivf_scan_adc`` against its
    plain version at nprobe=16, topk=40 for int8 (M=128), PQ nsub=8 and PQ
-   nsub=32 (a 32 KB table, codebooks from 65,536 sampled rows) and
+   nsub=32 (a 32 KB table, codebooks from 65,536 sampled rows), and for
+   one served batch of 64 queries in int8 and PQ nsub=8 (split plans, each
+   with each query's first live-slot chunk dropped as a planted fault), and
    ``ivf_scan_grouped`` at G=8, nprobe=16, topk=10 for all 10,000 queries
    and for one served batch of 64 (8 groups, its split plan printed), each
    with planted faults (for the split kernels: the plan's last chunk
-   dropped), and traces of a PQ and a qgroup=8 batch loop;
+   dropped), and traces of a PQ, an int8 and a qgroup=8 batch loop;
 6. one JSON line of the kernels, the card's ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -163,7 +169,7 @@ def _device_events(fn):
             if ev.device_type == torch.autograd.DeviceType.CUDA], wall
 
 
-def kernel_device_us(fn, sets, names, reps=20, tries=4, *, launches=1):
+def kernel_device_us(fn, sets, names, reps=20, tries=8, *, launches=1):
     """Mean device time (us) per call of ``fn``: the summed durations of
     the launches of the kernels ``names`` (one name or a tuple; a launch
     matches when one of them is in its kernel's name), ``launches`` of them
@@ -256,10 +262,44 @@ def score_state(X, k, g):
     return assign, D, cnt
 
 
-def check_gather_score(X, k):
-    """gather_score vs its plain version at B=1024, C=50, d=128, k."""
+def l2_rate(nbytes=16 << 20, copies=50, reps=20):
+    """Bytes/s of ``dst.copy_(src)`` on an ``nbytes`` f32 buffer that stays
+    in the 50 MB L2 (read + write bytes over CUDA-event time of a CUDA
+    graph of ``copies`` copies, so no host launch gap counts): the L2 rate
+    that sets ``gather_score``'s practical floor."""
+    import torch
+    src = torch.ones(nbytes // 4, device=DEV)
+    dst = torch.empty_like(src)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(copies):
+            dst.copy_(src)
+    ms = time_ms(graph.replay, [()], reps) / copies
+    return 2 * nbytes / (ms * 1e-3)
+
+
+def device_launches(fn, reps=10, tries=4):
+    """(device activities per call of ``fn``, their names) from a
+    torch.profiler trace of ``reps`` calls; a trace that lost records (see
+    kernel_device_us) is taken again, and (None, names) is returned when
+    none kept a whole number of activities per call."""
+    names = set()
+    for _ in range(tries):
+        events, _ = _device_events(lambda: [fn() for _ in range(reps)])
+        names |= {_short(ev.name) for ev in events}
+        if events and len(events) % reps == 0:
+            return len(events) // reps, sorted(names)
+    return None, sorted(names)
+
+
+GIST = dict(d=960, k=10_000, n=200_000)  # GIST1M's width and k
+
+
+def check_gather_score(X, k, label="sift1m"):
+    """gather_score vs its plain version at B=1024, C=50, X's width, k."""
     import torch
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.gather_score import layout
     B, C = BATCH, SIFT1M["kappa"]
     n, d = X.shape
     g = torch.Generator(device=DEV).manual_seed(SEED + 1)
@@ -276,7 +316,12 @@ def check_gather_score(X, k):
                                        dtype=torch.int32)
         sets.append((X[idx].contiguous(), assign[idx].contiguous(),
                      cand.contiguous(), D, cnt))
-    out = {}
+    lay = layout(d)._asdict()
+    log(f"gather_score[{label}] layout at d={d}: {lay['lanes']} lanes a "
+        f"row, {lay['rows_per_warp']} rows a warp, {lay['samples_per_cta']} "
+        f"samples a CTA of 8 warps, {lay['slices']} float4 slices of x a "
+        "lane")
+    out = {"layout": lay, "shape": f"B={B} C={C} d={d} k={k}"}
     for mode in ("bkm", "lloyd"):
         x, u, cand, _, _ = sets[0]
         got = ops.gather_score(x, u, cand, D, cnt, mode=mode)
@@ -292,21 +337,30 @@ def check_gather_score(X, k):
                                                     force="ref"), sets)
         out[mode] = dict(max_abs_err=err, max_err_over_limit=ratio,
                          faults=faults, ok=ok, ms=ms, plain_ms=plain)
-        log(f"gather_score[{mode}] B={B} C={C} d={d} k={k}: max_abs_err "
-            f"{err:.3e}, max err/limit {ratio:.3e} (limit {SCORE_RTOL:g}*"
-            f"score_scale per element), inf pattern "
+        log(f"gather_score[{label} {mode}] B={B} C={C} d={d} k={k}: "
+            f"max_abs_err {err:.3e}, max err/limit {ratio:.3e} (limit "
+            f"{SCORE_RTOL:g}*score_scale per element), inf pattern "
             f"{'equal' if same_inf else 'DIFFERS'}; planted faults in the "
             f"plain version {json.dumps(faults)} "
             f"{'OK' if ok else 'FAIL'}; kernel {ms:.4f} ms per wrapper call,"
             f" plain {plain:.4f} ms")
-    # device time per launch, traced after all the event timings above (a
-    # trace's teardown must not land inside a timed window)
+    # device time per launch and device launches per call, traced after
+    # all the event timings above (a trace's teardown must not land inside
+    # a timed window)
     for mode in ("bkm", "lloyd"):
-        out[mode]["device_us"] = kernel_device_us(
-            lambda *a: ops.gather_score(*a, mode=mode), sets,
-            "gather_score_kernel")
-        log(f"gather_score[{mode}] kernel device time per launch: "
-            f"{out[mode]['device_us']} us (torch.profiler)")
+        fn = (lambda *a: ops.gather_score(*a, mode=mode))
+        out[mode]["device_us"] = kernel_device_us(fn, sets,
+                                                  "gather_score_kernel")
+        per_call, names = device_launches(lambda: fn(*sets[0]))
+        out[mode]["device_launches_per_call"] = per_call
+        # a trace that lost records cannot count them, but one that shows
+        # any other device activity fails
+        one = names == ["gather_score_kernel"]
+        out[mode]["ok"] = out[mode]["ok"] and one and per_call in (1, None)
+        log(f"gather_score[{label} {mode}] kernel device time per launch: "
+            f"{out[mode]['device_us']} us (torch.profiler); device "
+            f"activities per wrapper call {per_call} ({names}) "
+            f"{'OK' if one and per_call in (1, None) else 'FAIL'}")
     # yardstick: torch.bmm over pre-gathered rows computes the dots alone
     # (not the gather, not the scores) — no single PyTorch call computes
     # the whole function
@@ -315,20 +369,26 @@ def check_gather_score(X, k):
         rows = torch.cat([u[:, None], cand], 1).long()
         gsets.append((D[rows], x[:, :, None]))
     bmm = time_ms(torch.bmm, gsets)
-    log(f"gather_score yardstick: torch.bmm over pre-gathered (B, C+1, d) "
-        f"rows, dots only: {bmm:.4f} ms")
+    del gsets
+    log(f"gather_score[{label}] yardstick: torch.bmm over pre-gathered "
+        f"(B, C+1, d) rows, dots only: {bmm:.4f} ms")
     x, u, cand, _, _ = sets[0]
     nbytes = (x.numel() * 4 + u.numel() * 4 + cand.numel() * 4 + D.numel() * 4
               + cnt.numel() * 4 + B * C * 4)
-    flops = 2 * B * (C + 1) * d + 2 * k * d
+    flops = 4 * B * (C + 1) * d
     bms, by = bound_ms(nbytes, flops)
     gathered = B * (C + 1) * d * 4
-    log(f"gather_score bound: {nbytes / 1e6:.2f} MB unique bytes -> "
-        f"{bms * 1e3:.2f} us at 3.35 TB/s ({by}); gathered row traffic "
-        f"B*(C+1)*d*4 = {gathered / 1e6:.2f} MB -> "
-        f"{gathered / HBM_BYTES_PER_S * 1e6:.2f} us if all of it came from "
-        "HBM (D fits in the 50 MB L2, so repeats are L2 hits)")
-    return dict(out, bound_ms=bms, bound_by=by, dots_bmm_ms=bmm)
+    rate = l2_rate()
+    floor_us = gathered / rate * 1e6
+    log(f"gather_score[{label}] bound: {nbytes / 1e6:.2f} MB unique bytes "
+        f"-> {bms * 1e3:.3f} us at 3.35 TB/s ({by}; D stays in the 50 MB "
+        f"L2); practical floor: gathered rows B*(C+1)*d*4 = "
+        f"{gathered / 1e6:.2f} MB at the L2 rate {rate / 1e12:.3f} TB/s "
+        f"(copy_ of an L2-resident 16 MiB buffer, read + write bytes, this "
+        f"run) -> {floor_us:.3f} us")
+    return dict(out, bound_ms=bms, bound_by=by, dots_bmm_ms=bmm,
+                l2_rate_tbs=rate / 1e12, l2_floor_us=floor_us,
+                ok=all(out[m]["ok"] for m in ("bkm", "lloyd")))
 
 
 def refine_inputs(X_pad, real_id, n, ysq, g, B, kappa, xi=64, spill=8,
@@ -746,20 +806,26 @@ def scan_plan(nq, T, topk):
     return split_plan(nq, T, topk, _build.sm_count(0))._asdict()
 
 
-def _scan_first_chunk_dropped(Q, index, tm, topk, splits):
-    """The plain scan with a planted fault: each query's first live-slot
-    chunk of the split plan pointed at the null tile (a merge that loses
-    that chunk's list; the first holds the nearest cell's tiles)."""
+def first_chunk_dropped(tm, index, splits):
+    """A planted fault for the per-query scans (``ivf_scan``,
+    ``ivf_scan_adc``): the tile map with each query's first live-slot chunk
+    of the split plan pointed at the null tile (a merge that loses that
+    chunk's list; the first holds the nearest cell's tiles)."""
     import torch
-    from repro_torch.kernels import ivf_scan as kivf, ref
-    bl = index.block_rows
-    live = kivf.live_slots(tm, index.ids, bl)
+    from repro_torch.kernels import ivf_scan as kivf
+    live = kivf.live_slots(tm, index.ids, index.block_rows)
     bounds = kivf.slot_chunks(live, splits)
     rank = live.long().cumsum(1) - 1
     drop = live & (rank < bounds[:, 1:2])
-    bad = torch.where(drop, index.null_tile, tm).to(torch.int32)
-    return ref.ivf_scan(Q, index.vecs, index.ids, bad, block_rows=bl,
-                        topk=topk)
+    return torch.where(drop, index.null_tile, tm).to(torch.int32)
+
+
+def _scan_first_chunk_dropped(Q, index, tm, topk, splits):
+    """The plain scan on ``first_chunk_dropped``'s map."""
+    from repro_torch.kernels import ref
+    return ref.ivf_scan(Q, index.vecs, index.ids,
+                        first_chunk_dropped(tm, index, splits),
+                        block_rows=index.block_rows, topk=topk)
 
 
 SCAN_KERNELS = ("ivf_scan_kernel", "ivf_scan_merge_kernel")
@@ -1193,10 +1259,15 @@ def adc_scale(lut, qc, vnorm, codes, pos):
     return vnorm[p].abs() + terms.abs().sum(-1) + qc.abs()[:, None]
 
 
+ADC_KERNELS = ("ivf_scan_adc_kernel", "ivf_scan_adc_merge_kernel")
+
+
 def check_adc_kernel(label, ix, Q, tm, live_per_tile, topk):
-    """ivf_scan_adc vs its plain version on one tile map, with planted
-    faults in the plain version: vnorm dropped, every code read one entry
-    off, the tile map off by one."""
+    """ivf_scan_adc vs its plain version on one tile map, with its split
+    plan printed (the per-query scan's: chunks S of each query's live
+    slots, CTAs) and planted faults in the plain version: vnorm dropped,
+    every code read one entry off, the tile map off by one, and for a split
+    plan each query's first live-slot chunk dropped."""
     import torch
     from repro_torch.index import quantize
     from repro_torch.kernels import ops, ref
@@ -1206,6 +1277,7 @@ def check_adc_kernel(label, ix, Q, tm, live_per_tile, topk):
     lut, qc = quantize.build_lut(ix.codec, Q)
     args = (lut, qc, ix.vnorm, ix.codes, ix.ids, tm)
     kw = dict(block_rows=bl, topk=topk)
+    plan = scan_plan(nq, tm.shape[1], topk)
     gi, gp, gd = ops.ivf_scan_adc(*args, **kw)
     wi, wp, wd = ops.ivf_scan_adc(*args, force="ref", **kw)
     scale = adc_scale(lut, qc, ix.vnorm, ix.codes, wp)
@@ -1220,6 +1292,10 @@ def check_adc_kernel(label, ix, Q, tm, live_per_tile, topk):
                              ix.ids, tm[sub]),
         "tile_map_off_by_one": (lut[sub], qc[sub], ix.vnorm, ix.codes, ix.ids,
                                 torch.clamp(tm[sub] + 1, max=n_tiles - 1))}
+    if plan["splits"] > 1:
+        faults["first_chunk_dropped"] = (
+            lut[sub], qc[sub], ix.vnorm, ix.codes, ix.ids,
+            first_chunk_dropped(tm[sub], ix, plan["splits"]))
     for name, fargs in faults.items():
         _, bp, bd = ref.ivf_scan_adc(*fargs, **kw)
         chk[f"fault_{name}_fails"] = not sel_check(
@@ -1235,8 +1311,10 @@ def check_adc_kernel(label, ix, Q, tm, live_per_tile, topk):
     chk["lut_bytes"] = M * W * 4
     nbytes = 4 * nq * M * W + R * (M + 4) + 12 * nq * topk
     chk["bound_ms"], chk["bound_by"] = bound_ms(nbytes, 2 * R * M)
+    chk["plan"] = plan
     log(f"ivf_scan_adc[{label}] nq={nq} M={M} W={W} topk={topk} "
-        f"T={tm.shape[1]}: {json.dumps(chk)}")
+        f"T={tm.shape[1]}: split plan {json.dumps(plan)} (chunks S of each "
+        f"query's live slots, pass-1 CTAs); {json.dumps(chk)}")
     return chk, args, kw
 
 
@@ -1377,12 +1455,19 @@ def check_codec_kernels(index, runs, Q, X_all):
     log(f"PQ nsub=32 codec for the kernel check: trained on {PQ32_SAMPLE} "
         f"sampled live rows, 2 epochs, {time.perf_counter() - t0:.2f} s")
     out, traced = {"adc": {}}, []
-    for label, ix in (("int8", runs["int8"]["index"]),
-                      ("pq8", runs["pq"]["index"]), ("pq32", ix32)):
-        chk, args, kw = check_adc_kernel(label, ix, Q, tm, live_per_tile, 40)
+    b = SERVE["batch"]
+    for label, ix, rows in (
+            ("int8", runs["int8"]["index"], slice(None)),
+            ("pq8", runs["pq"]["index"], slice(None)), ("pq32", ix32,
+                                                        slice(None)),
+            # one served batch of 64 queries: a split plan
+            ("int8_batch", runs["int8"]["index"], slice(0, b)),
+            ("pq8_batch", runs["pq"]["index"], slice(0, b))):
+        chk, args, kw = check_adc_kernel(label, ix, Q[rows].contiguous(),
+                                         tm[rows].contiguous(),
+                                         live_per_tile, 40)
         out["adc"][label] = chk
-        traced.append((chk, ops.ivf_scan_adc, args, kw,
-                       "ivf_scan_adc_kernel"))
+        traced.append((chk, ops.ivf_scan_adc, args, kw, ADC_KERNELS))
     for key, rows in (("grouped", slice(None)),
                       ("grouped_batch", slice(0, SERVE["batch"]))):
         # nq=10,000, and one served batch of 64 queries (8 groups)
@@ -1541,7 +1626,7 @@ def profile_serving(index, Q, label="f32", **search_kw):
 def _short(name: str) -> str:
     for key in ("gather_score_kernel", "refine_merge_kernel",
                 *PROBE_KERNELS, "assign_kernel", *SCAN_KERNELS,
-                "ivf_scan_adc_kernel", *GROUPED_KERNELS,
+                *ADC_KERNELS, *GROUPED_KERNELS,
                 "pairwise_sq_kernel"):
         if key in name:
             return key
@@ -1550,7 +1635,8 @@ def _short(name: str) -> str:
 
 def profile_window(label, fn):
     """Trace ``fn`` with torch.profiler: wall time, device-busy time (union
-    of the card's activity intervals), idle share and the top kernels.
+    of the card's activity intervals), idle share and the top kernels, each
+    with its share of the busy time.
     Informational: prints "not measured" where the trace shows no device
     activity.  A trace may lose its first records (see kernel_device_us),
     so a kernel's count can come up short; its time per launch holds."""
@@ -1580,7 +1666,8 @@ def profile_window(label, fn):
         f"{len(spans)} device activities")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     for n, (t, c) in top:
-        log(f"  {t / 1e3:10.2f} ms  {c:7d}x  {n}")
+        log(f"  {t / 1e3:10.2f} ms  {c:7d}x  {t / 1e6 / busy:6.3f} of busy"
+            f"  {n}")
 
 
 def profile_main_path(X, r):
@@ -1642,7 +1729,12 @@ def main() -> int:
     gs = check_gather_score(X, k2)
     rm = check_refine_merge(X_pad, real_id, c["n"])
     del X_pad, real_id
-    if not (gs["bkm"]["ok"] and gs["lloyd"]["ok"]):
+    X_gist = sift_like(GIST["n"], GIST["d"], COMPONENTS,
+                       generator=torch.Generator(device=DEV).manual_seed(
+                           SEED + 18))
+    gs_gist = check_gather_score(X_gist, GIST["k"], "gist1m")
+    del X_gist
+    if not (gs["ok"] and gs_gist["ok"]):
         failures.append("gather_score vs plain")
     if not rm["ok"]:
         failures.append("refine_merge vs plain")
@@ -1681,6 +1773,7 @@ def main() -> int:
     if not (cc["grouped"]["ok"] and cc["grouped_batch"]["ok"]):
         failures.append("ivf_scan_grouped vs plain")
     profile_serving(runs["pq"]["index"], Q, "codec pq nsub=8", codec="pq")
+    profile_serving(runs["int8"]["index"], Q, "codec int8", codec="int8")
     profile_serving(index, Q, "qgroup=8", qgroup=8)
 
     kernels = [
@@ -1691,15 +1784,26 @@ def main() -> int:
              max_abs_err=gs["bkm"]["max_abs_err"], ms=gs["bkm"]["ms"],
              plain_ms=gs["bkm"]["plain_ms"], bound_ms=gs["bound_ms"],
              bound_by=gs["bound_by"], library_ms=None,
-             dots_bmm_ms=gs["dots_bmm_ms"],
+             dots_bmm_ms=gs["dots_bmm_ms"], shape=gs["shape"],
              device_us=gs["bkm"]["device_us"],
+             device_launches_per_call=gs["bkm"]["device_launches_per_call"],
+             layout=gs["layout"], l2_floor_us=gs["l2_floor_us"],
+             l2_rate_tbs=gs["l2_rate_tbs"],
              lloyd_device_us=gs["lloyd"]["device_us"],
              lloyd_max_abs_err=gs["lloyd"]["max_abs_err"],
              lloyd_ms=gs["lloyd"]["ms"], lloyd_plain_ms=gs["lloyd"]["plain_ms"],
              lloyd_max_err_over_limit=gs["lloyd"]["max_err_over_limit"],
              max_err_over_limit=gs["bkm"]["max_err_over_limit"],
+             gist={"shape": gs_gist["shape"], "layout": gs_gist["layout"],
+                   "bound_ms": gs_gist["bound_ms"],
+                   "l2_floor_us": gs_gist["l2_floor_us"],
+                   "dots_bmm_ms": gs_gist["dots_bmm_ms"]}
+             | {f"{m}_{key}": gs_gist[m][key] for m in ("bkm", "lloyd")
+                for key in ("ms", "plain_ms", "device_us", "max_abs_err",
+                            "max_err_over_limit")},
              check=f"vs plain: |err| <= {SCORE_RTOL:g}*score_scale per "
-                   "element, inf pattern exact; planted faults fail"),
+                   "element, inf pattern exact; planted faults fail; one "
+                   "device launch per call"),
         dict(name="refine_merge", route="cuda",
              source="src/repro_torch/kernels/csrc/refine_merge.cu",
              replaces="src/repro/kernels/refine_merge.py:65",
@@ -1803,8 +1907,13 @@ def main() -> int:
              bound_by=a8["bound_by"], library_ms=None,
              shape=f"nq={nq} nprobe=16 topk=40 PQ nsub=8 (M=8, W=256)",
              device_us=a8["device_us"], near_tie_slots=a8["near_tie_slots"],
-             int8=brief(adc["int8"], "lut_bytes"),
-             pq32=brief(adc["pq32"], "lut_bytes"),
+             split_plan=a8["plan"], launches_note=split_note,
+             int8=brief(adc["int8"], "lut_bytes", "plan"),
+             pq32=brief(adc["pq32"], "lut_bytes", "plan"),
+             served_batch={
+                 key: brief(adc[f"{key}_batch"], "plan", "rows_per_query")
+                 | {"shape": f"nq={SERVE['batch']} nprobe=16 topk=40"}
+                 for key in ("pq8", "int8")},
              check="vs plain: |part err| <= 1e-5*(vnorm + sum_m "
                    "|lut[m,code[m]]| + |qconst|) per slot, -1/+inf pattern "
                    "exact, positions and ids equal but at near-ties; planted "

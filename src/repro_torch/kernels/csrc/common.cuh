@@ -318,6 +318,124 @@ __device__ __forceinline__ void write_final_row(const float* ld,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The live-slot walk of the per-query scans (ivf_scan, ivf_scan_adc).  A map
+// slot is live when its tile lies in [0, n_tiles) and holds a live row
+// (pids >= 0); a slot that repeats the previous slot's tile takes that
+// slot's liveness without reading ids.  Pass 1 keeps one sorted list per
+// warp and places every entry at its rank by (value, candidate position)
+// at the end (place_by_rank).
+
+constexpr int kLiveIdReads = 8;   // slots whose ids a warp reads at once
+
+// Live slots of tm[0, n) (n <= kPer · 32 · kWarps, a segment), in slot
+// order, into seg[0, count); returns count.  Whole CTA of kWarps warps:
+// warps take 32-slot windows, read the window's map entries coalesced, read
+// the ids of each run's first slot (up to kLiveIdReads slots' reads in
+// flight a warp) and ballot them, then a CTA prefix sum compacts the
+// segment's live tiles in slot order.
+template <int kWarps, int kPer>
+__device__ int find_live(const int* __restrict__ tm, int n,
+                         const int* __restrict__ pids, int block_rows,
+                         int n_tiles, int* seg, int* wt) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int w0 = warp * 32; w0 < n; w0 += kWarps * 32) {
+    const int j = w0 + lane;
+    const int t = j < n ? tm[j] : -1;
+    const bool inr = t >= 0 && t < n_tiles;
+    int tp = __shfl_up_sync(kFullMask, t, 1);
+    if (lane == 0) tp = -1;          // a window's first slot reads its ids
+    const unsigned need = __ballot_sync(kFullMask, inr && t != tp);
+    bool my_any = false;
+    unsigned todo = need;
+    while (todo) {                   // uniform
+      int u[kLiveIdReads];
+      bool a[kLiveIdReads];
+#pragma unroll
+      for (int v = 0; v < kLiveIdReads; ++v) {
+        u[v] = todo ? __ffs(todo) - 1 : -1;
+        if (todo) todo &= todo - 1;
+        const int tile = __shfl_sync(kFullMask, t, u[v] < 0 ? 0 : u[v]);
+        a[v] = false;
+        if (u[v] >= 0) {
+          const int* ip = pids + (size_t)tile * block_rows;
+          for (int r = lane; r < block_rows; r += 32) a[v] |= ip[r] >= 0;
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < kLiveIdReads; ++v) {
+        const bool any = __any_sync(kFullMask, a[v]);
+        if (lane == u[v]) my_any = any;
+      }
+    }
+    // a repeat takes the liveness of its run's first slot
+    const unsigned upto = lane == 31 ? ~0u : (2u << lane) - 1u;
+    const unsigned hm = need & upto;
+    const int head = hm ? 31 - __clz(hm) : lane;
+    const bool live = __shfl_sync(kFullMask, (int)my_any, head) != 0 && inr;
+    if (j < n) seg[j] = live ? t : -1;
+  }
+  __syncthreads();
+  int tv[kPer], c = 0;
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int j = kPer * threadIdx.x + u;
+    tv[u] = j < n ? seg[j] : -1;
+    c += tv[u] >= 0;
+  }
+  int total;
+  int o = block_exclusive_scan<kWarps>(c, wt, &total);
+#pragma unroll
+  for (int u = 0; u < kPer; ++u)
+    if (tv[u] >= 0) seg[o++] = tv[u];
+  __syncthreads();
+  return total;
+}
+
+// Count of the entries of the sorted list (lv, lp)[0, k) below (v, p) by
+// (value, position).  Every lane the same.
+__device__ __forceinline__ int count_before(const float* lv, const int* lp,
+                                            int k, float v, int p) {
+  int lo = 0, hi = k;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (lv[mid] < v || (lv[mid] == v && lp[mid] < p)) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// The chunk's list from the kWarps warp lists (wl_v, wl_i, wl_p), list w at
+// offset w·k: each entry lands at its rank by (value, position) — its index
+// in its own list plus its count of the other lists' entries below it — in
+// (fl_v, fl_i) when that rank is below k.  Positions increase along each
+// warp's walk, so the first k by (value, position) are exactly the
+// strict-insert top-k of the chunk's candidates in order.  An entry above
+// `bound` is not placed: the caller passes a value that some list holds k
+// entries at or below (a warp's k-th), or +inf.  Whole CTA; the caller
+// presets fl to +inf / -1 and syncs before and after.
+template <int kWarps>
+__device__ __forceinline__ void place_by_rank(const float* wl_v,
+                                              const int* wl_i,
+                                              const int* wl_p, int k,
+                                              float bound, float* fl_v,
+                                              int* fl_i) {
+  for (int e = threadIdx.x; e < kWarps * k; e += kWarps * 32) {
+    if (wl_i[e] < 0 || wl_v[e] > bound) continue;
+    const int w = e / k;
+    const float v = wl_v[e];
+    const int p = wl_p[e];
+    int rank = e - w * k;
+    for (int w2 = 0; w2 < kWarps; ++w2)
+      if (w2 != w)
+        rank += count_before(wl_v + w2 * k, wl_p + w2 * k, k, v, p);
+    if (rank < k) {
+      fl_v[rank] = v;
+      fl_i[rank] = wl_i[e];
+    }
+  }
+}
+
 // Four consecutive floats row[e..e+3], zero past d.  kAligned: d % 4 == 0
 // and the row base is 16-byte aligned, so one float4 load serves (e and d
 // are both multiples of 4, hence e < d means the whole slice is in range).
@@ -340,11 +458,12 @@ __device__ __forceinline__ float dot4(float4 a, float4 b) {
   return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
 }
 
-// A warp's copy of one d-vector: lane l holds the float4 slices
-// s*32 + l (s < NS), i.e. elements [4(32s + l), 4(32s + l) + 4), covering
-// d <= 128 * NS.  NS == 0 keeps nothing in registers and re-reads the vector
-// from memory (L1-resident) for every dot: the path for d > 1024.
-template <int NS, bool kAligned>
+// A warp's copy of one d-vector, held by each group of LANES lanes (32: the
+// whole warp): lane l of a group holds the float4 slices s*LANES + l
+// (s < NS), i.e. elements [4(LANES s + l), 4(LANES s + l) + 4), covering
+// d <= 4 * LANES * NS.  NS == 0 keeps nothing in registers and re-reads the
+// vector from memory (L1-resident) for every dot: the path for wide rows.
+template <int NS, bool kAligned, int LANES = 32>
 struct WarpVec {
   float4 v[NS > 0 ? NS : 1];
   const float* base;
@@ -353,19 +472,20 @@ struct WarpVec {
                                        int lane) {
     base = p;
 #pragma unroll
-    for (int s = 0; s < NS; ++s) v[s] = load4<kAligned>(p, (s * 32 + lane) * 4, d);
+    for (int s = 0; s < NS; ++s)
+      v[s] = load4<kAligned>(p, (s * LANES + lane) * 4, d);
   }
 
-  // This lane's share of the dot with row (reduce with warp_sum).
+  // This lane's share of the dot with row (reduce over the group's lanes).
   __device__ __forceinline__ float partial_dot(const float* __restrict__ row,
                                                int d, int lane) const {
     float acc = 0.f;
     if (NS > 0) {
 #pragma unroll
       for (int s = 0; s < NS; ++s)
-        acc += dot4(v[s], load4<kAligned>(row, (s * 32 + lane) * 4, d));
+        acc += dot4(v[s], load4<kAligned>(row, (s * LANES + lane) * 4, d));
     } else {
-      for (int e = lane * 4; e < d; e += 128)
+      for (int e = lane * 4; e < d; e += 4 * LANES)
         acc += dot4(load4<kAligned>(base, e, d), load4<kAligned>(row, e, d));
     }
     return acc;

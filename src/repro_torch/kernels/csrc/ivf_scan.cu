@@ -25,8 +25,9 @@
 // Design: split and merge, as csrc/ivf_scan_grouped.cu.  The wrapper's split
 // plan (ivf_scan.py split_plan: nq, T, topk and the SM count, no device
 // read) cuts each query's live slots into S contiguous chunks, S = 1 once
-// the queries alone fill the card, else about 8 CTAs per SM (what pass 1
-// keeps resident: 32 registers a thread).
+// the queries alone fill the card, else as many as keep pass 1 within one
+// wave of 8 CTAs per SM (what pass 1 keeps resident: 32 registers a
+// thread).
 //   live slots: a slot is live when its tile lies in [0, n_tiles) and holds
 //     a live row (pids >= 0).  A slot that repeats the previous slot's tile
 //     takes that slot's liveness without reading ids (so the null-tile
@@ -34,7 +35,8 @@
 //     costs one id read per run, as the earlier kernel's skip rule did); a
 //     repeated live tile is live twice and scanned twice, as in the
 //     reference.  Empty tiles give no candidate, so scanning only the live
-//     slots changes no result.  The CTA finds them in segments of 1,024
+//     slots changes no result.  The CTA finds them (common.cuh find_live,
+//     shared with csrc/ivf_scan_adc.cu) in segments of 1,024
 //     map slots (never holding all T: exhaustive_search passes every tile
 //     of the slab, ~16,000 at SIFT1M): warps take 32-slot windows, read the
 //     window's map entries coalesced, read the ids of each run's first slot
@@ -54,10 +56,12 @@
 //     measured faster on the H100 than 4 rows at 4 CTAs or 8 rows at 2: the
 //     per-row shuffles, ballots and inserts are hidden by more resident
 //     warps, not by more loads per warp.  Each
-//     warp keeps its own sorted top-k list in shared memory (strict insert,
-//     position = count of entries <= v), so no warp waits on another's
-//     merge; each entry carries its candidate position (slot within the
-//     chunk · block_rows + row), increasing along a warp's walk.  At the
+//     warp keeps its own sorted top-k list in shared memory (insert3:
+//     strict insert, position = count of entries <= v; the rank placement
+//     at the end is common.cuh place_by_rank), so no warp waits on
+//     another's merge; each entry carries its candidate position (slot
+//     within the chunk · block_rows + row), increasing along a warp's
+//     walk.  At the
 //     end every entry's rank in the chunk is its count of entries of the
 //     other warps' lists below it by (value, position) plus its own index,
 //     found by binary search, and it lands in that slot of the chunk's
@@ -84,17 +88,19 @@
 namespace {
 
 using repro_torch::dot4;
+using repro_torch::find_live;
 using repro_torch::kFullMask;
 using repro_torch::kMaxTopk;
 using repro_torch::load4;
+using repro_torch::place_by_rank;
 using repro_torch::WarpVec;
 using repro_torch::warp_sum;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kSeg = 4 * kThreads;   // map slots per segment, 4 a thread
+constexpr int kPer = 4;              // map slots of a segment per thread
+constexpr int kSeg = kPer * kThreads;
 constexpr int kRowsInFlight = 2;     // live rows a warp loads at once
-constexpr int kIdReads = 8;          // slots whose ids a warp reads at once
 
 // This lane's share of (q·v, v·v) for row v.
 template <int NS, bool kAligned>
@@ -117,65 +123,6 @@ __device__ __forceinline__ void dot_sq(const WarpVec<NS, kAligned>& qv,
       sq += dot4(r, r);
     }
   }
-}
-
-// Live slots of tm[0, n) (n <= kSeg), in slot order, into seg[0, count);
-// returns count.  Whole CTA.
-__device__ int find_live(const int* __restrict__ tm, int n,
-                         const int* __restrict__ pids, int block_rows,
-                         int n_tiles, int* seg, int* wt) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int w0 = warp * 32; w0 < n; w0 += kWarps * 32) {
-    const int j = w0 + lane;
-    const int t = j < n ? tm[j] : -1;
-    const bool inr = t >= 0 && t < n_tiles;
-    int tp = __shfl_up_sync(kFullMask, t, 1);
-    if (lane == 0) tp = -1;          // a window's first slot reads its ids
-    const unsigned need = __ballot_sync(kFullMask, inr && t != tp);
-    bool my_any = false;
-    unsigned todo = need;
-    while (todo) {                   // uniform
-      int u[kIdReads];
-      bool a[kIdReads];
-#pragma unroll
-      for (int v = 0; v < kIdReads; ++v) {
-        u[v] = todo ? __ffs(todo) - 1 : -1;
-        if (todo) todo &= todo - 1;
-        const int tile = __shfl_sync(kFullMask, t, u[v] < 0 ? 0 : u[v]);
-        a[v] = false;
-        if (u[v] >= 0) {
-          const int* ip = pids + (size_t)tile * block_rows;
-          for (int r = lane; r < block_rows; r += 32) a[v] |= ip[r] >= 0;
-        }
-      }
-#pragma unroll
-      for (int v = 0; v < kIdReads; ++v) {
-        const bool any = __any_sync(kFullMask, a[v]);
-        if (lane == u[v]) my_any = any;
-      }
-    }
-    // a repeat takes the liveness of its run's first slot
-    const unsigned upto = lane == 31 ? ~0u : (2u << lane) - 1u;
-    const unsigned hm = need & upto;
-    const int head = hm ? 31 - __clz(hm) : lane;
-    const bool live = __shfl_sync(kFullMask, (int)my_any, head) != 0 && inr;
-    if (j < n) seg[j] = live ? t : -1;
-  }
-  __syncthreads();
-  int tv[4], c = 0;
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int j = 4 * threadIdx.x + u;
-    tv[u] = j < n ? seg[j] : -1;
-    c += tv[u] >= 0;
-  }
-  int total;
-  int o = repro_torch::block_exclusive_scan<kWarps>(c, wt, &total);
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-    if (tv[u] >= 0) seg[o++] = tv[u];
-  __syncthreads();
-  return total;
 }
 
 // Insert (v, id, p) into the warp's sorted list (lv, li, lp) of length k;
@@ -211,19 +158,6 @@ __device__ __forceinline__ void insert3(float* lv, int* li, int* lp, int k,
     }
     __syncwarp();
   }
-}
-
-// Count of the entries of the sorted list (lv, lp)[0, k) below (v, p) by
-// (value, position).  Every lane the same.
-__device__ __forceinline__ int count_before(const float* lv, const int* lp,
-                                            int k, float v, int p) {
-  int lo = 0, hi = k;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (lv[mid] < v || (lv[mid] == v && lp[mid] < p)) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo;
 }
 
 template <int NS, bool kAligned>
@@ -266,8 +200,9 @@ ivf_scan_kernel(const float* __restrict__ Q, const float* __restrict__ vecs,
   if (splits > 1) {
     int total = 0;
     for (int sg = 0; sg < nseg; ++sg)
-      total += find_live(tm + sg * kSeg, min(kSeg, T - sg * kSeg), pids,
-                         block_rows, n_tiles, seg, wt);
+      total += find_live<kWarps, kPer>(tm + sg * kSeg,
+                                       min(kSeg, T - sg * kSeg), pids,
+                                       block_rows, n_tiles, seg, wt);
     if (nseg == 1) kept = total;
     const int per = (total + splits - 1) / splits;
     lo = min(s * per, total);
@@ -281,9 +216,9 @@ ivf_scan_kernel(const float* __restrict__ Q, const float* __restrict__ vecs,
   int live_base = 0;
   for (int sg = 0; sg < nseg && live_base < hi; ++sg) {
     const int n = kept >= 0 ? kept
-                            : find_live(tm + sg * kSeg,
-                                        min(kSeg, T - sg * kSeg), pids,
-                                        block_rows, n_tiles, seg, wt);
+                            : find_live<kWarps, kPer>(
+                                  tm + sg * kSeg, min(kSeg, T - sg * kSeg),
+                                  pids, block_rows, n_tiles, seg, wt);
     const int a = max(lo - live_base, 0), b = min(hi - live_base, n);
     // the chunk's slots a..b-1 of this segment; positions from the chunk's
     // first slot
@@ -339,20 +274,7 @@ ivf_scan_kernel(const float* __restrict__ Q, const float* __restrict__ vecs,
 
   // the chunk's list: each warp-list entry at its rank by (value, position)
   __syncthreads();
-  for (int e = tid; e < kWarps * topk; e += kThreads) {
-    if (wl_i[e] < 0) continue;
-    const int w = e / topk;
-    const float v = wl_v[e];
-    const int p = wl_p[e];
-    int rank = e - w * topk;
-    for (int w2 = 0; w2 < kWarps; ++w2)
-      if (w2 != w)
-        rank += count_before(wl_v + w2 * topk, wl_p + w2 * topk, topk, v, p);
-    if (rank < topk) {
-      fl_v[rank] = v;
-      fl_i[rank] = wl_i[e];
-    }
-  }
+  place_by_rank<kWarps>(wl_v, wl_i, wl_p, topk, INFINITY, fl_v, fl_i);
   __syncthreads();
 
   float qsq = 0.f;

@@ -1,29 +1,59 @@
 """Wrapper of the hand-written CUDA ``gather_score`` kernel.
 
-Counterpart of ``repro.kernels.gather_score`` (the Pallas TPU kernel).  The
-kernel (``csrc/gather_score.cu``) scores each sample of a batch against its
-source cluster and C candidate clusters, one warp per sample, without
-materialising the (B, C+1, d) gather.  This wrapper checks its inputs,
-hoists the (k,) cluster norms ``||D_k||²``, allocates the output and
-launches on the current stream.  It takes CUDA tensors only: CPU tensors go
-to ``kernels.ref.gather_score`` through ``kernels.ops``.
+Counterpart of ``repro.kernels.gather_score`` (the Pallas TPU kernel,
+``src/repro/kernels/gather_score.py:64``).  The kernel
+(``csrc/gather_score.cu``) scores each sample of a batch against its source
+cluster and C candidate clusters without materialising the (B, C+1, d)
+gather: a CTA of 8 warps takes two samples, each row goes to a group of
+``layout(d).lanes`` lanes, and each row's ``||D_v||²`` is summed from the
+gathered row beside ``x·D_v``, so no (k,) norm vector is hoisted.  Its
+bound is the unique bytes, with D resident in L2; the gathered rows read at
+the L2 rate are the practical floor (``PERF.md`` §6).  This wrapper checks
+its inputs, allocates the output and launches on the current stream of the
+tensors' device: one device launch and nothing else.  It takes CUDA tensors
+only: CPU tensors go to ``kernels.ref.gather_score`` through
+``kernels.ops``.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
 
 _MODES = {"bkm": 0, "lloyd": 1}
+SAMPLES_PER_CTA = 2     # the kernel's kSamples (csrc/gather_score.cu)
+
+
+class Layout(NamedTuple):
+    """How the kernel spreads a sample's rows at width d: ``lanes`` lanes a
+    row, ``rows_per_warp`` rows a warp instruction, ``samples_per_cta``
+    samples a CTA of 8 warps, and ``slices`` float4 slices of x a lane (0:
+    x re-read from L1, d > 1024)."""
+    lanes: int
+    rows_per_warp: int
+    samples_per_cta: int
+    slices: int
+
+
+def layout(d: int) -> Layout:
+    """The kernel's row layout at width d: 8 lanes a row up to d=128 (a
+    row's 32 float4 slices, 4 a lane), 16 up to 256, else 32; x held in
+    the smallest of 1, 2, 4 or 8 slices a lane that covers the row."""
+    lanes = 8 if d <= 128 else 16 if d <= 256 else 32
+    f4 = -(-d // 4)                     # float4 slices of a row
+    need = -(-f4 // lanes)
+    slices = next((s for s in (1, 2, 4, 8) if need <= s), 0)
+    return Layout(lanes, 32 // lanes, SAMPLES_PER_CTA, slices)
 
 
 def _fn():
     lib = _build.library("gather_score")
     f = lib.gather_score_launch
     if f.argtypes is None:
-        f.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+        f.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p]
         f.restype = ctypes.c_int
     return f
@@ -52,11 +82,12 @@ def gather_score(x: torch.Tensor, u: torch.Tensor, cand: torch.Tensor,
     _build.check_tensor(cand, "cand", torch.int32, (B, C), dev)
     _build.check_tensor(D, "D", torch.float32, (k, d), dev)
     _build.check_tensor(cnt, "cnt", torch.float32, (k,), dev)
-    dsq = (D * D).sum(-1)                               # (k,) hoisted norms
     out = torch.empty((B, C), dtype=torch.float32, device=dev)
     if B == 0 or C == 0:
         return out
+    lay = layout(d)
     _build.launch("gather_score", _fn(), dev, x.data_ptr(), u.data_ptr(),
                   cand.data_ptr(), D.data_ptr(), cnt.data_ptr(),
-                  dsq.data_ptr(), out.data_ptr(), B, C, d, k, _MODES[mode])
+                  out.data_ptr(), B, C, d, k, _MODES[mode], lay.lanes,
+                  lay.slices)
     return out

@@ -40,16 +40,17 @@ def split_plan(nq: int, T: int, topk: int, sms: int) -> ScanPlan:
 
     Pure host arithmetic (no device read, so ``search`` keeps no host
     sync).  One chunk per query once the queries alone fill the card
-    (nq >= sms); else enough chunks for about ``CTAS_PER_SM`` CTAs per SM,
-    at most T (a query has at most T live slots) and at most ``MAX_MERGE``
-    merged candidates per query.
+    (nq >= sms); else as many chunks as keep pass 1 within one wave of
+    ``CTAS_PER_SM`` CTAs per SM (rounded down: a CTA past the wave would
+    run alone after it), at most T (a query has at most T live slots) and
+    at most ``MAX_MERGE`` merged candidates per query.  ``ivf_scan_adc``
+    takes the same plan.
     """
     if not 1 <= topk <= MAX_TOPK:
         raise ValueError(f"need 1 <= topk <= {MAX_TOPK}, got {topk}")
     splits = 1
     if 0 < nq < sms:
-        splits = max(1, min(-(-CTAS_PER_SM * sms // nq), T,
-                            MAX_MERGE // topk))
+        splits = max(1, min(CTAS_PER_SM * sms // nq, T, MAX_MERGE // topk))
     return ScanPlan(splits, nq * splits)
 
 

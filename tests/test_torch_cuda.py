@@ -98,6 +98,47 @@ def test_gather_score_kernel_matches_plain(dev, mode, d):
     _assert_scores(got, want, args, mode)
 
 
+@pytest.mark.parametrize("mode", ["bkm", "lloyd"])
+@pytest.mark.parametrize("B,C,d", [(1, 1, 128), (257, 6, 960), (33, 1, 37),
+                                   (64, 300, 24), (5, 50, 1100),
+                                   (1024, 50, 128), (3, 13, 130)])
+def test_gather_score_kernel_layout_edges(dev, mode, B, C, d):
+    """The row layout's edges: GIST1M's width (32 lanes a row, 8 slices a
+    lane), d % 4 != 0, C = 1, C + 1 not a multiple of the rows a warp holds,
+    C past one 256-row chunk, B odd (a CTA holds two samples) and the
+    re-read path past d = 1024; out-of-range ids score NaN (a bad source
+    cluster NaNs its sample's row in bkm), empty clusters +inf in lloyd.
+    One launch per call."""
+    from repro_torch.kernels.gather_score import layout
+    lay = layout(d)
+    assert lay.samples_per_cta == 2 and lay.lanes * lay.rows_per_warp == 32
+    x, u, cand, D, cnt = _gs_case(B, d, 64, C, B + C + d, dev)
+    cand[1::3, -1] = 0                       # an empty cluster
+    bad_c, bad_u = cand.clone(), u.clone()
+    bad_c[::7, 0] = 64                       # past k
+    bad_c[B // 2, -1] = -1
+    bad_u[B - 1] = 70
+    before = _build.launch_counts["gather_score"]
+    got = ops.gather_score(x, bad_u, bad_c, D, cnt, mode=mode)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["gather_score"] == before + 1
+    # the plain version indexes D by the ids, so it runs on the valid ids
+    nan = (bad_c != cand)
+    if mode == "bkm":
+        nan |= (bad_u != u)[:, None]
+    assert torch.equal(torch.isnan(got), nan)
+    args = (x, u, cand, D, cnt)
+    want = ops.gather_score(*args, mode=mode, force="ref")
+    if mode == "lloyd" and B > 1:
+        assert bool(torch.isinf(want).any())  # the empty clusters
+    keep = ~nan
+    fin = torch.isfinite(want) & keep
+    assert torch.equal(torch.isfinite(got) & keep, fin)
+    assert torch.equal(got[keep & ~fin], want[keep & ~fin])
+    limit = 1e-5 * ref.score_scale(*args, mode=mode)
+    assert bool(((got - want).abs()[fin] <= limit[fin]).all())
+
+
 @pytest.mark.parametrize("d,C,kappa", [(128, 136, 50), (37, 9, 12),
                                        (960, 40, 64), (1100, 5, 3)])
 def test_refine_merge_kernel_matches_plain(dev, d, C, kappa):
@@ -496,6 +537,105 @@ def test_ivf_scan_adc_kernel_ties_exact(dev, W):
     args = [t.to(dev) for t in (lut, qc, vnorm, codes, pids, tm)]
     got = ops.ivf_scan_adc(*args, block_rows=bl, topk=50)
     want = ops.ivf_scan_adc(*args, block_rows=bl, topk=50, force="ref")
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def _adc_at(monkeypatch, sms, *args, **kw):
+    """ops.ivf_scan_adc with the split plan computed for ``sms`` SMs."""
+    monkeypatch.setattr(_build, "sm_count", lambda i: sms)
+    try:
+        return ops.ivf_scan_adc(*args, **kw)
+    finally:
+        monkeypatch.undo()
+
+
+def _adc_wide(dev, nq, M, W, bl=32, ntiles=40, T=9):
+    """Random inputs with a table of M·W floats (no codec trains one this
+    wide cheaply): (lut, qconst, vnorm, codes, pids, tile_map)."""
+    g = torch.Generator().manual_seed(M * W)
+    lut = torch.randn(nq, M, W, generator=g)
+    codes = torch.randint(0, 256, (ntiles * bl, M), generator=g).to(
+        torch.uint8)
+    vnorm = torch.rand(ntiles * bl, generator=g) * 50
+    pids = torch.arange(ntiles * bl, dtype=torch.int32)
+    pids[torch.rand(ntiles * bl, generator=g) < 0.4] = -1
+    pids[-bl:] = -1                             # the null tile
+    tm = torch.randint(0, ntiles, (nq, T), generator=g, dtype=torch.int32)
+    qc = torch.randn(nq, generator=g)
+    return [t.to(dev).contiguous() for t in (lut, qc, vnorm, codes, pids,
+                                             tm)]
+
+
+@pytest.mark.parametrize("kind,d,nsub,nq,nprobe,topk", [
+    ("pq", 128, 8, 64, 16, 40), ("int8", 128, 0, 64, 16, 40),
+    ("int8", 37, 0, 40, 4, 1), ("pq", 24, 4, 40, 40, 1024),
+    ("wide", 0, 128, 20, 0, 40), ("wide", 0, 128, 6, 0, 1024)])
+def test_ivf_scan_adc_split_bit_equal(dev, monkeypatch, kind, d, nsub, nq,
+                                      nprobe, topk):
+    """The same queries at S = 1 (plan for 1 SM), at the card's own plan
+    and with S forced high (plan for 10,000 SMs): positions, ids and
+    partials equal bit for bit for every plan, and match the plain
+    version.  Served-batch shapes (64 queries, nprobe 16, topk 40, PQ
+    nsub=8 and int8), topk 1 and 1,024, and a 32,768-float table (M=128,
+    W=256), at topk 40 and at topk 1,024 (the largest shared memory)."""
+    from repro_torch.index import quantize as q
+    from repro_torch.kernels.ivf_scan import split_plan
+    if kind == "wide":
+        args = _adc_wide(dev, nq, nsub, 256)
+        bl = 32
+    else:
+        X, index = _codec_index(dev, d, kind, nsub)
+        Q = (X[:nq] + 0.1 * torch.randn(nq, d, device=dev)).contiguous()
+        lut, qc = q.build_lut(index.codec, Q)
+        args = (lut, qc, index.vnorm, index.codes, index.ids,
+                _tile_map(index, Q, nprobe))
+        bl = index.block_rows
+    lut, qc, vnorm, codes, _, tm = args
+    kw = dict(block_rows=bl, topk=topk)
+    assert split_plan(nq, tm.shape[1], topk, 1).splits == 1
+    assert split_plan(nq, tm.shape[1], topk, 10_000).splits > 1
+    before = _build.launch_counts["ivf_scan_adc"]
+    outs = [_adc_at(monkeypatch, sms, *args, **kw)
+            for sms in (1, _sms(), 10_000)]
+    want = ops.ivf_scan_adc(*args, force="ref", **kw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["ivf_scan_adc"] == before + 3
+    for got in outs[1:]:
+        for a, b in zip(got, outs[0]):
+            assert torch.equal(a, b)
+    gi, gp, gd = outs[0]
+    wi, wp, wd = want
+    scale = _adc_scale(lut, vnorm, codes, wp) + qc.abs()[:, None]
+    _assert_sel((gp, gd), (wp, wd), scale)
+    _assert_sel((gi, gd), (wi, wd), scale)
+
+
+@pytest.mark.parametrize("sms", [1, 132, 10_000])
+def test_ivf_scan_adc_split_ties_exact(dev, monkeypatch, sms):
+    """Integer tables, codes and norms and a map that repeats two live
+    tiles in turn with null-tile runs between: ties on both sides of every
+    chunk boundary, and every plan equals the plain version bit for bit."""
+    g = torch.Generator().manual_seed(sms)
+    nq, M, W, bl, ntiles = 24, 8, 256, 40, 30
+    lut = torch.randint(-3, 4, (nq, M, W), generator=g).float()
+    codes = torch.randint(0, 256, (ntiles * bl, M), generator=g).to(
+        torch.uint8)
+    vnorm = torch.randint(0, 6, (ntiles * bl,), generator=g).float()
+    pids = torch.arange(ntiles * bl, dtype=torch.int32)
+    pids[torch.rand(ntiles * bl, generator=g) < 0.3] = -1
+    pids[:bl] = -1                              # an empty list tile
+    pids[-bl:] = -1                             # the null tile
+    tm = torch.randint(0, ntiles, (nq, 12), generator=g, dtype=torch.int32)
+    pat = torch.tensor([3, 4, ntiles - 1, ntiles - 1, 3, 4, 4, 0, 3],
+                       dtype=torch.int32)
+    tm = torch.cat([tm, pat.repeat(nq, 3)], 1)
+    qc = torch.randint(-2, 3, (nq,), generator=g).float()
+    args = [t.to(dev).contiguous() for t in (lut, qc, vnorm, codes, pids, tm)]
+    kw = dict(block_rows=bl, topk=30)
+    got = _adc_at(monkeypatch, sms, *args, **kw)
+    want = ops.ivf_scan_adc(*args, force="ref", **kw)
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)

@@ -135,6 +135,76 @@ def test_score_scale_limit_holds_and_catches_faults(mode):
         assert over.mean() > 0.5, over.mean()
 
 
+def _kernel_order_sums(a, rows, lanes):
+    """sum(a * rows, -1) as the CUDA kernel adds it: float4 slice f of a row
+    goes to lane f mod ``lanes`` of its row group, a lane sums its slices'
+    4-term dots in slice order, and the group's lanes are added by an xor
+    butterfly (lane 0's order).  a (B, d); rows (B, R, d) -> (B, R)."""
+    B, R, d = rows.shape
+    f4 = -(-d // 4)
+    S = -(-f4 // lanes)
+    pad = S * lanes * 4 - d
+    prod = torch.nn.functional.pad(a[:, None, :] * rows, (0, pad))
+    prod = prod.view(B, R, S, lanes, 4)
+    dot4 = ((prod[..., 0] + prod[..., 1]) + prod[..., 2]) + prod[..., 3]
+    acc = torch.zeros((B, R, lanes))
+    for s in range(S):
+        acc = acc + dot4[:, :, s]
+    lane = torch.arange(lanes)
+    o = lanes // 2
+    while o:
+        acc = acc + acc[..., lane ^ o]
+        o //= 2
+    return acc[..., 0]
+
+
+def _gather_score_kernel_order(x, u, cand, D, cnt, mode):
+    """The kernel's arithmetic in torch: x·v, v·v and x·x in its per-lane
+    order at ``layout(d).lanes`` lanes a row, ||D_v||² from each gathered
+    row (no hoisted (k,) norms), then scores_from_dots."""
+    from repro_torch.kernels.gather_score import layout
+    lanes = layout(x.shape[1]).lanes
+    rows = torch.cat([u[:, None], cand], 1).long()
+    G = D[rows]
+    dots = _kernel_order_sums(x, G, lanes)
+    dsq = _kernel_order_sums(G.flatten(0, 1), G.flatten(0, 1)[:, None],
+                             lanes).view(dots.shape)
+    xsq = _kernel_order_sums(x, x[:, None], lanes)[:, 0]
+    return tref.scores_from_dots(dots, cnt[rows], dsq, xsq, mode)
+
+
+@pytest.mark.parametrize("mode", ["bkm", "lloyd"])
+@pytest.mark.parametrize("d", [24, 100, 128, 960])
+def test_gather_score_row_norms_within_limit(mode, d):
+    """||D_v||² taken from the gathered rows in the kernel's per-lane order
+    (the CUDA kernel's design) stays within 1e-5·score_scale of the JAX
+    plain version, whose norms are hoisted over all k rows; the planted
+    faults (a wrong D row; in bkm ||x||² dropped) still fail that limit."""
+    args = _consistent_case(48, d, 32, 9, 21 + d)
+    want = np.asarray(jref.gather_score(*map(jnp.asarray, args), mode=mode))
+    x, u, cand, D, cnt = _t(*args)
+    got = _gather_score_kernel_order(x, u, cand, D, cnt, mode).numpy()
+    limit = 1e-5 * tref.score_scale(x, u, cand, D, cnt, mode=mode).numpy()
+    fin = np.isfinite(want)
+    np.testing.assert_array_equal(np.isfinite(got), fin)
+    np.testing.assert_array_equal(got[~fin], want[~fin])
+    assert (np.abs(got[fin] - want[fin]) <= limit[fin]).all()
+    faults = [_gather_score_kernel_order(x, u, (cand + 1) % 32, D, cnt,
+                                         mode)]
+    if mode == "bkm":
+        from repro_torch.kernels.gather_score import layout
+        rows = torch.cat([u[:, None], cand], 1).long()
+        G = D[rows]
+        faults.append(tref.scores_from_dots(
+            _kernel_order_sums(x, G, layout(d).lanes), cnt[rows],
+            (G * G).sum(-1), torch.zeros(x.shape[0]), mode))
+    for bad in faults:
+        bad = bad.numpy()
+        both = fin & np.isfinite(bad)
+        over = np.abs(bad[both] - want[both]) > limit[both]
+        assert over.mean() > 0.5, over.mean()
+
+
 def _assert_refine(got, want, x, Xsrc):
     gi, gd = (np.asarray(a) for a in got)
     wi, wd = (np.asarray(a) for a in want)
