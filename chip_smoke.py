@@ -29,18 +29,23 @@ plain PyTorch version, or when any phase fails.  Phases:
    - ``probe_centroids`` at nq=10,000, k=16,384, d=128, p in {1, 16, 64},
      and at one served batch (64 queries, p=16), each with its split plan
      printed (row tile, centroids per chunk, chunks S, CTAs), and
-     ``assign_centroids`` at n=10,000 (an ``add`` batch) and n=1,000,000 (a
-     Lloyd assignment), with k rows of the data as centroids: distances per
-     slot within 1e-5·(||x||² + ||c||²), ids equal except at near-ties
-     (counted); device time per call is the sum of a call's launches (the
-     split kernels make two when their plan splits);
+     ``assign_centroids`` (3xTF32 on the tensor cores) at n=10,000 (an
+     ``add`` batch), n=1,000,000 (a Lloyd assignment) and PQ training's
+     shape (1,010,000 x 16, k=256), with k rows of the data as centroids:
+     distances per slot within 1e-5·(||x||² + ||c||²), ids equal except at
+     near-ties (counted), its split plan and both bounds (3xTF32 at 495/3
+     TFLOP/s, FP32 at 67) printed, inputs rounded to TF32 as a planted
+     fault, and S = 1 against the card's plan bit for bit; device time per
+     call is the sum of a call's launches (the split kernels make two when
+     their plan splits);
    - ``pairwise_sq``, which no path of the system calls, so one counted
      call per shape through ``ops.pairwise_sq`` is its path: SIFT1M's
      graph-build shape (phase 2's X as B=15,625 clusters of m=64, d=128),
      VLAD10M's width (B=2,048, m=64, d=512) in f32 and bf16, GIST1M's width
      (B=1,024, m=64, d=960) and m=128 at d=128: every element within
-     1e-5·(||x_i||² + ||x_j||²), finite and non-negative; timed beside
-     ``torch.bmm`` and ``torch.baddbmm`` yardsticks;
+     1e-5·(||x_i||² + ||x_j||²), finite and non-negative, each D[b] exactly
+     symmetric; timed beside ``torch.bmm`` and ``torch.baddbmm``
+     yardsticks;
    planted faults in the plain versions must fail these limits;
 3. parity on the card at the SIFT_SMALL shape (n=65,536, d=128, k=1,024,
    κ=32, ξ=64, τ=8): ``gk_means`` through the kernels and with
@@ -109,6 +114,7 @@ HERE = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12  # dense tensor-core rate, f32 accumulation
+TF32_FLOPS = 495e12  # dense tensor-core rate; 3xTF32 runs at a third
 
 SIFT_SMALL = dict(n=65_536, d=128, k=1_024, kappa=32, xi=64, tau=8)
 SIFT1M = dict(n=1_000_000, d=128, k=10_000, kappa=50, xi=64, tau=10)
@@ -677,19 +683,51 @@ def probe_plan(n, k, p):
     return split_plan(n, k, p, _build.sm_count(0))._asdict()
 
 
+def assign_plan(n, k):
+    """assign_centroids' split plan on this card, as a dict."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.assign_centroids import split_plan
+    return split_plan(n, k, _build.sm_count(0))._asdict()
+
+
+def assign_at_sms(sms, X, C):
+    """ops.assign_centroids with its split plan computed for ``sms`` SMs
+    (1: a single chunk)."""
+    from repro_torch.kernels import _build, ops
+    real = _build.sm_count
+    _build.sm_count = lambda index: sms
+    try:
+        return ops.assign_centroids(X, C)
+    finally:
+        _build.sm_count = real
+
+
+def tf32_round(a):
+    """f32 rounded to TF32's 10 mantissa bits (to nearest, ties away): the
+    planted fault of the 3xTF32 kernel, products of the hi parts alone."""
+    import torch
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
 PROBE_KERNELS = ("probe_partial_kernel", "probe_merge_kernel")
+ASSIGN_KERNELS = ("assign_tc_kernel", "assign_merge_kernel")
+PAIR_KERNELS = ("pairwise_sq_f32_kernel", "pairwise_sq_bf16_kernel")
 GROUPED_KERNELS = ("ivf_scan_grouped_kernel", "ivf_scan_grouped_merge_kernel")
 
 
 def check_centroid_kernels(X, k):
     """probe_centroids at nq=10,000, k, d=128, p in {1, 16, 64} and one
-    served batch (64 queries, p=16), and assign_centroids at n=10,000 and
-    n=1,000,000, against their plain versions; the centroids are k distinct
-    rows of X.  Planted faults in the plain probe: ``||c||²`` dropped, and
-    the split plan's last centroid chunk dropped (the merge losing a
-    list)."""
+    served batch (64 queries, p=16), and assign_centroids at n=10,000,
+    n=1,000,000 and PQ training's shape (1,010,000 x 16, k=256), against
+    their plain versions; the centroids are k distinct rows of X.  Planted
+    faults in the plain probe: ``||c||²`` dropped, and the split plan's last
+    centroid chunk dropped (the merge losing a list); in the plain assign at
+    n=10,000: ``||c||²`` dropped, and the inputs rounded to TF32 (what the
+    3xTF32 kernel would give without its lo terms); and the kernel's own
+    split plan against a single chunk, bit for bit."""
     import torch
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
     from repro_torch.launch.serve_index import make_queries
     n, d = X.shape
     nq = SERVE["nq"]
@@ -731,26 +769,55 @@ def check_centroid_kernels(X, k):
     out["probe_batch"] = probe_check(Qb, pb, 20)
     out["probe_batch"]["mm_ms"] = time_ms(lambda: torch.matmul(Qb, C.T),
                                           [()], 20)
-    assign_rows = {nq: Q, n: X}
-    for m, A in assign_rows.items():
-        ga, gd = ops.assign_centroids(A, C)
-        wa, wd = ops.assign_centroids(A, C, force="ref")
-        scale = (A * A).sum(-1) + csq[wa.long()]
-        chk = sel_check((ga[:, None], gd[:, None]), (wa[:, None], wd[:, None]),
-                        scale[:, None])
-        if m == nq:
-            fi, fd = _probe_fault(A, C, 1, csq=False)
-            fault = sel_check((fi, fd), (wa[:, None], wd[:, None]),
-                              scale[:, None])
-            chk["ok"] = chk["ok"] and not fault["ok"]
-            chk["fault_csq_dropped_fails"] = not fault["ok"]
-        reps = 20 if m == nq else 3
-        chk["ms"] = time_ms(lambda: ops.assign_centroids(A, C), [()], reps)
+    # assign_centroids: an add batch (n=10^4), a Lloyd assignment (n=10^6)
+    # and PQ training's shape (nsub=8 over the 1,010,000 live rows: 16
+    # features, k=256), each against its plain version
+    Xpq = torch.cat([X, Q])[:, :16].contiguous()
+    gq = torch.Generator(device=DEV).manual_seed(SEED + 21)
+    Cpq = Xpq[torch.randperm(Xpq.shape[0], generator=gq, device=DEV)[:256]]
+    cases = {"n10k": (Q, C), "n1m": (X, C), "pq": (Xpq, Cpq.contiguous())}
+    for key, (A, Ck) in cases.items():
+        m, dd = A.shape
+        kk = Ck.shape[0]
+        plan = assign_plan(m, kk)
+        ga, gd = ops.assign_centroids(A, Ck)
+        wa, wd = ops.assign_centroids(A, Ck, force="ref")
+        scale = ((A * A).sum(-1) + (Ck * Ck).sum(-1)[wa.long()])[:, None]
+        want = (wa[:, None], wd[:, None])
+        chk = sel_check((ga[:, None], gd[:, None]), want, scale)
+        if key == "n10k":
+            # planted faults: ||c||² dropped, and the inputs rounded to
+            # TF32 (the products without their lo terms)
+            ti, td = ref.assign_centroids(tf32_round(A), tf32_round(Ck))
+            faults = {"csq_dropped": _probe_fault(A, Ck, 1, csq=False),
+                      "tf32_inputs": (ti[:, None], td[:, None])}
+            for name, bad in faults.items():
+                chk[f"fault_{name}_fails"] = not sel_check(bad, want,
+                                                           scale)["ok"]
+            # the card's plan against one chunk (S = 1), bit for bit
+            si, sd = assign_at_sms(1, A, Ck)
+            chk["s1_bit_equal"] = torch.equal(si, ga) and torch.equal(sd, gd)
+            chk["ok"] = chk["ok"] and chk["s1_bit_equal"] and all(
+                chk[f"fault_{f}_fails"] for f in faults)
+        chk["plan"] = plan
+        reps = 3 if key == "n1m" else 20
+        chk["ms"] = time_ms(lambda: ops.assign_centroids(A, Ck), [()], reps)
         chk["plain_ms"] = time_ms(
-            lambda: ops.assign_centroids(A, C, force="ref"), [()], reps // 3)
-        nbytes = 4 * (m * d + k * d + 2 * m)
-        chk["bound_ms"], chk["bound_by"] = bound_ms(nbytes, 2 * m * k * d)
-        out["assign"][m] = chk
+            lambda: ops.assign_centroids(A, Ck, force="ref"), [()],
+            max(1, reps // 3))
+        # the f32 products at the 3xTF32 rate (three TF32 products each,
+        # the least time for them at f32 accuracy) and at the FP32 rate
+        nbytes = 4 * (m * dd + kk * dd + 2 * m)
+        flops = 2 * m * kk * dd
+        chk["bound_ms"], chk["bound_by"] = bound_ms(nbytes, 3 * flops,
+                                                    TF32_FLOPS)
+        chk["bound_fp32_ms"], _ = bound_ms(nbytes, flops)
+        log(f"assign_centroids {key} n={m} k={kk} d={dd}: split plan "
+            f"{json.dumps(plan)} (row tile, centroids per chunk, chunks S, "
+            f"pass-1 CTAs); bounds {chk['bound_ms']:.4f} ms (3xTF32 at "
+            f"{TF32_FLOPS / 3e12:.0f} TFLOP/s, {chk['bound_by']}), "
+            f"{chk['bound_fp32_ms']:.4f} ms (FP32)")
+        out["assign"][key] = chk
     # device time per call (both passes), traced after the event timings
     for p, chk in out["probe"].items():
         chk["device_us"] = kernel_device_us(
@@ -759,22 +826,26 @@ def check_centroid_kernels(X, k):
     out["probe_batch"]["device_us"] = kernel_device_us(
         lambda: ops.probe_centroids(Qb, C, pb), [()], PROBE_KERNELS,
         launches=1 + (out["probe_batch"]["plan"]["splits"] > 1))
-    out["assign"][nq]["device_us"] = kernel_device_us(
-        lambda: ops.assign_centroids(Q, C), [()], "assign_kernel")
-    out["assign"][n]["device_us"] = kernel_device_us(
-        lambda: ops.assign_centroids(X, C), [()], "assign_kernel", reps=3)
+    for key, (A, Ck) in cases.items():
+        out["assign"][key]["device_us"] = kernel_device_us(
+            lambda: ops.assign_centroids(A, Ck), [()], ASSIGN_KERNELS,
+            reps=3 if key == "n1m" else 20,
+            launches=1 + (out["assign"][key]["plan"]["splits"] > 1))
     # yardstick: the (rows, k) product alone, no selection; at n=10^6 the
     # (n, k) output is 65 GB, so one 131,072-row chunk is timed and scaled
     mm = time_ms(lambda: torch.matmul(Q, C.T), [()], 10)
     rows = 131_072
     mm_1m = time_ms(lambda: torch.matmul(X[:rows], C.T), [()], 3) * n / rows
     out["mm_ms"], out["mm_1m_ms"] = mm, mm_1m
+    out["assign"]["pq"]["mm_ms"] = time_ms(
+        lambda: torch.matmul(Xpq, cases["pq"][1].T), [()], 10)
+    del Xpq
     for p, chk in out["probe"].items():
         log(f"probe_centroids nq={nq} k={k} d={d} p={p}: {json.dumps(chk)}")
     log(f"probe_centroids nq={b} (one served batch) k={k} d={d} p={pb}: "
         f"{json.dumps(out['probe_batch'])}")
-    for m, chk in out["assign"].items():
-        log(f"assign_centroids n={m} k={k} d={d}: {json.dumps(chk)}")
+    for key, chk in out["assign"].items():
+        log(f"assign_centroids {key}: {json.dumps(chk)}")
     log(f"centroid yardstick: torch.matmul(X, C.T) alone (no selection): "
         f"{mm:.4f} ms at n={nq}; {mm_1m:.3f} ms at n={n} (one {rows}-row "
         f"chunk timed, scaled by n/{rows})")
@@ -1571,11 +1642,12 @@ def check_pairwise_sq(X):
         caught = {name: pair_errors(bad, want, Xb)[2]
                   for name, bad in faults.items()}
         del faults, Xf
+        sym = torch.equal(g, g.mT)
         chk = dict(shape=f"B={B} m={m} d={d} {str(Xb.dtype)[6:]}",
                    max_abs_err=err, max_err_over_limit=ratio,
-                   finite_nonneg=sane, symmetric_exact=torch.equal(g, g.mT),
+                   finite_nonneg=sane, symmetric_exact=sym,
                    fault_frac_over=caught,
-                   ok=ratio <= 1.0 and sane and all(
+                   ok=ratio <= 1.0 and sane and sym and all(
                        v > 0.5 for v in caught.values()))
         del g, want
         chk["ms"] = time_ms(lambda: ops.pairwise_sq(Xb), [()], 40)
@@ -1600,7 +1672,7 @@ def check_pairwise_sq(X):
     # device time per launch, traced after all the event timings above
     for key, Xb in shapes.items():
         out["shapes"][key]["device_us"] = kernel_device_us(
-            lambda: ops.pairwise_sq(Xb), [()], "pairwise_sq_kernel")
+            lambda: ops.pairwise_sq(Xb), [()], PAIR_KERNELS)
     for key, chk in out["shapes"].items():
         log(f"pairwise_sq[{key}]: {json.dumps(chk)}")
     out["ok"] = path_ok and all(c["ok"] for c in out["shapes"].values())
@@ -1625,9 +1697,8 @@ def profile_serving(index, Q, label="f32", **search_kw):
 
 def _short(name: str) -> str:
     for key in ("gather_score_kernel", "refine_merge_kernel",
-                *PROBE_KERNELS, "assign_kernel", *SCAN_KERNELS,
-                *ADC_KERNELS, *GROUPED_KERNELS,
-                "pairwise_sq_kernel"):
+                *PROBE_KERNELS, *ASSIGN_KERNELS, *SCAN_KERNELS,
+                *ADC_KERNELS, *GROUPED_KERNELS, *PAIR_KERNELS):
         if key in name:
             return key
     return name if len(name) <= 70 else name[:67] + "..."
@@ -1821,8 +1892,8 @@ def main() -> int:
     sel = (f"vs plain: |d2 err| <= {DIST_RTOL:g}*(||x||²+||c||²) per slot, "
            "-1/+inf pattern exact, ids equal but at near-ties; planted "
            "faults fail")
-    nq, n1m = SERVE["nq"], c["n"]
-    pr, asg, s16 = ca["probe"][16], ca["assign"][nq], sc[16]
+    nq = SERVE["nq"]
+    pr, asg, s16 = ca["probe"][16], ca["assign"]["n10k"], sc[16]
     kernels += [
         dict(name="probe_centroids", route="cuda",
              source="src/repro_torch/kernels/csrc/centroid_assign.cu",
@@ -1848,20 +1919,30 @@ def main() -> int:
              near_tie_slots={p: v["near_tie_slots"]
                              for p, v in ca["probe"].items()}, check=sel),
         dict(name="assign_centroids", route="cuda",
-             source="src/repro_torch/kernels/csrc/centroid_assign.cu",
+             source="src/repro_torch/kernels/csrc/assign_centroids.cu",
              replaces="src/repro/kernels/centroid_assign.py:189",
-             launches=launches["assign_centroids"],
+             launches=launches["assign_centroids"], launches_note=split_note,
              max_abs_err=max(v["max_abs_err"] for v in ca["assign"].values()),
              ms=asg["ms"], plain_ms=asg["plain_ms"], bound_ms=asg["bound_ms"],
-             bound_by=asg["bound_by"], library_ms=None,
-             shape=f"n={nq} k={k2} d=128", device_us=asg["device_us"],
-             mm_ms=ca["mm_ms"], n1m_ms=ca["assign"][n1m]["ms"],
-             n1m_plain_ms=ca["assign"][n1m]["plain_ms"],
-             n1m_bound_ms=ca["assign"][n1m]["bound_ms"],
-             n1m_device_us=ca["assign"][n1m]["device_us"],
-             n1m_mm_ms=ca["mm_1m_ms"],
-             near_tie_slots={m: v["near_tie_slots"]
-                             for m, v in ca["assign"].items()}, check=sel),
+             bound_by=asg["bound_by"], bound_fp32_ms=asg["bound_fp32_ms"],
+             bound_note="f32 products at the 3xTF32 rate (495/3 TFLOP/s); "
+                        "bound_fp32_ms at the 67 TFLOP/s FP32 rate",
+             library_ms=None, shape=f"n={nq} k={k2} d=128",
+             device_us=asg["device_us"], split_plan=asg["plan"],
+             s1_bit_equal=asg["s1_bit_equal"],
+             fault_tf32_inputs_fails=asg["fault_tf32_inputs_fails"],
+             mm_ms=ca["mm_ms"],
+             n1m={key: ca["assign"]["n1m"][key] for key in (
+                 "ms", "plain_ms", "bound_ms", "bound_fp32_ms", "device_us",
+                 "max_abs_err", "plan")} | {"mm_ms": ca["mm_1m_ms"]},
+             pq_training={key: ca["assign"]["pq"][key] for key in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "bound_fp32_ms",
+                 "device_us", "max_abs_err", "plan", "mm_ms")}
+             | {"shape": "n=1010000 k=256 d=16"},
+             near_tie_slots={key: v["near_tie_slots"]
+                             for key, v in ca["assign"].items()},
+             check=sel + "; the TF32-rounded-input fault fails; S = 1 and "
+                         "the card's plan bit-equal"),
         dict(name="ivf_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/ivf_scan.cu",
              replaces="src/repro/kernels/ivf_scan.py:64",
@@ -1957,7 +2038,8 @@ def main() -> int:
             "bmm_ms", "baddbmm_ms", "max_abs_err", "max_err_over_limit")}
             for key, v in pws.items() if key != "sift1m"},
         check=f"vs plain: |err| <= {PAIR_RTOL:g}*(||x_i||²+||x_j||²) per "
-              "element, finite and >= 0; planted faults fail"))
+              "element, finite and >= 0, D[b] exactly symmetric; planted "
+              "faults fail"))
     log(f"total {time.perf_counter() - t_all:.1f} s; failures: {failures}")
     if failures:
         return 1

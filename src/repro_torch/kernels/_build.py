@@ -10,9 +10,7 @@ into ``kernels/build/`` (git-ignored), at first use.  The file name carries a
 hash of the sources and flags, so an edited kernel rebuilds and an unchanged
 one loads at once; ``ptxas``'s register and spill report is kept beside it
 as ``<name>-<hash>.log``.  ``build()`` starts one ``nvcc`` per source, all at
-once, and waits for them: seven sources, eight kernels.
-``csrc/centroid_assign.cu`` holds two kernels (``assign_centroids`` and
-``probe_centroids``); every other source one.
+once, and waits for them: eight sources, eight kernels.
 ``csrc/common.cuh`` holds the helpers they share (warp sums, row loads, the
 sorted top-k list of the scans, ``cp.async`` copies, and the merge pass of
 the split kernels).  Nothing here runs at import: the CPU
@@ -21,8 +19,9 @@ tests import every module, on machines that may have no ``nvcc``.
 Every wrapper launches through ``launch``, which makes the tensors' device
 current, takes its current stream, raises on a failed launch and only then
 adds one to the kernel's entry of ``launch_counts``.  The counts are
-wrapper calls: the split kernels (``probe_centroids``, ``ivf_scan``,
-``ivf_scan_grouped``) make one or two device launches per call (a partial
+wrapper calls: the split kernels (``probe_centroids``,
+``assign_centroids``, ``ivf_scan``, ``ivf_scan_adc``, ``ivf_scan_grouped``)
+make one or two device launches per call (a partial
 pass, and a merge pass when the split plan cuts the work into more than one
 chunk).
 """
@@ -40,8 +39,9 @@ from typing import Dict, Iterable, Optional
 
 import torch
 
-SOURCES = ("gather_score", "refine_merge", "centroid_assign", "ivf_scan",
-           "ivf_scan_adc", "ivf_scan_grouped", "pairwise_sq")
+SOURCES = ("gather_score", "refine_merge", "centroid_assign",
+           "assign_centroids", "ivf_scan", "ivf_scan_adc", "ivf_scan_grouped",
+           "pairwise_sq")
 KERNELS = ("gather_score", "refine_merge", "probe_centroids",
            "assign_centroids", "ivf_scan", "ivf_scan_adc", "ivf_scan_grouped",
            "pairwise_sq")

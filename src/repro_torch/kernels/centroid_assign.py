@@ -1,21 +1,20 @@
-"""Wrappers of the hand-written CUDA ``assign_centroids`` and
-``probe_centroids`` kernels.
+"""Wrapper of the hand-written CUDA ``probe_centroids`` kernel.
 
-Counterparts of ``repro.kernels.centroid_assign`` (the Pallas TPU kernels).
-The kernels (``csrc/centroid_assign.cu``) compute FP32 register-blocked
-products of row tiles of X against centroid tiles without materialising the
-(n, k) distance matrix.  ``assign_centroids`` streams all centroids past
-each 128-row tile and keeps a running (min, argmin) per row.
-``probe_centroids`` splits and merges: ``split_plan`` picks a row tile (64
-or 128 rows) and cuts the centroids into S chunks, pass 1 runs one CTA per
-(row tile, chunk) and keeps that chunk's sorted top-p per row, and, when
-S > 1, pass 2 merges the S partial lists of each row in chunk order (the
-earlier chunk first among equal values, so ties keep the lower centroid
-index, exactly as one pass over all centroids).  These wrappers
-check their inputs, hoist ``||c||²`` and ``||x||²`` once per call, allocate
-the outputs and the probe's scratch, and launch on the current stream.  They
-take CUDA tensors only: CPU tensors go to ``kernels.ref`` through
-``kernels.ops``.
+Counterpart of ``repro.kernels.centroid_assign.probe_centroids`` (the Pallas
+TPU kernel).  The kernel (``csrc/centroid_assign.cu``) computes FP32
+register-blocked products of row tiles of X against centroid tiles without
+materialising the (n, k) distance matrix, and splits and merges:
+``split_plan`` picks a row tile (64 or 128 rows) and cuts the centroids into
+S chunks, pass 1 runs one CTA per (row tile, chunk) and keeps that chunk's
+sorted top-p per row, and, when S > 1, pass 2 merges the S partial lists of
+each row in chunk order (the earlier chunk first among equal values, so
+ties keep the lower centroid index, exactly as one pass over all
+centroids).  The wrapper checks its inputs, hoists ``||c||²`` and
+``||x||²`` once per call, allocates the outputs and the scratch, and
+launches on the current stream.  It takes CUDA tensors only: CPU tensors go
+to ``kernels.ref`` through ``kernels.ops``.  ``assign_centroids`` (the
+nearest centroid alone) has its own kernel and wrapper,
+``kernels.assign_centroids``.
 """
 from __future__ import annotations
 
@@ -114,28 +113,6 @@ def _check(X: torch.Tensor, C: torch.Tensor) -> Tuple[int, int, int]:
 
 def _norms(X: torch.Tensor, C: torch.Tensor):
     return (C * C).sum(-1), (X * X).sum(-1)
-
-
-def assign_centroids(X: torch.Tensor, C: torch.Tensor
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(assign (n,) int32, d2 (n,) f32), computed by the CUDA kernel.
-
-    X (n, d) f32 and C (k, d) f32, contiguous on one CUDA device, k >= 1.
-    assign is the first minimum of ``||c||² − 2x·c`` (ties to the lower
-    index); d2 = ``max(min + ||x||², 0)``.
-    """
-    n, k, d = _check(X, C)
-    if k < 1:
-        raise ValueError("need at least one centroid")
-    csq, xsq = _norms(X, C)
-    out_i = torch.empty((n,), dtype=torch.int32, device=X.device)
-    out_d = torch.empty((n,), dtype=torch.float32, device=X.device)
-    if n == 0:
-        return out_i, out_d
-    _build.launch("assign_centroids", _fn("assign_centroids_launch", 6, 3),
-                  X.device, X.data_ptr(), C.data_ptr(), csq.data_ptr(),
-                  xsq.data_ptr(), out_i.data_ptr(), out_d.data_ptr(), n, k, d)
-    return out_i, out_d
 
 
 def probe_centroids(X: torch.Tensor, C: torch.Tensor, p: int

@@ -1,35 +1,22 @@
-// centroid_assign: nearest centroid (assign) and top-p nearest centroids
-// (probe) of every row of X.
+// centroid_assign: the top-p nearest centroids (probe) of every row of X.
 //
-// Replaces the TPU kernels src/repro/kernels/centroid_assign.py
-// ::assign_centroids (Pallas; pl.pallas_call at :200, body _kernel at :26)
-// and ::probe_centroids (pl.pallas_call at :118, body _probe_kernel at :74
-// with the in-kernel _select_topk at :52).  Same functions: for each row x
-// the partial distance part_j = ||c_j||² − 2 x·c_j to every centroid, with
-// ||c||² hoisted once per call (the wrapper passes it), and
-//   assign: the first minimum (lowest index among equal partials),
-//   probe:  the p smallest partials ascending, ties to the lower index,
-// then d2 = max(part + ||x||², 0) in that op order.  The reference's order:
-// the running list comes before each new centroid tile and a new candidate
-// replaces an entry only when strictly smaller (centroid_assign.py:93-98).
+// Replaces the TPU kernel src/repro/kernels/centroid_assign.py
+// ::probe_centroids (Pallas; pl.pallas_call at :118, body _probe_kernel at
+// :74 with the in-kernel _select_topk at :52).  Same function: for each row
+// x the partial distance part_j = ||c_j||² − 2 x·c_j to every centroid,
+// with ||c||² hoisted once per call (the wrapper passes it), the p smallest
+// partials ascending, ties to the lower index, then d2 = max(part + ||x||²,
+// 0) in that op order.  The reference's order: the running list comes
+// before each new centroid tile and a new candidate replaces an entry only
+// when strictly smaller (centroid_assign.py:93-98).  (The nearest centroid
+// alone, assign_centroids, is csrc/assign_centroids.cu.)
 //
 // Bound on an H100 SXM: the products.  n·k·d FMAs (2·n·k·d flops) against
-// (n + k)·d·4 bytes: at n = 10,000, k = 16,384, d = 128 that is 41.9 GFLOP
-// (0.63 ms at the 67 TFLOP/s f32 rate) against 14 MB (4 us); a served batch
-// of 64 rows is 268 MFLOP (4 us) against 8.4 MB (2.5 us).  TF32 tensor
-// cores would be 7x faster but round the inputs to 10 mantissa bits, and
-// the ranking depends on full f32, so both kernels stay on FP32 FMAs.
-//
-// assign: a classic register-blocked SGEMM.  A CTA of 256 threads owns 128
-// rows of X and walks all centroids in tiles of 128, depth 8 at a time; each
-// thread accumulates an 8x8 block of dots in registers from float4 reads of
-// the two transposed shared-memory tiles, and the next depth slice is loaded
-// into registers while the current one is multiplied (two shared buffers).
-// After the last depth slice of a centroid tile each thread folds its 8x8
-// partials into a running (min, index) per row in registers; at the end the
-// 16 threads of a row reduce by (value, index) with shuffles.  At n = 10^6
-// that is 7,813 CTAs, many waves, so one pass over all centroids per CTA
-// keeps the card full.
+// (n + k)·d·4 bytes: a served batch of 64 rows at k = 16,384, d = 128 is
+// 268 MFLOP (4 us at the 67 TFLOP/s f32 rate) against 8.4 MB (2.5 us).
+// TF32 tensor cores would be 7x faster but round the inputs to 10 mantissa
+// bits, and the ranking depends on full f32, so the products stay on FP32
+// FMAs.
 //
 // probe: split and merge.  A served batch is 64 rows, so a CTA per row tile
 // walking all k centroids would put the whole call on one SM of 132.  The
@@ -42,8 +29,7 @@
 //     flight while one is multiplied), transposed on the way in (4-byte
 //     copies, sixteen threads to a row's 64 contiguous bytes) so that thread
 //     (ty, tx) reads its TM rows and 8 centroids of one depth as float4s
-//     and accumulates a TM x 8 block of FP32 FMAs, as the assign kernel
-//     does.  After a tile's last slice its partials go through shared
+//     and accumulates a TM x 8 block of FP32 FMAs.  After a tile's last slice its partials go through shared
 //     memory half a tile (64 centroids) at a time, and each warp folds its
 //     rows into their sorted top-p lists (merge_tile_row: the candidates
 //     below the row's p-th entry are ranked against each other and the list
@@ -64,7 +50,7 @@
 // one.  So the lists equal a single pass's bit for bit, for any S.
 // Ragged n, k and d are zero-filled by the copies and masked in the epilogue
 // (columns past the chunk or k are never candidates).  p <= 128 (kMaxP).
-// Both kernels launch on the caller's stream and allocate nothing.
+// Both passes launch on the caller's stream and allocate nothing.
 
 #include <limits.h>
 #include <math.h>
@@ -77,137 +63,10 @@ using repro_torch::kFullMask;
 
 constexpr int kMaxP = 128;
 
-// ------------------------------------------------------------------ assign
-
-constexpr int BM = 128;           // rows of X per CTA
-constexpr int BN = 128;           // centroids per tile
-constexpr int BK = 8;             // depth per shared-memory slice
-constexpr int kThreads = 256;
-
 // Thread t holds rows/cols {4*g + i, 64 + 4*g + i : i < 4} of the tile, with
 // g = t / 16 for rows and t % 16 for columns.
 __device__ __forceinline__ int sub(int g, int i) {
   return i < 4 ? 4 * g + i : 64 + 4 * g + (i - 4);
-}
-
-// Thread t loads row r0 + t/2, depth e0 + 4*(t%2) .. +3 of M (rows x d),
-// zeros outside.  kVec: d % 4 == 0 and M 16-byte aligned.
-template <bool kVec>
-__device__ __forceinline__ float4 load_slice(const float* __restrict__ M,
-                                             int rows, int d, int r0,
-                                             int e0) {
-  const int r = r0 + (threadIdx.x >> 1);
-  const int e = e0 + (threadIdx.x & 1) * 4;
-  if (r >= rows) return make_float4(0.f, 0.f, 0.f, 0.f);
-  return repro_torch::load4<kVec>(M + (size_t)r * d, e, d);
-}
-
-__device__ __forceinline__ void store_slice(float (*S)[BM], float4 v) {
-  const int r = threadIdx.x >> 1, e = (threadIdx.x & 1) * 4;
-  S[e + 0][r] = v.x;
-  S[e + 1][r] = v.y;
-  S[e + 2][r] = v.z;
-  S[e + 3][r] = v.w;
-}
-
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads, 2)
-assign_kernel(const float* __restrict__ X, const float* __restrict__ C,
-              const float* __restrict__ csq, const float* __restrict__ xsq,
-              int* __restrict__ out_i, float* __restrict__ out_d, int n,
-              int k, int d) {
-  __shared__ __align__(16) float As[2][BK][BM];
-  __shared__ __align__(16) float Bs[2][BK][BN];
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int r0 = blockIdx.x * BM;
-  const int nE = (d + BK - 1) / BK;
-  const int steps = nE * ((k + BN - 1) / BN);
-
-  float best[8];
-  int bidx[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) { best[i] = INFINITY; bidx[i] = INT_MAX; }
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  float4 pa = load_slice<kVec>(X, n, d, r0, 0);
-  float4 pb = load_slice<kVec>(C, k, d, 0, 0);
-  store_slice(As[0], pa);
-  store_slice(Bs[0], pb);
-  __syncthreads();
-
-  for (int s = 0; s < steps; ++s) {
-    const int buf = s & 1;
-    const int jt = s / nE, ec = s - jt * nE;
-    const bool more = s + 1 < steps;
-    if (more) {
-      const int jt1 = (s + 1) / nE, ec1 = (s + 1) - jt1 * nE;
-      pa = load_slice<kVec>(X, n, d, r0, ec1 * BK);
-      pb = load_slice<kVec>(C, k, d, jt1 * BN, ec1 * BK);
-    }
-#pragma unroll
-    for (int e = 0; e < BK; ++e) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][e][4 * ty]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[buf][e][64 + 4 * ty]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][e][4 * tx]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[buf][e][64 + 4 * tx]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    if (more) {  // buf^1 was last read before the barrier ending step s-1
-      store_slice(As[buf ^ 1], pa);
-      store_slice(Bs[buf ^ 1], pb);
-    }
-    if (ec == nE - 1) {  // centroid tile jt complete: fold it in
-      const int c0 = jt * BN;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = c0 + sub(tx, j);
-        if (col < k) {
-          const float c2 = csq[col];
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const float v = c2 - 2.f * acc[i][j];
-            if (v < best[i] || (v == best[i] && col < bidx[i])) {
-              best[i] = v;
-              bidx[i] = col;
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float v = best[i];
-    int b = bidx[i];
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) {  // the 16 threads sharing the row
-      const float ov = __shfl_xor_sync(kFullMask, v, o);
-      const int ob = __shfl_xor_sync(kFullMask, b, o);
-      if (ov < v || (ov == v && ob < b)) { v = ov; b = ob; }
-    }
-    const int row = r0 + sub(ty, i);
-    if (tx == 0 && row < n) {
-      out_i[row] = b == INT_MAX ? -1 : b;
-      out_d[row] = b == INT_MAX ? INFINITY : fmaxf(v + xsq[row], 0.f);
-    }
-  }
 }
 
 // ------------------------------------------------------------------- probe
@@ -215,7 +74,7 @@ assign_kernel(const float* __restrict__ X, const float* __restrict__ C,
 // Pass-1 tiles: 256 threads, thread (ty, tx) = (t / 16, t % 16) holds rows
 // sub(ty, i) (i < TM) of a (16·TM)-row tile (TM = 4: 64 rows for small n,
 // TM = 8: 128 rows) and centroids sub(tx, j) (j < 8) of a PN = 128 tile,
-// as the assign kernel does; the slices sit in shared memory depth-major
+// (the register-blocked layout of a classic SGEMM); the slices sit in shared memory depth-major
 // (transposed), so each thread reads its rows and centroids of one depth as
 // float4s.
 constexpr int PN = 128;                // centroids per tile
@@ -507,38 +366,16 @@ cudaError_t allow_smem(const void* kern, size_t smem) {
                               (int)smem);
 }
 
-bool vec_ok(int d, const void* X, const void* C) {
-  return d % 4 == 0 && repro_torch::aligned16(X) && repro_torch::aligned16(C);
-}
-
 }  // namespace
 
-// C interface, loaded with ctypes.  Each returns the cudaError_t of its
-// launches (0 = success; -1 for invalid arguments).  Device pointers of
-// contiguous tensors: X (n, d) f32, C (k, d) f32, csq (k,) f32 = ||C_j||²,
-// xsq (n,) f32 = ||X_i||².
-//   assign: out_i (n,) i32 nearest centroid, out_d (n,) f32 its d2.
-//   probe:  out_i (n, p) i32 ascending, out_d (n, p) f32; 1 <= p <=
-//           min(k, 128).  Row tiles of rows = 64 or 128; the centroids are
-//           cut into splits = ceil(k / chunk) chunks (chunk >= 1); with
-//           splits > 1, part_v (n, splits,
-//           p) f32 and part_i (n, splits, p) i32 are scratch for the partial
-//           lists and a second launch merges them.
-extern "C" int assign_centroids_launch(const void* X, const void* C,
-                                       const void* csq, const void* xsq,
-                                       void* out_i, void* out_d, int n,
-                                       int k, int d, void* stream) {
-  if (n <= 0) return 0;
-  cudaGetLastError();  // clear a stale error so the result below is ours
-  auto kern = vec_ok(d, X, C) ? assign_kernel<true> : assign_kernel<false>;
-  kern<<<dim3((n + BM - 1) / BM), dim3(kThreads), 0,
-         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(X), static_cast<const float*>(C),
-      static_cast<const float*>(csq), static_cast<const float*>(xsq),
-      static_cast<int*>(out_i), static_cast<float*>(out_d), n, k, d);
-  return static_cast<int>(cudaGetLastError());
-}
-
+// C interface, loaded with ctypes.  Returns the cudaError_t of its launches
+// (0 = success; -1 for invalid arguments).  Device pointers of contiguous
+// tensors: X (n, d) f32, C (k, d) f32, csq (k,) f32 = ||C_j||², xsq (n,)
+// f32 = ||X_i||²; out_i (n, p) i32 ascending, out_d (n, p) f32; 1 <= p <=
+// min(k, 128).  Row tiles of rows = 64 or 128; the centroids are cut into
+// splits = ceil(k / chunk) chunks (chunk >= 1); with splits > 1, part_v
+// (n, splits, p) f32 and part_i (n, splits, p) i32 are scratch for the
+// partial lists and a second launch merges them.
 extern "C" int probe_centroids_launch(const void* X, const void* C,
                                       const void* csq, const void* xsq,
                                       void* out_i, void* out_d, void* part_v,

@@ -12,6 +12,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import assign_centroids as _ac
 from repro_torch.kernels import centroid_assign as _ca
 from repro_torch.kernels import gather_score as _gs
 from repro_torch.kernels import ivf_scan as _ivf
@@ -55,7 +56,7 @@ def assign_centroids(X: torch.Tensor, C: torch.Tensor, *,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(n, d) x (k, d) -> nearest centroid (assign (n,), d2 (n,))."""
     if _use_kernel(X, force):
-        return _ca.assign_centroids(X, C)
+        return _ac.assign_centroids(X, C)
     return _ref.assign_centroids(X, C)
 
 

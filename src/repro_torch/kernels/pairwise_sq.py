@@ -1,12 +1,15 @@
 """Wrapper of the hand-written CUDA ``pairwise_sq`` kernel.
 
 Counterpart of ``repro.kernels.pairwise_topk.pairwise_sq`` (the Pallas TPU
-kernel).  The kernel (``csrc/pairwise_sq.cu``) computes each cluster's
-(m, m) squared-L2 matrix in 64x64 tiles, one CTA per (cluster, tile), with
-register-blocked FP32 products and the row norms taken in the same d loop.
-This wrapper checks its input, allocates the output and launches on the
-current stream.  It takes CUDA tensors only: CPU tensors go to
-``kernels.ref.pairwise_sq`` through ``kernels.ops``.
+kernel).  The kernel (``csrc/pairwise_sq.cu``) runs one CTA per cluster and
+unordered pair of 64-row tiles (``tile_pair``), computes each element of
+the symmetric (m, m) matrix once and writes it to both of its places:
+float32 input on FP32 FMAs in 8x8 register blocks (no TF32), bfloat16 input
+on the tensor cores (``mma.sync``; bf16 products are exact in f32), row
+norms summed from the staged rows.  This wrapper checks its input,
+allocates the output and launches on the current stream.  It takes CUDA
+tensors only: CPU tensors go to ``kernels.ref.pairwise_sq`` through
+``kernels.ops``.
 """
 from __future__ import annotations
 
@@ -17,7 +20,26 @@ import torch
 from repro_torch.kernels import _build
 
 TILE = 64                # output tile edge of the kernel (csrc/pairwise_sq.cu)
-INT_MAX = 2**31 - 1      # gridDim.x takes B * ceil(m / TILE)**2; d is a C int
+INT_MAX = 2**31 - 1      # gridDim.x takes B * pair_count(nt) <= B * nt**2;
+                         # d is a C int
+
+
+def pair_count(nt: int) -> int:
+    """Unordered tile pairs (ti <= tj) of nt tiles: the CTAs a cluster
+    takes."""
+    return nt * (nt + 1) // 2
+
+
+def tile_pair(p: int, nt: int):
+    """The pair (ti, tj), ti <= tj, of linear index p: row-major over the
+    upper triangle, as ``pair_of`` in ``csrc/pairwise_sq.cu`` (which also
+    maps a diagonal tile's 8x8 blocks, nt = 8, and the bf16 path's 16x16
+    blocks, nt = 4)."""
+    ti = 0
+    while p >= nt - ti:
+        p -= nt - ti
+        ti += 1
+    return ti, ti + p
 
 
 def _fn():

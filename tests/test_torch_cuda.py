@@ -271,6 +271,81 @@ def test_assign_centroids_kernel_matches_plain(dev, n, k, d):
                 _pair_scale(X, C, wa[:, None]))
 
 
+@pytest.mark.parametrize("n", [1, 129, 10_000])
+@pytest.mark.parametrize("k", [1, 7, 256, 16_384])
+@pytest.mark.parametrize("d", [4, 16, 37, 128])
+def test_assign_centroids_tc_kernel_grid(dev, n, k, d):
+    """The 3xTF32 kernel over K padded to 8 (d = 4, 37), PQ's d = 16, one
+    centroid, a partial tile, the 64-row tiles (k <= 256) and 128-row ones,
+    one row, a ragged row tile and an ``add`` batch."""
+    X, C = _centroid_case(n, k, d, n + k + d, dev)
+    ga, gd = ops.assign_centroids(X, C)
+    wa, wd = ops.assign_centroids(X, C, force="ref")
+    torch.cuda.synchronize()
+    assert bool(((ga >= 0) & (ga < k)).all())
+    _assert_sel((ga[:, None], gd[:, None]), (wa[:, None], wd[:, None]),
+                _pair_scale(X, C, wa[:, None]))
+
+
+def _assign_at(monkeypatch, sms, X, C):
+    """ops.assign_centroids with the split plan computed for ``sms``
+    SMs."""
+    monkeypatch.setattr(_build, "sm_count", lambda i: sms)
+    try:
+        return ops.assign_centroids(X, C)
+    finally:
+        monkeypatch.undo()
+
+
+def _device_launches(fn, names, tries=5):
+    """Device launches of the kernels ``names`` in one call of ``fn``, from
+    a torch.profiler trace (retaken when a trace comes back empty)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    count = 0
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        count = sum(1 for ev in prof.events()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA
+                    and any(name in ev.name for name in names))
+        if count:
+            break
+    return count
+
+
+@pytest.mark.parametrize("n,k,d", [(10_000, 16_384, 128), (300, 1000, 37),
+                                   (129, 256, 16), (200, 700, 4)])
+def test_assign_centroids_split_bit_equal(dev, monkeypatch, n, k, d):
+    """S = 1 (plan for 1 SM), the card's own plan and S forced high (plan
+    for 10,000 SMs): ids and d2 equal bit for bit, and match the plain
+    version; one device launch a call at S = 1, two when the plan splits
+    (pass 1 and the merge), one wrapper call counted either way."""
+    from repro_torch.kernels.assign_centroids import split_plan
+    X, C = _centroid_case(n, k, d, n * 3 + d, dev)
+    assert split_plan(n, k, 1).splits == 1
+    assert split_plan(n, k, 10_000).splits > 1
+    before = _build.launch_counts["assign_centroids"]
+    outs = [_assign_at(monkeypatch, sms, X, C)
+            for sms in (1, _sms(), 10_000)]
+    torch.cuda.synchronize()
+    assert _build.launch_counts["assign_centroids"] == before + 3
+    for got in outs[1:]:
+        assert torch.equal(got[0], outs[0][0])
+        assert torch.equal(got[1], outs[0][1])
+    wa, wd = ops.assign_centroids(X, C, force="ref")
+    _assert_sel((outs[0][0][:, None], outs[0][1][:, None]),
+                (wa[:, None], wd[:, None]), _pair_scale(X, C, wa[:, None]))
+    names = ("assign_tc_kernel", "assign_merge_kernel")
+    for sms in (1, 10_000):
+        splits = split_plan(n, k, sms).splits
+        got = _device_launches(lambda: _assign_at(monkeypatch, sms, X, C),
+                               names)
+        assert got == 1 + (splits > 1), (sms, splits, got)
+
+
 @pytest.mark.parametrize("n,k,d,p", [(300, 77, 128, 16), (129, 200, 37, 64),
                                      (257, 300, 24, 128), (10, 5, 8, 5)])
 def test_probe_centroids_kernel_matches_plain(dev, n, k, d, p):

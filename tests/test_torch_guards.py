@@ -139,6 +139,7 @@ def test_sparse_updates_is_the_plain_scatter_on_one_device():
 
 
 def test_ivf_kernel_wrappers_reject_cpu_tensors():
+    from repro_torch.kernels import assign_centroids as kac
     from repro_torch.kernels import centroid_assign as kca
     from repro_torch.kernels import ivf_scan as kivf
     from repro_torch.kernels import ivf_scan_adc as kadc
@@ -146,7 +147,7 @@ def test_ivf_kernel_wrappers_reject_cpu_tensors():
     X, C = torch.randn(8, 16), torch.randn(5, 16)
     before = dict(kca._build.launch_counts)
     with pytest.raises(ValueError, match="CPU tensors dispatch"):
-        kca.assign_centroids(X, C)
+        kac.assign_centroids(X, C)
     with pytest.raises(ValueError, match="CPU tensors dispatch"):
         kca.probe_centroids(X, C, 2)
     pids = torch.zeros(16, dtype=torch.int32)
@@ -347,6 +348,7 @@ def test_every_wrapper_launches_through_the_guard(monkeypatch):
     the library, so that the CPU can follow a wrapper to its launch), and
     no wrapper takes a stream or counts a launch itself."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels import assign_centroids as kac
     from repro_torch.kernels import centroid_assign as kca
     from repro_torch.kernels import ivf_scan as kivf
     from repro_torch.kernels import ivf_scan_adc as kadc
@@ -369,7 +371,7 @@ def test_every_wrapper_launches_through_the_guard(monkeypatch):
         lambda: kgs.gather_score(x, u, cand, D, cnt),
         lambda: krm.refine_merge(x, cand, cand, cand, torch.zeros(8, 4), D),
         lambda: kca.probe_centroids(X, C, 2),
-        lambda: kca.assign_centroids(X, C),
+        lambda: kac.assign_centroids(X, C),
         lambda: kivf.ivf_scan(X, torch.zeros(16, 16), pids, tm,
                               block_rows=8),
         lambda: kadc.ivf_scan_adc(torch.zeros(8, 4, 256), torch.zeros(8),

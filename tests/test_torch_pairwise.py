@@ -106,3 +106,62 @@ def test_pairwise_sq_nonnegative_and_symmetric(bf16):
     sq = (xf.astype(np.float64) ** 2).sum(-1)
     assert (np.diagonal(got, axis1=1, axis2=2) <= RTOL * 2 * sq).all()
     assert got[1, 7, 3] <= RTOL * 2 * sq[1, 3]
+
+
+# ------------------------------------------------------- the kernel's plan
+#
+# The CUDA kernel (``csrc/pairwise_sq.cu``) runs one CTA per cluster and
+# unordered pair of 64-row tiles, computes each element once and writes it
+# to both of its places.  These tests hold its host-side map and its sums,
+# emulated in torch, against the JAX package.
+
+@pytest.mark.parametrize("nt", range(1, 9))
+def test_tile_pair_map_enumerates_every_unordered_pair_once(nt):
+    from repro_torch.kernels import pairwise_sq as kpw
+    pairs = [kpw.tile_pair(p, nt) for p in range(kpw.pair_count(nt))]
+    assert len(pairs) == nt * (nt + 1) // 2
+    assert sorted(pairs) == [(i, j) for i in range(nt)
+                             for j in range(i, nt)]
+    assert all(0 <= i <= j < nt for i, j in pairs)
+
+
+def _emulate_pairwise(xt: torch.Tensor) -> torch.Tensor:
+    """The kernel's sums, emulated: each unordered pair (i <= j) once, then
+    mirrored.  f32: four partial dots over the 4-feature chunks c with
+    c % 4 == q, summed ((p0 + p1) + (p2 + p3)), the norms from the diagonal
+    of those dots (a diagonal tile pair takes them from its diagonal
+    blocks).  bf16: exact products summed in 16-feature k-steps in order,
+    the norms summed in feature order.  D = max(n_i + n_j − 2·dot, 0)."""
+    B, m, d = xt.shape
+    x = xt.float()
+    if xt.dtype == torch.bfloat16:
+        dots = torch.zeros((B, m, m))
+        for e in range(0, d, 16):
+            s = x[..., e:e + 16]
+            dots = dots + s @ s.mT
+        sq = torch.zeros((B, m))
+        for f in range(d):
+            sq = sq + x[..., f] * x[..., f]
+    else:
+        chunk = torch.arange(d) // 4
+        part = [torch.zeros((B, m, m)) for _ in range(4)]
+        for q in range(4):
+            s = x[..., chunk % 4 == q]
+            part[q] = s @ s.mT
+        dots = (part[0] + part[1]) + (part[2] + part[3])
+        sq = torch.diagonal(dots, dim1=1, dim2=2)
+    full = torch.clamp(sq[:, :, None] + sq[:, None, :] - 2.0 * dots, min=0.0)
+    upper = torch.triu(torch.ones((m, m), dtype=torch.bool))
+    tri = torch.where(upper, full, torch.zeros_like(full))
+    return tri + torch.where(upper.T & ~upper, tri.mT, torch.zeros_like(full))
+
+
+@pytest.mark.parametrize("B,m,d", [(3, 64, 128), (2, 48, 37), (1, 130, 64),
+                                   (4, 16, 8)])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_pairwise_emulation_symmetric_and_close_to_jax(B, m, d, bf16):
+    xj, xt, xf = _case(B, m, d, B * m + d + 7, bf16)
+    got = _emulate_pairwise(xt)
+    assert torch.equal(got, got.mT)                 # exactly symmetric
+    assert bool((got >= 0).all())
+    _assert_close(got.numpy(), jref.pairwise_sq(xj), xf)
