@@ -94,8 +94,32 @@ plain PyTorch version, or when any phase fails.  Phases:
    and for one served batch of 64 (8 groups, its split plan printed), each
    with planted faults (for the split kernels: the plan's last chunk
    dropped), and traces of a PQ, an int8 and a qgroup=8 batch loop;
-6. one JSON line of the kernels, the card's ``nvidia-smi`` line, and last
-   ``{"ok": true, "device": {...}}``.
+6. the paper's baselines and graph search on phase 4's data, each path a
+   counted run of its own (counts zeroed just before, read just after; its
+   seconds on the host clock, device synchronised at the edges): NN-Descent
+   (κ=50, 10 iterations, sample 100; recall@50 and recall_top1 on 1,000
+   sampled rows), KGraph + GK-means over that graph (k=10,000 -> 16,384,
+   20 iterations), Lloyd (k=10,000, k-means++ init timed apart, 30
+   iterations with the early stop), Mini-Batch (k=10,000, batch 1,024,
+   10·(n // 1,024) steps), full BKM over the dense source and the engine's
+   probe source (p=16, bkm), both k=16,384 from the 2M tree for 10 epochs
+   (the probe run's host syncs, under sync-debug mode, must be epochs + 1),
+   closure k-means (k=10,000 -> 16,384, 3 trees of leaf 32, 10 iterations)
+   and graph search over phase 4's GK-means graph (phase 5's 10,000
+   queries, topk=10, ef=32, 24 rounds; recall@10 against the exact top 10
+   of X); every kernel a path names must launch; then each kernel at these
+   paths' shapes against its plain version (``assign_centroids`` at
+   n=10^6, k=10,000; ``probe_centroids`` at B=1,024, k=16,384, p=16;
+   ``gather_score`` at C=17 and C=93; ``refine_merge`` at NN-Descent's
+   chunk, B=4,096, C=200), and at the SIFT_SMALL shape each path with a
+   kernel twice from equal generators, through the kernels and with
+   ``force="ref"``: NN-Descent's recall@κ within 0.02, final distortions
+   within 1%, Mini-Batch's final assignment against the plain
+   ``assign_centroids``;
+7. one JSON line of the baselines (each path's seconds, quality and
+   launches), one of the kernels (with each kernel's launches on the
+   baselines' paths and its numbers at their shapes), the card's
+   ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -301,12 +325,13 @@ def device_launches(fn, reps=10, tries=4):
 GIST = dict(d=960, k=10_000, n=200_000)  # GIST1M's width and k
 
 
-def check_gather_score(X, k, label="sift1m"):
-    """gather_score vs its plain version at B=1024, C=50, X's width, k."""
+def check_gather_score(X, k, label="sift1m", C=SIFT1M["kappa"]):
+    """gather_score vs its plain version at B=1024, C (default 50), X's
+    width, k."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.gather_score import layout
-    B, C = BATCH, SIFT1M["kappa"]
+    B = BATCH
     n, d = X.shape
     g = torch.Generator(device=DEV).manual_seed(SEED + 1)
     assign, D, cnt = score_state(X, k, g)
@@ -397,6 +422,18 @@ def check_gather_score(X, k, label="sift1m"):
                 ok=all(out[m]["ok"] for m in ("bkm", "lloyd")))
 
 
+def padded_copy(X):
+    """(X_pad, real_id): X padded to the partition build's k0·ξ rows at
+    SIFT1M's ξ, the phantom rows copies of random real rows."""
+    import torch
+    n, xi = X.shape[0], SIFT1M["xi"]
+    n_pad = (1 << (-(-n // xi) - 1).bit_length()) * xi
+    g = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    real_id = torch.cat([torch.arange(n, device=DEV), torch.randint(
+        0, n, (n_pad - n,), generator=g, device=DEV)])
+    return X[real_id], real_id
+
+
 def refine_inputs(X_pad, real_id, n, ysq, g, B, kappa, xi=64, spill=8,
                   twins=16):
     """One chunk of a build round's refine, made the way a round makes it.
@@ -452,17 +489,18 @@ def refine_ids_ok(gi, wi, wd, tol):
     return distinct and bool(((gi == wi) | explained).all())
 
 
-def check_refine_merge(X_pad, real_id, n):
-    """refine_merge vs its plain version at B=1024, C=136, κ=50, N."""
+def check_refine_merge(X_pad, real_id, n, B=BATCH, C=136):
+    """refine_merge vs its plain version at B (default 1024), C (default
+    136: a member-table column of 2ξ slots plus 8 spill rows), κ=50, N."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.refine_merge import source_norms
-    B, C, kappa = BATCH, 136, SIFT1M["kappa"]
+    kappa = SIFT1M["kappa"]
     N, d = X_pad.shape
     g = torch.Generator(device=DEV).manual_seed(SEED + 2)
     ysq = source_norms(X_pad)
-    sets = [refine_inputs(X_pad, real_id, n, ysq, g, B, kappa)
-            for _ in range(8)]
+    sets = [refine_inputs(X_pad, real_id, n, ysq, g, B, kappa,
+                          xi=(C - 8) // 2) for _ in range(8)]
     x, rows, cand, oi, od, _ = sets[0]
     gi, gd = ops.refine_merge(x, rows, cand, oi, od, X_pad, ysq=ysq)
     wi, wd = ops.refine_merge(x, rows, cand, oi, od, X_pad, ysq=ysq,
@@ -1760,6 +1798,330 @@ def profile_main_path(X, r):
         generator=torch.Generator().manual_seed(SEED + 7)))
 
 
+# --------------------------------------------------------------- phase 6
+
+# the paper's baselines (Fig. 4-6, Table 2) and graph search (§4.3) at
+# SIFT1M's shape, with the iteration counts of its figure scripts
+# (benchmarks/fig5_quality.py at full size) rather than the reference's
+# defaults
+BASE = dict(k=10_000, kappa=50, nnd_iters=10, nnd_sample=100,
+            nnd_chunk=4096, gk_iters=ITERS, lloyd_iters=30, mb_batch=1024, epochs=10,
+            probe_p=16, trees=3, leaf=32, closure_iters=10, topk=10, ef=32,
+            search_iters=24)
+DIST_TOL = 0.01         # kernels vs plain, final distortion (PERF.md §2)
+# each path's kernels: each must launch at least once in its counted run
+BASE_KERNELS = {"nn_descent": ("refine_merge",),
+                "kgraph_gk_means": ("gather_score",),
+                "lloyd": ("assign_centroids",),
+                "minibatch": ("assign_centroids",),
+                "bkm_dense": (),
+                "probe_source": ("probe_centroids", "gather_score"),
+                "closure": ("gather_score",),
+                "graph_search": ()}
+
+
+def counted(fn, syncs=False):
+    """One counted run of a path: (result, seconds, launches, host syncs).
+
+    Every launch count is zeroed just before ``fn`` and read just after;
+    seconds are host-clock with the device synchronised at both edges; host
+    syncs are those sync-debug mode reports inside ``fn`` (when ``syncs``)."""
+    import torch
+    from repro_torch.kernels import _build
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if syncs:
+            torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    nsync = sum("synchronizing CUDA operation" in str(w.message)
+                for w in caught)
+    return out, secs, launches, nsync
+
+
+def probe_run(X, assign0, k, force=None, seed=34):
+    """The probe source's path: ``engine.run`` in bkm mode from ``assign0``
+    with ``probe_source(p)``, all its epochs, then the final distortion
+    read (its last host sync).  Returns (history, final, host syncs the run
+    documents)."""
+    import torch
+    from repro_torch.core import engine
+    b = BASE
+    cfg = engine.EngineConfig(batch_size=BATCH, mode="bkm", iters=b["epochs"],
+                              min_move_frac=-1.0, force=force)
+    res = engine.run(X, engine.init_state(X, assign0, k),
+                     engine.probe_source(b["probe_p"]), cfg,
+                     generator=torch.Generator().manual_seed(SEED + seed))
+    return res.history, float(res.final), res.host_syncs + 1
+
+
+def baselines_small():
+    """Each baseline path with a kernel, at the SIFT_SMALL shape, twice from
+    equal generators: through the kernels and with ``force="ref"``.
+    NN-Descent's recall@κ within RECALL_TOL, every final distortion within
+    DIST_TOL, and Mini-Batch's final assignment against the plain
+    ``assign_centroids`` on the same centroids (``sel_check``)."""
+    import torch
+    from repro_torch.core import (closure_kmeans, gk_means, lloyd,
+                                  minibatch_kmeans, nn_descent)
+    from repro_torch.core.gkmeans import _tree_init
+    from repro_torch.core.objective import distortion
+    from repro_torch.data import sift_like
+    from repro_torch.kernels import ops, ref
+    c, b = SIFT_SMALL, BASE
+    n, k, kappa = c["n"], c["k"], c["kappa"]
+    X = sift_like(n, c["d"], COMPONENTS,
+                  generator=torch.Generator(device=DEV).manual_seed(SEED))
+    truth = sampled_truth(X, kappa, 2000, SEED + 3)
+    a0 = _tree_init(X, k, torch.Generator().manual_seed(SEED + 40))
+
+    def gen(s):
+        return torch.Generator().manual_seed(SEED + s)
+    runs, mb, graph = {}, None, None
+    for force in (None, "ref"):
+        t0 = time.perf_counter()
+        q = {}
+        g = nn_descent(X, kappa, iters=b["nnd_iters"], generator=gen(30),
+                       force=force, device=DEV)
+        q["nn_descent"] = recall_on(g.ids, truth, kappa)
+        # both GK-means runs take the kernels' graph: this path's kernel is
+        # gather_score (NN-Descent's is held on recall just above)
+        graph = g if force is None else graph
+        q["kgraph_gk_means"] = gk_means(
+            X, k, graph=graph, iters=b["gk_iters"], batch_size=BATCH,
+            generator=gen(31), force=force, device=DEV).distortion
+        q["lloyd"] = lloyd(X, k, iters=b["lloyd_iters"], generator=gen(32),
+                           force=force, device=DEV)[2][-1]
+        a, C = minibatch_kmeans(X, k, steps=10 * (n // b["mb_batch"]),
+                                batch_size=b["mb_batch"], generator=gen(33),
+                                force=force, device=DEV)
+        q["minibatch"] = float(distortion(X, a, k))
+        mb = (a, C) if force is None else mb
+        q["probe_source"] = probe_run(X, a0, k, force)[1]
+        q["closure"] = closure_kmeans(
+            X, k, iters=b["closure_iters"], trees=b["trees"], leaf=b["leaf"],
+            batch_size=BATCH, generator=gen(35), force=force,
+            device=DEV)[2][-1]
+        runs[force or "kernels"] = q
+        log(f"baselines SIFT_SMALL {force or 'kernels'}: {json.dumps(q)}, "
+            f"{time.perf_counter() - t0:.1f} s")
+    kq, rq = runs["kernels"], runs["ref"]
+    gaps = {p: abs(kq[p] - rq[p]) / (1.0 if p == "nn_descent" else rq[p])
+            for p in kq}
+    # Mini-Batch's final assignment (the kernel's) against the plain
+    # version on the kernel run's centroids
+    a, C = mb
+    ga = ops.assign_centroids(X, C)
+    wa = ref.assign_centroids(X, C)
+    scale = ((X * X).sum(-1) + (C * C).sum(-1)[wa[0].long()])[:, None]
+    sel = sel_check((ga[0][:, None], ga[1][:, None]),
+                    (wa[0][:, None], wa[1][:, None]), scale)
+    sel["same_as_path"] = torch.equal(ga[0], a)
+    checks = {p: gaps[p] <= (RECALL_TOL if p == "nn_descent" else DIST_TOL)
+              for p in gaps}
+    checks["minibatch_assign_vs_plain"] = sel["ok"] and sel["same_as_path"]
+    log(f"baselines SIFT_SMALL kernels vs plain: gaps {json.dumps(gaps)} "
+        f"(recall@{kappa} limit {RECALL_TOL}, distortion limit {DIST_TOL} "
+        f"relative); Mini-Batch assignment vs plain {json.dumps(sel)}; "
+        f"checks {json.dumps(checks)}")
+    return all(checks.values()), dict(kernels=kq, ref=rq, gaps=gaps,
+                                      minibatch_sel=sel)
+
+
+def check_path_shapes(X):
+    """The centroid kernels at the baselines' own shapes against their
+    plain versions: ``assign_centroids`` at n=10^6, k=10,000 (Lloyd's and
+    Mini-Batch's assignment, 3xTF32 bound) and ``probe_centroids`` at one
+    engine batch of the probe source (B=1,024, k=16,384, p=16)."""
+    import torch
+    from repro_torch.kernels import ops
+    n, d = X.shape
+    g = torch.Generator(device=DEV).manual_seed(SEED + 32)
+    out = {}
+    k = BASE["k"]
+    C = X[torch.randperm(n, generator=g, device=DEV)[:k]].contiguous()
+    ga = ops.assign_centroids(X, C)
+    wa = ops.assign_centroids(X, C, force="ref")
+    scale = ((X * X).sum(-1) + (C * C).sum(-1)[wa[0].long()])[:, None]
+    chk = sel_check((ga[0][:, None], ga[1][:, None]),
+                    (wa[0][:, None], wa[1][:, None]), scale)
+    del ga, wa, scale
+    chk["plan"] = assign_plan(n, k)
+    chk["shape"] = f"n={n} k={k} d={d}"
+    chk["ms"] = time_ms(lambda: ops.assign_centroids(X, C), [()], 3)
+    chk["plain_ms"] = time_ms(lambda: ops.assign_centroids(X, C,
+                                                           force="ref"),
+                              [()], 1)
+    nbytes, flops = 4 * (n * d + k * d + 2 * n), 2 * n * k * d
+    chk["bound_ms"], chk["bound_by"] = bound_ms(nbytes, 3 * flops,
+                                                TF32_FLOPS)
+    chk["bound_fp32_ms"], _ = bound_ms(nbytes, flops)
+    out["assign"] = chk
+    k2, p, B = 1 << (SIFT1M["k"] - 1).bit_length(), BASE["probe_p"], BATCH
+    Cp = X[torch.randperm(n, generator=g, device=DEV)[:k2]].contiguous()
+    xb = X[torch.randint(0, n, (B,), generator=g, device=DEV)].contiguous()
+    got = ops.probe_centroids(xb, Cp, p)
+    want = ops.probe_centroids(xb, Cp, p, force="ref")
+    scale = (xb * xb).sum(-1)[:, None] + (Cp * Cp).sum(-1)[want[0].long()]
+    chk = sel_check(got, want, scale)
+    chk["plan"] = probe_plan(B, k2, p)
+    chk["shape"] = f"B={B} k={k2} d={d} p={p}"
+    chk["ms"] = time_ms(lambda: ops.probe_centroids(xb, Cp, p), [()], 20)
+    chk["plain_ms"] = time_ms(lambda: ops.probe_centroids(xb, Cp, p,
+                                                          force="ref"),
+                              [()], 10)
+    chk["mm_ms"] = time_ms(lambda: torch.matmul(xb, Cp.T), [()], 20)
+    chk["bound_ms"], chk["bound_by"] = bound_ms(
+        4 * (B * d + k2 * d + 2 * B * p), 2 * B * k2 * d)
+    out["probe"] = chk
+    # device time per call, traced after the event timings
+    out["assign"]["device_us"] = kernel_device_us(
+        lambda: ops.assign_centroids(X, C), [()], ASSIGN_KERNELS, reps=3,
+        launches=1 + (out["assign"]["plan"]["splits"] > 1))
+    out["probe"]["device_us"] = kernel_device_us(
+        lambda: ops.probe_centroids(xb, Cp, p), [()], PROBE_KERNELS,
+        launches=1 + (out["probe"]["plan"]["splits"] > 1))
+    for key, chk in out.items():
+        log(f"{key} at the baselines' shape: {json.dumps(chk)}")
+    out["ok"] = all(v["ok"] for v in out.values())
+    return out
+
+
+def baselines_phase(X, r, Q):
+    """The paper's baselines and graph search at SIFT1M's shape, on phase
+    4's data (and its GK-means graph, for graph search), each path a
+    counted run of its own; then each kernel at these paths' shapes
+    against its plain version, and the SIFT_SMALL kernels-vs-plain runs."""
+    import torch
+    from repro_torch.core import (closure_kmeans, gk_means, graph_search,
+                                  init_kmeanspp, lloyd, minibatch_kmeans,
+                                  nn_descent, recall_top1, run_bkm)
+    from repro_torch.core.gkmeans import _tree_init
+    from repro_torch.core.objective import distortion
+    from repro_torch.launch import serve_index as si
+    b = BASE
+    n = X.shape[0]
+    k, k2 = b["k"], 1 << (b["k"] - 1).bit_length()
+    steps = 10 * (n // b["mb_batch"])
+    log(f"baselines: n={n} d={X.shape[1]} sift_like; NN-Descent "
+        f"kappa={b['kappa']} iters={b['nnd_iters']} sample={b['nnd_sample']}"
+        f"; KGraph + GK-means k={k} -> {k2}, {b['gk_iters']} iterations; "
+        f"Lloyd k={k}, k-means++, {b['lloyd_iters']} iterations with the "
+        f"early stop; Mini-Batch k={k}, batch {b['mb_batch']}, {steps} "
+        f"steps; full BKM (dense) and the probe source (p={b['probe_p']}, "
+        f"bkm) k={k2} from the 2M tree, {b['epochs']} epochs; closure "
+        f"k={k} -> {k2}, trees={b['trees']} leaf={b['leaf']}, "
+        f"{b['closure_iters']} iterations; graph search over phase 4's "
+        f"graph, nq={Q.shape[0]} topk={b['topk']} ef={b['ef']} "
+        f"iters={b['search_iters']}; cuts: iteration counts follow the "
+        f"paper's figure scripts, not the reference's defaults")
+
+    def gen(s):
+        return torch.Generator().manual_seed(SEED + s)
+    paths = {}
+
+    def record(name, secs, launches, **quality):
+        mine = {key: launches[key] for key in BASE_KERNELS[name]}
+        paths[name] = dict(seconds=secs, launches=mine, **quality)
+        log(f"baselines[{name}]: {json.dumps(paths[name])}")
+
+    truth = sampled_truth(X, b["kappa"], 1000, SEED + 4)
+    g, secs, lc, _ = counted(lambda: nn_descent(
+        X, b["kappa"], iters=b["nnd_iters"], sample=b["nnd_sample"],
+        chunk=b["nnd_chunk"], generator=gen(30), device=DEV))
+    rows, gt = truth
+    record("nn_descent", secs, lc,
+           recall_at_kappa=recall_on(g.ids, truth, b["kappa"]),
+           recall_top1=float(recall_top1(g.ids[rows], gt)))
+    res, secs, lc, _ = counted(lambda: gk_means(
+        X, k, graph=g, iters=b["gk_iters"], batch_size=BATCH,
+        generator=gen(31), device=DEV))
+    record("kgraph_gk_means", secs, lc, distortion=res.distortion,
+           history=res.history, stage_seconds=res.seconds)
+    del g, res
+
+    def lloyd_path():
+        t0 = time.perf_counter()
+        C0 = init_kmeanspp(X, k, generator=gen(32), device=DEV)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        _, _, hist = lloyd(X, k, iters=b["lloyd_iters"], centroids=C0,
+                           device=DEV)
+        return t_init, hist
+    (t_init, hist), secs, lc, _ = counted(lloyd_path)
+    record("lloyd", secs, lc, init_seconds=t_init,
+           iter_seconds=secs - t_init, iterations=len(hist),
+           distortion=hist[-1], history=hist)
+    (a, _), secs, lc, _ = counted(lambda: minibatch_kmeans(
+        X, k, steps=steps, batch_size=b["mb_batch"], generator=gen(33),
+        device=DEV))
+    record("minibatch", secs, lc, steps=steps,
+           distortion=float(distortion(X, a, k)))
+    del a
+    a0 = _tree_init(X, k2, gen(40))
+    (st, hist), secs, lc, _ = counted(lambda: run_bkm(
+        X, a0, k2, iters=b["epochs"], batch_size=BATCH, generator=gen(36),
+        device=DEV))
+    record("bkm_dense", secs, lc, distortion=hist[-1], history=hist)
+    del st
+    (hist, final, documented), secs, lc, syncs = counted(
+        lambda: probe_run(X, a0, k2), syncs=True)
+    record("probe_source", secs, lc, distortion=final, history=hist,
+           host_syncs=syncs, host_syncs_documented=documented)
+    (_, _, hist), secs, lc, _ = counted(lambda: closure_kmeans(
+        X, k, iters=b["closure_iters"], trees=b["trees"], leaf=b["leaf"],
+        batch_size=BATCH, generator=gen(35), device=DEV))
+    record("closure", secs, lc, distortion=hist[-1], history=hist)
+    # closure's candidate graph alone, one tree (outside the counted run):
+    # its κ = trees·(leaf−1) = 93 refine goes through merge_topk's sorts
+    from repro_torch.core.closure import _leafmate_graph
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _leafmate_graph(X, 1, b["leaf"], gen(37), None)
+    torch.cuda.synchronize()
+    paths["closure"]["leafmate_seconds_per_tree"] = time.perf_counter() - t0
+    gt_q = si.ground_truth(Q, X, b["topk"])
+    (ids, _), secs, lc, syncs = counted(lambda: graph_search(
+        X, r.graph.ids, Q, b["topk"], b["ef"], b["search_iters"],
+        generator=gen(38), device=DEV), syncs=True)
+    record("graph_search", secs, lc, recall_at_10=si.recall(ids, gt_q),
+           ms_per_10k_queries=secs * 1e3 * 1e4 / Q.shape[0],
+           host_syncs=syncs)
+    checks = {
+        "launches": all(v["launches"][key] > 0 for v in paths.values()
+                        for key in v["launches"]),
+        "probe_host_syncs": paths["probe_source"]["host_syncs"]
+        == b["epochs"] + 1 == paths["probe_source"]["host_syncs_documented"],
+        "finite": all(v.get("distortion", 0.0) == v.get("distortion", 0.0)
+                      for v in paths.values()),
+    }
+    log(f"baselines checks at SIFT1M's shape: {json.dumps(checks)}")
+    shapes = check_path_shapes(X)
+    X_pad, real_id = padded_copy(X)
+    rm = check_refine_merge(X_pad, real_id, n, B=b["nnd_chunk"],
+                            C=2 * b["nnd_sample"])
+    del X_pad, real_id
+    gs = {key: check_gather_score(X, k2, label, C=C) for key, label, C in (
+        ("probe", "probe source", b["probe_p"] + 1),
+        ("closure", "closure", b["trees"] * (b["leaf"] - 1)))}
+    ok_small, small = baselines_small()
+    checks.update(path_shapes=shapes["ok"], refine_merge_nnd=rm["ok"],
+                  gather_score_probe=gs["probe"]["ok"],
+                  gather_score_closure=gs["closure"]["ok"],
+                  sift_small=ok_small)
+    return all(checks.values()), dict(paths=paths, checks=checks,
+                                      shapes=shapes, refine_merge=rm,
+                                      gather_score=gs, sift_small=small)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1791,12 +2153,7 @@ def main() -> int:
     X = sift_like(c["n"], c["d"], COMPONENTS,
                   generator=torch.Generator(device=DEV).manual_seed(SEED))
     k2 = 1 << (c["k"] - 1).bit_length()
-    n_pad = 1 << (-(-c["n"] // c["xi"]) - 1).bit_length()
-    n_pad *= c["xi"]
-    g = torch.Generator(device=DEV).manual_seed(SEED + 5)
-    real_id = torch.cat([torch.arange(c["n"], device=DEV), torch.randint(
-        0, c["n"], (n_pad - c["n"],), generator=g, device=DEV)])
-    X_pad = X[real_id]                     # phantom rows copy real ones
+    X_pad, real_id = padded_copy(X)
     gs = check_gather_score(X, k2)
     rm = check_refine_merge(X_pad, real_id, c["n"])
     del X_pad, real_id
@@ -1834,7 +2191,6 @@ def main() -> int:
     if not sc["ok"]:
         failures.append("ivf_scan vs plain")
     profile_serving(index, Q)
-    del X
     ok_codec, runs = serve_codec_paths(index, Q, gt)
     if not ok_codec:
         failures.append("codec / grouped serving paths")
@@ -1846,6 +2202,10 @@ def main() -> int:
     profile_serving(runs["pq"]["index"], Q, "codec pq nsub=8", codec="pq")
     profile_serving(runs["int8"]["index"], Q, "codec int8", codec="int8")
     profile_serving(index, Q, "qgroup=8", qgroup=8)
+    ok_base, base = baselines_phase(X, res, Q)
+    if not ok_base:
+        failures.append("baselines")
+    del X
 
     kernels = [
         dict(name="gather_score", route="cuda",
@@ -2040,9 +2400,40 @@ def main() -> int:
         check=f"vs plain: |err| <= {PAIR_RTOL:g}*(||x_i||²+||x_j||²) per "
               "element, finite and >= 0, D[b] exactly symmetric; planted "
               "faults fail"))
+    bp = base["paths"]
+
+    def at_shape(chk, *extra):
+        return {key: chk[key] for key in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "device_us",
+                                          "max_abs_err") + extra}
+    by_name = {kd["name"]: kd for kd in kernels}
+    for name, paths in (("gather_score", ("kgraph_gk_means", "probe_source",
+                                          "closure")),
+                        ("refine_merge", ("nn_descent",)),
+                        ("probe_centroids", ("probe_source",)),
+                        ("assign_centroids", ("lloyd", "minibatch"))):
+        by_name[name]["baselines_launches"] = {
+            path: bp[path]["launches"][name] for path in paths}
+    gsb = base["gather_score"]
+    by_name["gather_score"]["baselines_shapes"] = {
+        key: {m: {f: gsb[key][m][f] for f in (
+            "ms", "plain_ms", "device_us", "max_abs_err",
+            "max_err_over_limit")} for m in ("bkm", "lloyd")}
+        | {f: gsb[key][f] for f in ("bound_ms", "bound_by", "shape")}
+        for key in ("probe", "closure")}
+    by_name["refine_merge"]["baselines_shapes"] = {
+        "nn_descent": at_shape(base["refine_merge"])
+        | {"shape": f"B={BASE['nnd_chunk']} C={2 * BASE['nnd_sample']} "
+                    f"kappa={BASE['kappa']}"}}
+    for name, key in (("probe_centroids", "probe"),
+                      ("assign_centroids", "assign")):
+        by_name[name]["baselines_shapes"] = {
+            key: at_shape(base["shapes"][key], "plan", "shape")}
     log(f"total {time.perf_counter() - t_all:.1f} s; failures: {failures}")
     if failures:
         return 1
+    print(json.dumps({"baselines": base["paths"]
+                      | {"sift_small": base["sift_small"]}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,12 +21,16 @@ Differences from the reference, all stated:
   epoch itself syncs nothing: the visit order is made on the CPU and copied
   without blocking (``core.permute``).
 
-Candidate sources: ``graph`` (the clusters of the sample's κ neighbours)
-and ``dense`` (all k clusters, scored with one ``(B, k)`` matmul, as the
+Candidate sources: ``graph`` (the clusters of the sample's κ neighbours),
+``dense`` (all k clusters, scored with one ``(B, k)`` matmul, as the
 reference's ``_score_dense`` computes them outside any kernel; PQ training
-runs it in lloyd mode).  Out of scope (raise ``NotImplementedError``):
-``shards > 1``, ``payload_bf16``, ``valid`` masks, the probe source and
-``telemetry``.  ``sparse_updates`` is accepted: on one device it is the
+runs it in lloyd mode) and ``probe`` (the p clusters whose centroids
+``D / max(cnt, 1)`` lie nearest the sample, from ``probe_centroids``, plus
+the sample's own cluster as the last column, so empty cells cannot crowd
+it out).  The probe kernel's cap p <= 128 is a stated difference:
+``probe_source`` raises above it.  Out of scope (raise
+``NotImplementedError``): ``shards > 1``, ``payload_bf16``, ``valid`` masks
+and ``telemetry``.  ``sparse_updates`` is accepted: on one device it is the
 same plain scatter (``repro/core/engine.py:620-622``).
 """
 from __future__ import annotations
@@ -38,6 +42,7 @@ import torch
 from repro_torch.core import permute
 from repro_torch.core.objective import cluster_stats
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.centroid_assign import MAX_P
 
 
 class BKMState(NamedTuple):
@@ -49,10 +54,12 @@ class BKMState(NamedTuple):
 
 class CandidateSource(NamedTuple):
     """Which clusters each sample may move to: kind='graph' (the clusters
-    of the (n, κ) neighbour ids ``G``) or kind='dense' (all k clusters)."""
+    of the (n, κ) neighbour ids ``G``), kind='dense' (all k clusters) or
+    kind='probe' (the ``p`` nearest centroids and the sample's own)."""
 
     kind: str
     G: Optional[torch.Tensor] = None   # (n, κ) neighbour ids, int64
+    p: int = 0                         # probe width
 
 
 class EngineConfig(NamedTuple):
@@ -85,7 +92,12 @@ def dense_source() -> CandidateSource:
 
 
 def probe_source(p: int) -> CandidateSource:
-    raise NotImplementedError("probe candidate source: not ported yet")
+    """Candidates = the p nearest centroids ``D / max(cnt, 1)`` of each
+    sample (``probe_centroids``) plus its own cluster; 1 <= p <= 128."""
+    if not 1 <= p <= MAX_P:
+        raise ValueError(f"probe source: need 1 <= p <= {MAX_P} (the probe "
+                         f"kernel's cap), got p={p}")
+    return CandidateSource("probe", p=p)
 
 
 def _check_cfg(cfg: EngineConfig, source: CandidateSource) -> None:
@@ -95,7 +107,7 @@ def _check_cfg(cfg: EngineConfig, source: CandidateSource) -> None:
         raise NotImplementedError("payload_bf16: not ported yet")
     if cfg.telemetry:
         raise NotImplementedError("telemetry: not ported yet")
-    if source.kind not in ("graph", "dense"):
+    if source.kind not in ("graph", "dense", "probe"):
         raise NotImplementedError(f"{source.kind} source: not ported yet")
     if cfg.mode not in ("bkm", "lloyd"):
         raise ValueError(f"mode must be 'bkm' or 'lloyd', got {cfg.mode!r}")
@@ -154,15 +166,27 @@ def _score_dense(xb, u, D, cnt, mode, eps):
     return moved, best.to(torch.int32)
 
 
-def _move_step(X, st: BKMState, idx, lookup, source, cfg: EngineConfig):
-    """One batched candidate -> score -> move step, in place on ``st``."""
+def _move_step(X, st: BKMState, idx, lookup, source, cfg: EngineConfig,
+               cbuf=None):
+    """One batched candidate -> score -> move step, in place on ``st``.
+
+    ``cbuf`` (k, d): the probe source's centroid buffer, refilled here with
+    ``D / max(cnt, 1)`` from the live statistics."""
     k = st.cnt.shape[0]
     xb = X[idx]
     u = st.assign[idx]
     if source.kind == "dense":
         moved, want_v = _score_dense(xb, u, st.D, st.cnt, cfg.mode, cfg.eps)
     else:
-        cand = lookup[source.G[idx]]                      # (B, κ) int32
+        if source.kind == "probe":
+            torch.div(st.D, torch.clamp(st.cnt, min=1.0)[:, None], out=cbuf)
+            ids, _ = kops.probe_centroids(xb, cbuf, source.p,
+                                          force=cfg.force)
+            # the sample's own cluster stays a candidate:
+            # empty cells, centroids at the origin, can crowd it out
+            cand = torch.cat([ids.to(torch.int32), u[:, None]], dim=1)
+        else:
+            cand = lookup[source.G[idx]]                  # (B, κ) int32
         moved, want_v = _score_gathered(xb, u, cand, st.D, st.cnt, cfg.mode,
                                         cfg.eps, cfg.force)
     # leaver guard: block all leavers of a cluster whose leaver count would
@@ -197,9 +221,11 @@ def epoch(X: torch.Tensor, state: BKMState, source: CandidateSource,
     nb = max(n // bs, 1)
     order = permute.epoch_order(words, n, X.device)
     lookup = state.assign.clone()         # epoch-start snapshot
+    cbuf = torch.empty_like(state.D) if source.kind == "probe" else None
     state.moves.zero_()
     for i in range(nb):
-        _move_step(X, state, order[i * bs:(i + 1) * bs], lookup, source, cfg)
+        _move_step(X, state, order[i * bs:(i + 1) * bs], lookup, source, cfg,
+                   cbuf)
     return state
 
 

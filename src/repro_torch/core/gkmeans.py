@@ -41,16 +41,21 @@ class GKMeansResult:
 
 
 def _tree_init(X: torch.Tensor, k: int,
-               generator: torch.Generator) -> torch.Tensor:
-    """Equal-size 2M-tree initialisation, padding (n, k) as needed."""
+               generator: Optional[torch.Generator], *, extra=None,
+               seeds=None) -> torch.Tensor:
+    """Equal-size 2M-tree initialisation, padding (n, k) as needed: the
+    padding rows ``extra`` and the tree's ``seeds`` are drawn from
+    ``generator`` when omitted."""
     n = X.shape[0]
     n2, k2 = pad_plan(n, k)
     if n2 > n:
-        extra = torch.randint(0, n, (n2 - n,), generator=generator)
-        Xp = torch.cat([X, X[to_device(extra, X.device)]])
+        if extra is None:
+            extra = torch.randint(0, n, (n2 - n,), generator=generator)
+        Xp = torch.cat([X, X[to_device(torch.as_tensor(extra).long(),
+                                       X.device)]])
     else:
         Xp = X
-    return two_means_tree(Xp, k2, generator=generator)[:n]
+    return two_means_tree(Xp, k2, seeds=seeds, generator=generator)[:n]
 
 
 def gk_means(X, k: int, *, kappa: int = 32, xi: int = 64, tau: int = 8,

@@ -1,26 +1,33 @@
-"""KNN-graph construction (paper Alg. 3), single device.
+"""KNN-graph construction, single device: one refinement loop, two sources.
 
-Counterpart of ``repro.core.graph_build`` with ``source="partition"``.  The
-build pads n up to ``k0 * xi`` with phantom copies of random rows, seeds
-every row's list with κ random candidates, then runs τ rounds of:
+Counterpart of ``repro.core.graph_build``.  Every round offers each row a
+set of candidate rows, computes exact distances to them and merges them
+into its sorted, id-deduped top-κ list (``_refine_rows``:
+``kernels.ops.refine_merge``, or the sort-based ``merge_topk`` when
+κ > 64).  Rows are seeded with κ random candidates first
+(``random_init``; closure k-means turns it off).  The candidate source:
 
-  partition   an equal-size 2M tree into k0 clusters (``two_means_dist``);
-  guided      from round 1 on, one graph-guided engine epoch over the
-              partition (the "intertwined evolving" step);
-  members     a fixed-capacity member table plus a spill list
-              (``members_table_local``);
-  refine      exact distances from each row to its co-members, merged into
-              its top-κ list (``kernels.ops.refine_merge``; the sort-based
-              ``merge_topk`` when κ > 64).
+* ``partition`` (paper Alg. 3).  The build pads n up to ``k0 * xi`` with
+  phantom copies of random rows, then runs τ rounds of: an equal-size 2M
+  tree into k0 clusters (``two_means_dist``); from round 1 on, one
+  graph-guided engine epoch over the partition (the "intertwined evolving"
+  step); a fixed-capacity member table plus a spill list
+  (``members_table_local``); the refinement against co-members.
+* ``descent`` (NN-Descent, the paper's KGraph baseline).  No padding.  Each
+  round offers ``sample`` neighbours of neighbours and ``sample`` reverse
+  neighbours: edge i -> j lands in a random slot of j's reverse list, and
+  when two edges collide in a slot the larger source row wins
+  (``scatter_reduce`` "amax", on any device; the reference's serial
+  last-writer order gives the same winner).
 
 The reference runs the rounds inside one ``lax.scan`` trace; the port runs
 them eagerly, with no host sync inside a build (the per-round diagnostics
-stay on the device).  Out of this slice: ``source="descent"``,
-``GraphBuilder`` (meshes), ``shards > 1`` and ``telemetry``.
+stay on the device).  Out of this slice: ``GraphBuilder`` over a mesh,
+``shards > 1`` and ``telemetry``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -45,15 +52,17 @@ class BuildDiagnostics(NamedTuple):
 
 class GraphBuildConfig(NamedTuple):
     kappa: int = 16
-    source: str = "partition"
-    xi: int = 64                # target cluster size
-    tau: int = 8                # rounds
+    source: str = "partition"   # 'partition' (Alg. 3) | 'descent' (KGraph)
+    xi: int = 64                # partition: target cluster size
+    tau: int = 8                # rounds (NN-Descent iterations for descent)
     cap_factor: int = 2         # member-table capacity = cap_factor * xi
     bkm_batch: int = 1024       # guided pass batch size
     guided: bool = True
+    sample: int = 0             # descent: candidate half-width (0 -> 2κ)
     chunk: int = 1024           # refine row chunk
     shards: int = 1
     force: Optional[str] = None  # kernel dispatch override (None | 'ref')
+    random_init: bool = True    # seed lists with κ random candidates
     telemetry: bool = False
     spill: int = 8              # overflow spill width
 
@@ -62,14 +71,30 @@ class BuildDraws(NamedTuple):
     """Every random draw of one build (the reference's jax.random draws).
 
     pad_extra (n_pad - n,) real row ids of the phantom rows; init_ids
-    (n_pad, κ) random initial neighbour ids (!= own real id); salts
-    (tau, log2 k0, 2) tree salts; epoch_words (tau, 4) guided-pass words.
+    (n_pad, κ) random initial neighbour ids (!= own real id; None when
+    ``random_init=False``); salts (tau, log2 k0, 2) tree salts; epoch_words
+    (tau, 4) guided-pass words.
     """
 
     pad_extra: torch.Tensor
-    init_ids: torch.Tensor
+    init_ids: Optional[torch.Tensor]
     salts: torch.Tensor
     epoch_words: torch.Tensor
+
+
+class DescentDraws(NamedTuple):
+    """Every random draw of one descent build (the reference's draws).
+
+    init_ids (n, κ) random initial neighbour ids (!= own id; None when
+    ``random_init=False``); per round t, pick1[t] and pick2[t] (n, s): the
+    neighbour column, then that neighbour's neighbour column, of each
+    forward candidate; slot[t] (n, κ): the reverse-list slot of each edge.
+    """
+
+    init_ids: Optional[torch.Tensor]
+    pick1: torch.Tensor
+    pick2: torch.Tensor
+    slot: torch.Tensor
 
 
 def _next_pow2(v: int) -> int:
@@ -80,7 +105,9 @@ def _next_pow2(v: int) -> int:
 
 
 def _plan(n: int, cfg: GraphBuildConfig) -> Tuple[int, int]:
-    """(k0, n_pad) of the padded partition layout."""
+    """(k0, n_pad) of the padded partition layout (descent never pads)."""
+    if cfg.source != "partition":
+        return 1, n
     if cfg.xi < 1:
         raise ValueError(f"xi={cfg.xi} must be >= 1")
     k0 = _next_pow2(max((n + cfg.xi - 1) // cfg.xi, 1))
@@ -89,11 +116,11 @@ def _plan(n: int, cfg: GraphBuildConfig) -> Tuple[int, int]:
 
 def draw_build(n: int, cfg: GraphBuildConfig,
                generator: torch.Generator) -> BuildDraws:
-    """All of a build's draws from one CPU generator."""
+    """All of a partition build's draws from one CPU generator."""
     k0, n_pad = _plan(n, cfg)
     extra = torch.randint(0, n, (n_pad - n,), generator=generator)
-    init = random_graph(n, cfg.kappa, generator,
-                        own=torch.cat([torch.arange(n), extra]), device="cpu")
+    init = random_graph(n, cfg.kappa, generator, own=torch.cat(
+        [torch.arange(n), extra]), device="cpu") if cfg.random_init else None
     levels = k0.bit_length() - 1
     salts = torch.stack([draw_salts(levels, generator)
                          for _ in range(cfg.tau)]) if levels else \
@@ -126,27 +153,114 @@ def _refine_rows(x_own, rows, cand_ids, g_ids, g_d, Xsrc, ysq, chunk,
     return torch.cat(ids_out), torch.cat(d_out)
 
 
+def _descent_round_draws(n: int, cfg: GraphBuildConfig, dev,
+                         generator: Optional[torch.Generator],
+                         draws: Optional[DescentDraws]
+                         ) -> Iterator[Tuple[torch.Tensor, ...]]:
+    """Each round's (pick1, pick2, slot) on ``dev``: the injected ``draws``,
+    or drawn on ``dev`` from a generator seeded by ``generator`` (2·n·s + n·κ
+    ids a round: drawn on the CPU they would cost seconds a round at
+    n = 10^6)."""
+    kappa, s = cfg.kappa, cfg.sample or 2 * cfg.kappa
+    if draws is not None:
+        for t in range(cfg.tau):
+            yield tuple(to_device(torch.as_tensor(a[t]).long(), dev)
+                        for a in (draws.pick1, draws.pick2, draws.slot))
+        return
+    seed = int(torch.randint(0, 1 << 62, (), generator=generator))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for _ in range(cfg.tau):
+        yield (torch.randint(0, kappa, (n, s), generator=g, device=dev),
+               torch.randint(0, kappa, (n, s), generator=g, device=dev),
+               torch.randint(0, s, (n, kappa), generator=g, device=dev))
+
+
+def descent_candidates(g_ids: torch.Tensor, pick1: torch.Tensor,
+                       pick2: torch.Tensor, slot: torch.Tensor
+                       ) -> torch.Tensor:
+    """One NN-Descent round's (n, 2s) int32 candidate ids, own id -> -1.
+
+    Forward: ``ids[ids[i, pick1], pick2]`` (neighbours of neighbours).
+    Reverse: edge i -> j is written to slot ``slot[i, c]`` of j's list of s;
+    of colliding edges the largest source row i wins (the reference's
+    serial last-writer winner under its row-major order); unwritten slots
+    stay -1.
+    """
+    n, kappa = g_ids.shape
+    s = pick1.shape[1]
+    dev = g_ids.device
+    ids = torch.clamp(g_ids, min=0).long()
+    mid = ids.gather(1, pick1)                             # (n, s)
+    fwd = ids.view(-1)[mid * kappa + pick2]                # ids[mid, pick2]
+    src = torch.arange(n, device=dev).repeat_interleave(kappa)
+    rev = torch.full((n * s,), -1, dtype=torch.int64, device=dev)
+    rev.scatter_reduce_(0, (ids * s + slot).view(-1), src, "amax",
+                        include_self=True)
+    cand = torch.cat([fwd, rev.view(n, s)], dim=1)
+    own = torch.arange(n, device=dev)[:, None]
+    return torch.where(cand == own, -1, cand).to(torch.int32)
+
+
 def build_graph(X: torch.Tensor, cfg: GraphBuildConfig, *,
                 generator: Optional[torch.Generator] = None,
-                draws: Optional[BuildDraws] = None
-                ) -> Tuple[KnnGraph, BuildDiagnostics]:
+                draws=None) -> Tuple[KnnGraph, BuildDiagnostics]:
     """Single-device build on X's device: (KnnGraph (n, κ), diagnostics).
 
-    Randomness: ``draws`` if given, else ``draw_build(n, cfg, generator)``.
-    No host sync.
+    Randomness: ``draws`` if given (``BuildDraws`` for the partition
+    source, ``DescentDraws`` for descent), else drawn from ``generator`` (a
+    CPU ``torch.Generator``).  No host sync.
     """
-    if cfg.source != "partition":
-        raise NotImplementedError(f"source={cfg.source!r}: not ported yet")
+    if cfg.source not in ("partition", "descent"):
+        raise ValueError(f"source must be 'partition' or 'descent', got "
+                         f"{cfg.source!r}")
     if cfg.shards != 1:
         raise NotImplementedError("shards > 1: not ported yet")
     if cfg.telemetry:
         raise NotImplementedError("telemetry: not ported yet")
+    if draws is None and generator is None:
+        raise ValueError("pass draws or a generator")
+    if cfg.source == "descent":
+        return _build_descent(X, cfg, generator, draws)
+    return _build_partition(X, cfg, generator, draws)
+
+
+def _init_lists(X_pad, init_ids, n_rows, ysq, cfg):
+    """Empty (-1, inf) lists, refined against κ random candidates per row
+    when ``random_init``."""
+    dev = X_pad.device
+    g_ids = torch.full((n_rows, cfg.kappa), -1, dtype=torch.int32, device=dev)
+    g_d = torch.full((n_rows, cfg.kappa), float("inf"), device=dev)
+    if not cfg.random_init:
+        return g_ids, g_d
+    cand0 = to_device(torch.as_tensor(init_ids).to(torch.int32), dev)
+    return _refine_rows(X_pad, torch.clamp(cand0, min=0), cand0, g_ids, g_d,
+                        X_pad, ysq, cfg.chunk, cfg.force)
+
+
+def _build_descent(X, cfg, generator, draws):
+    n = X.shape[0]
+    dev = X.device
+    Xf = X.float().contiguous()
+    ysq = source_norms(Xf)
+    init = (None if not cfg.random_init else
+            draws.init_ids if draws is not None else
+            random_graph(n, cfg.kappa, generator, device="cpu"))
+    g_ids, g_d = _init_lists(Xf, init, n, ysq, cfg)
+    for pick1, pick2, slot in _descent_round_draws(n, cfg, dev, generator,
+                                                   draws):
+        cand = descent_candidates(g_ids, pick1, pick2, slot)
+        del pick1, pick2, slot
+        g_ids, g_d = _refine_rows(Xf, torch.clamp(cand, min=0), cand, g_ids,
+                                  g_d, Xf, ysq, cfg.chunk, cfg.force)
+    zeros = torch.zeros((cfg.tau,), dtype=torch.int32, device=dev)
+    return KnnGraph(g_ids, g_d), BuildDiagnostics(zeros, zeros.clone())
+
+
+def _build_partition(X, cfg, generator, draws):
     n, _ = X.shape
     dev = X.device
     k0, n_pad = _plan(n, cfg)
     if draws is None:
-        if generator is None:
-            raise ValueError("pass draws or a generator")
         draws = draw_build(n, cfg, generator)
     Xf = X.float().contiguous()
     real_id = to_device(torch.cat([torch.arange(n), torch.as_tensor(
@@ -154,14 +268,7 @@ def build_graph(X: torch.Tensor, cfg: GraphBuildConfig, *,
     X_pad = Xf[real_id].contiguous() if n_pad > n else Xf
     ysq = source_norms(X_pad)
     row_ids = torch.arange(n_pad, device=dev)
-    kappa = cfg.kappa
-
-    g_ids = torch.full((n_pad, kappa), -1, dtype=torch.int32, device=dev)
-    g_d = torch.full((n_pad, kappa), float("inf"), device=dev)
-    # init = the same refinement against κ random candidates per row
-    cand0 = to_device(torch.as_tensor(draws.init_ids).to(torch.int32), dev)
-    g_ids, g_d = _refine_rows(X_pad, torch.clamp(cand0, min=0), cand0,
-                              g_ids, g_d, X_pad, ysq, cfg.chunk, cfg.force)
+    g_ids, g_d = _init_lists(X_pad, draws.init_ids, n_pad, ysq, cfg)
 
     cap = cfg.cap_factor * cfg.xi
     ecfg = engine.EngineConfig(batch_size=cfg.bkm_batch, sparse_updates=True,
@@ -200,3 +307,28 @@ def build_graph(X: torch.Tensor, cfg: GraphBuildConfig, *,
         torch.stack(moves) if moves else
         torch.zeros((0,), dtype=torch.int32, device=dev))
     return KnnGraph(g_ids[:n].contiguous(), g_d[:n].contiguous()), diag
+
+
+class GraphBuilder:
+    """A graph build's config, bound once: ``build(X, generator=...,
+    draws=...)`` runs the single-device ``build_graph``.  The reference's
+    mesh-resident builder (``mesh=...``) is not ported yet and raises."""
+
+    def __init__(self, cfg: GraphBuildConfig, mesh=None,
+                 data_axes: Tuple[str, ...] = ("data",)):
+        if mesh is not None:
+            raise NotImplementedError("GraphBuilder over a mesh: not ported "
+                                      "yet")
+        self.cfg = cfg
+        self.mesh = None
+        self.data_axes = tuple(data_axes)
+        self.shards = 1
+
+    def build(self, X: torch.Tensor, *,
+              generator: Optional[torch.Generator] = None, draws=None
+              ) -> Tuple[KnnGraph, BuildDiagnostics]:
+        return build_graph(X, self.cfg, generator=generator, draws=draws)
+
+    def __repr__(self):
+        return (f"GraphBuilder(shards={self.shards}, "
+                f"source={self.cfg.source!r}, cfg={self.cfg})")

@@ -1,9 +1,10 @@
 """KNN graph by iterated fast k-means (paper Alg. 3): shared graph primitives.
 
 Counterpart of ``repro.core.knn_graph``: the ``KnnGraph`` container, random
-initial graphs, the sort-based ``merge_topk`` (the κ > 64 refine path), the
-fixed-capacity member table with its spill list, and ``build_knn_graph``, a
-thin adapter over ``core.graph_build.build_graph``.
+initial graphs, exact edge distances (``graph_distances``), the sort-based
+``merge_topk`` (the κ > 64 refine path), the fixed-capacity member tables
+(``members_table``, and ``members_table_local`` with its spill list), and
+``build_knn_graph``, a thin adapter over ``core.graph_build.build_graph``.
 """
 from __future__ import annotations
 
@@ -40,6 +41,25 @@ def random_graph(n: int, kappa: int, generator: torch.Generator, *,
                           generator=generator)
         ids = torch.where(r >= own[:, None], r + 1, r)
     return to_device(ids.to(torch.int32), dev)
+
+
+def graph_distances(X: torch.Tensor, ids: torch.Tensor, chunk: int = 4096
+                    ) -> torch.Tensor:
+    """(n, κ) exact squared distances along the graph's edges.
+
+    Works in row chunks of ``chunk`` only when the chunk divides n and n is
+    larger than one chunk; otherwise the whole input is one piece (the
+    reference's fallback, owned here so callers pass ``chunk``
+    unconditionally).  A -1 id indexes the last row, as in the reference.
+    """
+    n = ids.shape[0]
+    step = chunk if n % chunk == 0 and n > chunk else n
+    out = []
+    for s in range(0, n, step):
+        nb = X[ids[s:s + step].long()].float()           # (c, κ, d)
+        diff = nb - X[s:s + step].float()[:, None, :]
+        out.append((diff * diff).sum(-1))
+    return torch.cat(out)
 
 
 def merge_topk(g_ids: torch.Tensor, g_d: torch.Tensor, c_ids: torch.Tensor,
@@ -98,6 +118,21 @@ def members_table_local(assign: torch.Tensor, pos: torch.Tensor, k: int,
     sflat[sslot] = gids
     return (flat[:cap * k].view(cap, k), sflat[:spill],
             (~valid).sum(dtype=torch.int32))
+
+
+def members_table(assign: torch.Tensor, k: int, cap: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Ragged clusters -> (table (k, cap) int32 row ids with -1 padding,
+    overflow () int32).
+
+    Each cluster keeps its first ``cap`` members in assignment-stable order;
+    members beyond ``cap`` are left out of the table and counted in
+    ``overflow``.  ``members_table_local`` over all rows, with no spill list,
+    transposed.
+    """
+    pos = torch.arange(assign.shape[0], device=assign.device)
+    table_T, _, overflow = members_table_local(assign, pos, k, cap, 0)
+    return table_T.T.contiguous(), overflow
 
 
 def build_knn_graph(X, kappa: int, *, xi: int = 64, tau: int = 8,

@@ -49,6 +49,42 @@ def distortion(X: torch.Tensor, assign: torch.Tensor, k: int) -> torch.Tensor:
     return (xsq - objective_I(stats)) / X.shape[0]
 
 
+def delta_I(x: torch.Tensor, D_u: torch.Tensor, n_u: torch.Tensor,
+            D_v: torch.Tensor, n_v: torch.Tensor) -> torch.Tensor:
+    """Paper Eqn. 3: objective change of moving x from cluster u to each v.
+
+    x, D_u (..., d); n_u (...,); D_v (..., C, d); n_v (..., C).  Returns
+    (..., C).  When n_u == 1 the source cluster empties and its residual
+    term ``||D_u - x||² / (n_u - 1)`` is 0.
+    """
+    x, D_u, D_v = x.float(), D_u.float(), D_v.float()
+    xsq = (x * x).sum(-1)
+    du_sq = (D_u * D_u).sum(-1)
+    dv_sq = (D_v * D_v).sum(-1)
+    x_du = (x * D_u).sum(-1)
+    x_dv = (x[..., None, :] * D_v).sum(-1)
+    # target gain: ||D_v + x||²/(n_v+1) - ||D_v||²/n_v
+    gain_v = (dv_sq + 2.0 * x_dv + xsq[..., None]) / (n_v + 1.0)
+    gain_v = gain_v - torch.where(n_v > 0, dv_sq / torch.clamp(n_v, min=1.0),
+                                  torch.zeros_like(dv_sq))
+    # source loss: ||D_u - x||²/(n_u-1) - ||D_u||²/n_u
+    num_u = du_sq - 2.0 * x_du + xsq
+    resid = torch.where(n_u > 1, num_u / torch.clamp(n_u - 1.0, min=1.0),
+                        torch.zeros_like(num_u))
+    loss_u = resid - du_sq / torch.clamp(n_u, min=1.0)
+    return gain_v + loss_u[..., None]
+
+
+def delta_I_brute(X: torch.Tensor, assign: torch.Tensor, k: int, i: int,
+                  v: int) -> torch.Tensor:
+    """Oracle of ``delta_I``: I(sample i moved to cluster v) − I(before),
+    recomputed from scratch in O(n·d)."""
+    moved = assign.clone()
+    moved[i] = v
+    return (objective_I(cluster_stats(X, moved, k))
+            - objective_I(cluster_stats(X, assign, k)))
+
+
 def assignment_distortion(X: torch.Tensor, C: torch.Tensor, block: int = 2048
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact nearest-centroid assignment + mean distortion, blocked over rows.

@@ -34,3 +34,23 @@ def recall_at(ids: torch.Tensor, gt: torch.Tensor, at: int) -> torch.Tensor:
     """|top-at of graph ∩ top-at of truth| / at, averaged over samples."""
     hits = (ids[:, :at, None] == gt[:, None, :at]).any(-1)
     return hits.float().mean()
+
+
+def _mean0(hits: torch.Tensor) -> torch.Tensor:
+    """Share of True along axis 0, as XLA takes a float32 mean: the (exact)
+    count times the float32 reciprocal of the row count."""
+    return hits.float().sum(dim=0) * (1.0 / hits.shape[0])
+
+
+def recall_top1(ids: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """The paper's metric: share of samples whose true 1-NN appears anywhere
+    in their κ list.  gt: (n, >= 1) exact neighbour ids."""
+    return _mean0((ids == gt[:, :1]).any(dim=1))
+
+
+def cooccurrence_rate(assign: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """Fig. 1: P(a sample and its j-th true NN share a cluster), per j.
+
+    Returns (gt.shape[1],) rates."""
+    a = assign.long()
+    return _mean0(a[gt.long()] == a[:, None])

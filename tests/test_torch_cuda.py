@@ -224,6 +224,130 @@ def test_gk_means_kernels_match_ref_on_card(dev):
     assert np.isfinite(a.history).all()
 
 
+# ------------------------------- baselines, probe and descent sources, search
+
+def _blobs4k(dev):
+    from repro_torch.data import gmm_blobs
+    return gmm_blobs(4096, 32, 64, generator=torch.Generator(dev).manual_seed(2))
+
+
+def _gen(seed):
+    return torch.Generator().manual_seed(seed)
+
+
+def _baseline_run(path, X, force):
+    """(final distortion, the path's kernels) of one baseline path."""
+    from repro_torch.core import (closure_kmeans, engine, gk_means, lloyd,
+                                  minibatch_kmeans, nn_descent)
+    from repro_torch.core.gkmeans import _tree_init
+    from repro_torch.core.objective import distortion
+    dev = X.device
+    if path == "kgraph_gk_means":
+        # one graph for both runs, built outside the counted path (its own
+        # kernel is held on recall in test_nn_descent_kernels_...)
+        g = nn_descent(X, 16, iters=6, generator=_gen(1), force="ref",
+                       device=dev)
+        return gk_means(X, 64, graph=g, iters=8, generator=_gen(2),
+                        force=force, device=dev).distortion, (
+            "gather_score",)
+    if path == "lloyd":
+        return lloyd(X, 64, iters=10, generator=_gen(3), force=force,
+                     device=dev)[2][-1], ("assign_centroids",)
+    if path == "minibatch":
+        a, _ = minibatch_kmeans(X, 64, steps=40, batch_size=256,
+                                generator=_gen(4), force=force, device=dev)
+        return float(distortion(X, a, 64)), ("assign_centroids",)
+    if path == "probe_source":
+        a0 = _tree_init(X, 64, _gen(5))
+        res = engine.run(X, engine.init_state(X, a0, 64),
+                         engine.probe_source(8), engine.EngineConfig(
+                             batch_size=512, iters=5, min_move_frac=-1.0,
+                             force=force), generator=_gen(6))
+        return float(res.final), ("probe_centroids", "gather_score")
+    return closure_kmeans(X, 64, iters=6, leaf=16, batch_size=512,
+                          generator=_gen(7), force=force, device=dev)[2][-1], (
+        "gather_score",)
+
+
+@pytest.mark.parametrize("path", ["kgraph_gk_means", "lloyd", "minibatch",
+                                  "probe_source", "closure"])
+def test_baseline_kernels_match_ref_on_card(dev, path):
+    """Each baseline path through its kernels and with force="ref" from
+    equal generators: final distortion within 1%; every kernel of the path
+    launched in the kernel run and none in the plain one."""
+    X = _blobs4k(dev)
+    _build.reset_launch_counts()
+    got, names = _baseline_run(path, X, None)
+    launched = dict(_build.launch_counts)
+    _build.reset_launch_counts()
+    want, _ = _baseline_run(path, X, "ref")
+    assert not any(_build.launch_counts.values())
+    assert all(launched[name] > 0 for name in names), launched
+    assert abs(got - want) <= 0.01 * want, (got, want)
+
+
+def test_nn_descent_kernels_match_ref_on_card(dev):
+    """Recall@κ within 0.02 of the plain run from equal generators; on
+    integer data the two descent builds are equal bit for bit."""
+    from repro_torch.core import brute_force_knn, nn_descent, recall_at
+    from repro_torch.core.graph_build import GraphBuildConfig, build_graph
+    X = _blobs4k(dev)
+    gt = brute_force_knn(X, 16)
+    rec = [float(recall_at(nn_descent(X, 16, iters=6, generator=_gen(1),
+                                      force=force, device=dev).ids, gt, 16))
+           for force in (None, "ref")]
+    assert abs(rec[0] - rec[1]) <= 0.02, rec
+    Xi = torch.randint(0, 4, (3000, 8), generator=_gen(9)).float().to(dev)
+    cfg = GraphBuildConfig(kappa=12, source="descent", tau=3, chunk=700)
+    got, _ = build_graph(Xi, cfg, generator=_gen(3))
+    want, _ = build_graph(Xi, cfg._replace(force="ref"), generator=_gen(3))
+    assert torch.equal(got.ids, want.ids) and torch.equal(got.dist,
+                                                          want.dist)
+
+
+def test_minibatch_final_assignment_matches_plain(dev):
+    from repro_torch.core import minibatch_kmeans
+    X = _blobs4k(dev)
+    a, C = minibatch_kmeans(X, 64, steps=40, batch_size=256,
+                            generator=_gen(4), device=dev)
+    ga = ops.assign_centroids(X, C)
+    assert torch.equal(ga[0], a)
+    wa = ref.assign_centroids(X, C)
+    _assert_sel((ga[0][:, None], ga[1][:, None]),
+                (wa[0][:, None], wa[1][:, None]),
+                _pair_scale(X, C, wa[0][:, None]))
+
+
+def test_graph_search_on_card_matches_cpu(dev):
+    """No kernel: the card's search against the CPU's with the same
+    beacons, at least 99% of the ids equal (float sums in another order
+    can flip a near-tie in the pool); distances exact for the ids
+    returned (rtol 1e-5)."""
+    from repro_torch.core import build_knn_graph, graph_search
+    X = _blobs4k(dev)
+    g = build_knn_graph(X, 16, xi=32, tau=3, generator=_gen(0), device=dev)
+    Q = X[:256] + 0.1 * torch.randn(256, 32, generator=torch.Generator(
+        dev).manual_seed(5), device=dev)
+    beacons = torch.randint(0, 4096, (256, 8 * 16), generator=_gen(6))
+    gi, gd = graph_search(X, g.ids, Q, 5, 16, 12, beacons=beacons,
+                          device=dev)
+    ci, cd = graph_search(X.cpu(), g.ids.cpu(), Q.cpu(), 5, 16, 12,
+                          beacons=beacons, device="cpu")
+    exact = ((X[gi.long()] - Q[:, None, :]) ** 2).sum(-1)
+    assert torch.allclose(gd, exact, rtol=1e-5, atol=1e-5)
+    same = (gi.cpu() == ci).float().mean()
+    assert float(same) >= 0.99, float(same)
+
+
+def test_probe_source_above_the_kernel_cap_raises(dev):
+    from repro_torch.core import engine
+    with pytest.raises(ValueError, match="p <= 128"):
+        engine.probe_source(129)
+    X, C = _centroid_case(64, 300, 16, 0, dev)
+    with pytest.raises(ValueError):
+        ops.probe_centroids(X, C, 129)
+
+
 # ------------------------------------------------- IVF kernels (centroids, scan)
 
 def _assert_sel(got, want, scale):
