@@ -59,11 +59,13 @@ plain PyTorch version, or when any phase fails.  Phases:
 4. the main path at SIFT1M's published shape (n=1,000,000, d=128,
    k=10,000 -> 16,384, κ=50, ξ=64, τ=10, 20 iterations, batch 1024) on
    ``sift_like`` data: stage seconds, distortion history, recall@κ on
-   1,000 sampled rows against brute force, peak memory, host syncs (counted
-   with ``torch.cuda.set_sync_debug_mode``) and each kernel's launches —
+   1,000 sampled rows against brute force, peak memory, host syncs (the
+   run is under ``obs.syncs.sync_counter``: sync-debug mode "error", so a
+   sync other than its counted reads raises) and each kernel's launches —
    every count is zeroed just before this run and read just after; the
    graph's recall must lie within 0.02 of the same build's (same draws)
-   through the plain versions, on the same rows; then,
+   through the plain versions, on the same rows (that build also records
+   its per-round telemetry for phase 7); then,
    outside the counted run, torch.profiler traces of one engine epoch and
    a two-round graph build at that shape (device-busy time, idle share,
    top kernels);
@@ -72,7 +74,8 @@ plain PyTorch version, or when any phase fails.  Phases:
    10,000 fresh rows, and ``serve_index.sweep`` of nq=10,000 queries at
    nprobe 1..64, topk=10, batch 64, 3 rounds — recall@10 against brute
    force over all 1,010,000 live rows, scan share, p50/p90/p99 ms per
-   batch, QPS, host syncs inside the timed ``search`` calls (must be 0);
+   batch, QPS, host syncs inside the timed ``search`` calls (each under
+   ``sync_counter``; must be 0);
    recall must not fall with nprobe and must lie within 0.002 of the plain
    versions' on the same queries; then ``ivf_scan`` against its plain
    version on that index (nq=10,000 at nprobe 16 and 64 with topk=10 and
@@ -103,7 +106,8 @@ plain PyTorch version, or when any phase fails.  Phases:
    iterations with the early stop), Mini-Batch (k=10,000, batch 1,024,
    10·(n // 1,024) steps), full BKM over the dense source and the engine's
    probe source (p=16, bkm), both k=16,384 from the 2M tree for 10 epochs
-   (the probe run's host syncs, under sync-debug mode, must be epochs + 1),
+   (the probe run's host syncs, under ``sync_counter``, must be epochs +
+   1),
    closure k-means (k=10,000 -> 16,384, 3 trees of leaf 32, 10 iterations)
    and graph search over phase 4's GK-means graph (phase 5's 10,000
    queries, topk=10, ef=32, 24 rounds; recall@10 against the exact top 10
@@ -116,10 +120,29 @@ plain PyTorch version, or when any phase fails.  Phases:
    ``force="ref"``: NN-Descent's recall@κ within 0.02, final distortions
    within 1%, Mini-Batch's final assignment against the plain
    ``assign_centroids``;
-7. one JSON line of the baselines (each path's seconds, quality and
+7. the observability layer (``repro_torch.obs``) on phase 4's data:
+   ``gk_means`` over phase 4's graph with telemetry off and on (same
+   seed), each under ``sync_counter`` (host syncs = epochs + 1), the rows
+   held against the result (moves, distortion, proposed >= moves, hit
+   rate, empty clusters, zero rows past the epochs run), the iter stage
+   and one-epoch runs on against off (telemetry's cost); the main path's
+   graph build through the kernels with telemetry (0 host syncs, rows
+   equal to its diagnostics, mean list distance non-increasing, each
+   round within 1% of phase 4's plain-version build, round 0's overflow
+   equal); torch.profiler traces of 40 f32 served batches and an engine
+   epoch, in which every kernel launch lies in a
+   ``repro_torch.kernels.<name>`` range and the ranges equal the wrapper
+   calls; and ``engine``, ``graph_build`` and ``kernels`` run records
+   (``obs.emit``, in a temporary directory) read back by
+   ``launch/obs_report.py`` (rc 0, all eight kernels, every achieved
+   fraction of the roofline at most 1);
+8. one JSON line of the baselines (each path's seconds, quality and
    launches), one of the kernels (with each kernel's launches on the
    baselines' paths and its numbers at their shapes), the card's
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+
+Every bound comes from ``launch/roofline.py``'s inventory and every
+CUDA-event time from ``obs.timing.device_span``.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -129,16 +152,9 @@ import json
 import subprocess
 import sys
 import time
-import warnings
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-
-# published peaks of one H100 SXM (NVIDIA data sheet) for the bounds
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-BF16_FLOPS = 989e12  # dense tensor-core rate, f32 accumulation
-TF32_FLOPS = 495e12  # dense tensor-core rate; 3xTF32 runs at a third
 
 SIFT_SMALL = dict(n=65_536, d=128, k=1_024, kappa=32, xi=64, tau=8)
 SIFT1M = dict(n=1_000_000, d=128, k=10_000, kappa=50, xi=64, tau=10)
@@ -168,24 +184,23 @@ def nvidia_smi_line() -> str:
 
 
 def time_ms(fn, sets, reps=40):
-    """Mean ms per call over ``reps`` calls cycling through ``sets``."""
+    """Mean ms per call over ``reps`` calls cycling through ``sets``
+    (``obs.timing.device_span``: CUDA events around the calls)."""
     import torch
+    from repro_torch.obs.timing import device_span
     for s in sets[:2]:
         fn(*s)
     torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for i in range(reps):
-        fn(*sets[i % len(sets)])
-    e1.record()
-    e1.synchronize()
-    return e0.elapsed_time(e1) / reps
+    ms = {}
+    with device_span("calls", ms):
+        for i in range(reps):
+            fn(*sets[i % len(sets)])
+    return ms["calls"] / reps
 
 
-def _device_events(fn):
-    """Trace ``fn`` with torch.profiler (CPU and CUDA activity): (the
-    trace's device events, wall seconds of fn)."""
+def _trace_events(fn):
+    """Trace ``fn`` with torch.profiler (CPU and CUDA activity): (all the
+    trace's events, wall seconds of fn)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -195,8 +210,19 @@ def _device_events(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return [ev for ev in prof.events()
-            if ev.device_type == torch.autograd.DeviceType.CUDA], wall
+    return prof.events(), wall
+
+
+def _device_events(fn):
+    """(the device activities of a trace of ``fn``, wall seconds of fn):
+    the kernel scopes' ranges, which the trace also shows on the device
+    timeline, are left out."""
+    import torch
+    from repro_torch.obs.timing import SCOPE_PREFIX
+    events, wall = _trace_events(fn)
+    return [ev for ev in events
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and not ev.name.startswith(SCOPE_PREFIX + ".")], wall
 
 
 def kernel_device_us(fn, sets, names, reps=20, tries=8, *, launches=1):
@@ -237,9 +263,14 @@ def kernel_device_us(fn, sets, names, reps=20, tries=8, *, launches=1):
     return sum(means) if means else None
 
 
-def bound_ms(nbytes, flops, peak=FP32_FLOPS):
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
-    return (tb, "bytes") if tb >= tf else (tf, "operations")
+def bound_ms(name, peak=None, **shape):
+    """(ms, "bytes" | "operations"): kernel ``name``'s bound at ``shape``,
+    its arguments in ``launch/roofline.py``'s inventory (``peak``
+    overrides the inventory's rate)."""
+    from repro_torch.launch.roofline import kernel_terms
+    t = kernel_terms(name, peak=peak, **shape)
+    return (t["bound_s"] * 1e3,
+            "bytes" if t["bottleneck"] == "memory" else "operations")
 
 
 # --------------------------------------------------------------- phase 2
@@ -403,11 +434,10 @@ def check_gather_score(X, k, label="sift1m", C=SIFT1M["kappa"]):
     del gsets
     log(f"gather_score[{label}] yardstick: torch.bmm over pre-gathered "
         f"(B, C+1, d) rows, dots only: {bmm:.4f} ms")
-    x, u, cand, _, _ = sets[0]
-    nbytes = (x.numel() * 4 + u.numel() * 4 + cand.numel() * 4 + D.numel() * 4
-              + cnt.numel() * 4 + B * C * 4)
-    flops = 4 * B * (C + 1) * d
-    bms, by = bound_ms(nbytes, flops)
+    from repro_torch.launch.roofline import kernel_terms
+    shape = dict(B=B, C=C, d=d, k=k)
+    nbytes = kernel_terms("gather_score", **shape)["hbm_bytes"]
+    bms, by = bound_ms("gather_score", **shape)
     gathered = B * (C + 1) * d * 4
     rate = l2_rate()
     floor_us = gathered / rate * 1e6
@@ -418,6 +448,7 @@ def check_gather_score(X, k, label="sift1m", C=SIFT1M["kappa"]):
         f"(copy_ of an L2-resident 16 MiB buffer, read + write bytes, this "
         f"run) -> {floor_us:.3f} us")
     return dict(out, bound_ms=bms, bound_by=by, dots_bmm_ms=bmm,
+                roof_shape=shape,
                 l2_rate_tbs=rate / 1e12, l2_floor_us=floor_us,
                 ok=all(out[m]["ok"] for m in ("bkm", "lloyd")))
 
@@ -538,18 +569,17 @@ def check_refine_merge(X_pad, real_id, n, B=BATCH, C=136):
     valid = cand >= 0
     uniq = int(torch.unique(rows[valid]).numel())
     pairs = int(valid.sum())
-    nbytes = (x.numel() * 4 + rows.numel() * 4 + cand.numel() * 4
-              + oi.numel() * 4 + od.numel() * 4 + uniq * (d * 4 + 4)
-              + 2 * B * kappa * 4)
-    flops = 2 * pairs * d + 3 * pairs + kappa * (kappa + C) * B
-    bms, by = bound_ms(nbytes, flops)
+    from repro_torch.launch.roofline import HBM_BYTES_PER_S, kernel_terms
+    shape = dict(B=B, C=C, kappa=kappa, d=d, uniq_rows=uniq, pairs=pairs)
+    nbytes = kernel_terms("refine_merge", **shape)["hbm_bytes"]
+    bms, by = bound_ms("refine_merge", **shape)
     log(f"refine_merge bound: {nbytes / 1e6:.2f} MB ({uniq} unique valid "
         f"rows of Xsrc) -> {bms * 1e3:.2f} us at 3.35 TB/s ({by}); "
         f"B*C*d*4 = {B * C * d * 4 / 1e6:.2f} MB -> "
         f"{B * C * d * 4 / HBM_BYTES_PER_S * 1e6:.2f} us")
     return dict(max_abs_err=err, ok=ok, ms=ms, plain_ms=plain, bound_ms=bms,
                 bound_by=by, dots_bmm_ms=bmm, id_mismatch_frac=frac,
-                device_us=dev_us)
+                device_us=dev_us, roof_shape=shape)
 
 
 # --------------------------------------------------------------- phase 3/4
@@ -599,10 +629,14 @@ def parity_small():
 
 
 def main_path(X):
+    """Phase 4: the counted run, then the recall reference.  Returns (ok,
+    launches, result, the plain-version build's per-round telemetry)."""
     import torch
     from repro_torch.core.gkmeans import gk_means
     from repro_torch.core.knn_graph import build_knn_graph
     from repro_torch.kernels import _build
+    from repro_torch.obs import telemetry as obs_tel
+    from repro_torch.obs.syncs import sync_counter
     c = SIFT1M
     log(f"main path: gk_means n={c['n']} d={c['d']} k={c['k']} "
         f"kappa={c['kappa']} xi={c['xi']} tau={c['tau']} iters={ITERS} "
@@ -610,19 +644,15 @@ def main_path(X):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            r = gk_means(X, c["k"], kappa=c["kappa"], xi=c["xi"],
-                         tau=c["tau"], iters=ITERS, batch_size=BATCH,
-                         generator=torch.Generator().manual_seed(SEED),
-                         device=DEV)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
+    # sync-debug mode "error": a sync other than gk_means' counted reads
+    # raises
+    with sync_counter() as sc:
+        r = gk_means(X, c["k"], kappa=c["kappa"], xi=c["xi"],
+                     tau=c["tau"], iters=ITERS, batch_size=BATCH,
+                     generator=torch.Generator().manual_seed(SEED),
+                     device=DEV)
     launches = dict(_build.launch_counts)
-    syncs = sum("synchronizing CUDA operation" in str(w.message)
-                for w in caught)
+    syncs = sc.syncs
     peak = torch.cuda.max_memory_allocated()
     truth = sampled_truth(X, c["kappa"], 1000, SEED + 4)
     rec = recall_on(r.graph.ids, truth, c["kappa"])
@@ -634,19 +664,24 @@ def main_path(X):
     log(f"final distortion {r.distortion:.6f}; recall@{c['kappa']} on 1000 "
         f"sampled rows vs brute force {rec:.4f}")
     # the same build (same draws) through the plain versions, outside the
-    # counted run: the recall the kernels must match on the same rows
+    # counted run: the recall the kernels must match on the same rows, and
+    # the per-round telemetry phase 7 holds the kernels' build against
     t0 = time.perf_counter()
-    g_ref = build_knn_graph(X, c["kappa"], xi=c["xi"], tau=c["tau"],
-                            generator=torch.Generator().manual_seed(SEED),
-                            force="ref", device=DEV)
+    g_ref, d_ref = build_knn_graph(
+        X, c["kappa"], xi=c["xi"], tau=c["tau"],
+        generator=torch.Generator().manual_seed(SEED), force="ref",
+        device=DEV, telemetry=True, return_diagnostics=True)
+    ref_tel = obs_tel.to_dict(d_ref.telemetry)
     rec_ref = recall_on(g_ref.ids, truth, c["kappa"])
     log(f"plain-version graph build (force='ref'): recall@{c['kappa']} "
         f"{rec_ref:.4f} on the same rows, diff {abs(rec - rec_ref):.4f} "
         f"(limit {RECALL_TOL}), {time.perf_counter() - t0:.1f} s")
     log(f"peak device memory {peak / 2**30:.3f} GiB "
         f"(torch.cuda.max_memory_allocated)")
-    log(f"host syncs: {syncs} seen by sync-debug mode, {r.host_syncs} "
-        f"documented (epochs {len(r.history)} + 1)")
+    log(f"plain-version build telemetry per round: {json.dumps(ref_tel)}")
+    log(f"host syncs: {syncs} counted by obs.syncs.sync_counter (any other "
+        f"sync raises), {r.host_syncs} documented (epochs {len(r.history)} "
+        "+ 1)")
     log(f"kernel launches on the main path: {json.dumps(launches)}")
     n, k2 = c["n"], r.k
     checks = {
@@ -662,7 +697,7 @@ def main_path(X):
         "recall": abs(rec - rec_ref) <= RECALL_TOL,
     }
     log(f"main-path checks: {json.dumps(checks)}")
-    return all(checks.values()), launches, r
+    return all(checks.values()), launches, r, ref_tel
 
 # --------------------------------------------------------------- IVF phases
 
@@ -792,8 +827,9 @@ def check_centroid_kernels(X, k):
         chk["plain_ms"] = time_ms(
             lambda: ops.probe_centroids(Qp, C, p, force="ref"), [()], reps)
         m = Qp.shape[0]
-        nbytes = 4 * (m * d + k * d + 2 * m * p)
-        chk["bound_ms"], chk["bound_by"] = bound_ms(nbytes, 2 * m * k * d)
+        chk["roof_shape"] = dict(n=m, k=k, d=d, p=p)
+        chk["bound_ms"], chk["bound_by"] = bound_ms("probe_centroids",
+                                                    **chk["roof_shape"])
         log(f"probe_centroids nq={m} k={k} d={d} p={p}: split plan "
             f"{json.dumps(plan)} (row tile, centroids per chunk, chunks S, "
             "pass-1 CTAs)")
@@ -845,15 +881,17 @@ def check_centroid_kernels(X, k):
             max(1, reps // 3))
         # the f32 products at the 3xTF32 rate (three TF32 products each,
         # the least time for them at f32 accuracy) and at the FP32 rate
-        nbytes = 4 * (m * dd + kk * dd + 2 * m)
-        flops = 2 * m * kk * dd
-        chk["bound_ms"], chk["bound_by"] = bound_ms(nbytes, 3 * flops,
-                                                    TF32_FLOPS)
-        chk["bound_fp32_ms"], _ = bound_ms(nbytes, flops)
+        from repro_torch.launch.roofline import FP32_FLOPS, TF32X3_FLOPS
+        chk["roof_shape"] = dict(n=m, k=kk, d=dd)
+        chk["bound_ms"], chk["bound_by"] = bound_ms("assign_centroids",
+                                                    **chk["roof_shape"])
+        chk["bound_fp32_ms"], _ = bound_ms("assign_centroids",
+                                           peak=FP32_FLOPS,
+                                           **chk["roof_shape"])
         log(f"assign_centroids {key} n={m} k={kk} d={dd}: split plan "
             f"{json.dumps(plan)} (row tile, centroids per chunk, chunks S, "
             f"pass-1 CTAs); bounds {chk['bound_ms']:.4f} ms (3xTF32 at "
-            f"{TF32_FLOPS / 3e12:.0f} TFLOP/s, {chk['bound_by']}), "
+            f"{TF32X3_FLOPS / 1e12:.0f} TFLOP/s, {chk['bound_by']}), "
             f"{chk['bound_fp32_ms']:.4f} ms (FP32)")
         out["assign"][key] = chk
     # device time per call (both passes), traced after the event timings
@@ -996,8 +1034,9 @@ def check_scan_kernel(index, Q, X_all):
         R = int(live_per_tile[tm.long()].sum())        # live rows scanned
         chk["rows_per_query"] = R / nq
         chk["tile_slots"] = tm.shape[1]
-        nbytes = 4 * (nq * d + R * d + 2 * nq * topk)
-        chk["bound_ms"], chk["bound_by"] = bound_ms(nbytes, 2 * R * d)
+        chk["roof_shape"] = dict(nq=nq, rows=R, d=d, topk=topk)
+        chk["bound_ms"], chk["bound_by"] = bound_ms("ivf_scan",
+                                                    **chk["roof_shape"])
         if nprobe == 16:
             # yardstick: torch.bmm over rows gathered beforehand (dots only,
             # no selection) for up to FAULT_Q queries, padded to the longest
@@ -1418,8 +1457,9 @@ def check_adc_kernel(label, ix, Q, tm, live_per_tile, topk):
     R = int(live_per_tile[tm.long()].sum())            # live rows scanned
     chk["rows_per_query"] = R / nq
     chk["lut_bytes"] = M * W * 4
-    nbytes = 4 * nq * M * W + R * (M + 4) + 12 * nq * topk
-    chk["bound_ms"], chk["bound_by"] = bound_ms(nbytes, 2 * R * M)
+    chk["roof_shape"] = dict(nq=nq, rows=R, M=M, W=W, topk=topk)
+    chk["bound_ms"], chk["bound_by"] = bound_ms("ivf_scan_adc",
+                                                **chk["roof_shape"])
     chk["plan"] = plan
     log(f"ivf_scan_adc[{label}] nq={nq} M={M} W={W} topk={topk} "
         f"T={tm.shape[1]}: split plan {json.dumps(plan)} (chunks S of each "
@@ -1515,8 +1555,10 @@ def check_grouped_kernel(index, Q, X_all, tm, live_per_tile, G=8, topk=10):
     chk["union_rows_per_group"] = union_rows / union.shape[0]
     chk["rows_per_query"] = pairs / nq
     chk["union_slots"] = union.shape[1]
-    nbytes = 4 * (nq * d + union_rows * d + 2 * nq * topk)
-    chk["bound_ms"], chk["bound_by"] = bound_ms(nbytes, 2 * pairs * d)
+    chk["roof_shape"] = dict(nq=nq, union_rows=union_rows, pairs=pairs, d=d,
+                             topk=topk)
+    chk["bound_ms"], chk["bound_by"] = bound_ms("ivf_scan_grouped",
+                                                **chk["roof_shape"])
     # yardstick: torch.bmm of each group's queries against its union's live
     # rows gathered beforehand (dots only, no mask, no selection), for
     # up to FAULT_Q // G groups, padded to the widest, scaled to all groups
@@ -1702,10 +1744,9 @@ def check_pairwise_sq(X):
         # included (the norms): B·m(m+1)/2 dots of d FMAs.  A bf16×bf16
         # product is exact in f32, so bf16 input is held to the tensor-core
         # rate with f32 accumulation, f32 input to the FP32 rate (no TF32)
-        nbytes = 4 * B * m * m + Xb.element_size() * B * m * d
-        chk["bound_ms"], chk["bound_by"] = bound_ms(
-            nbytes, B * m * (m + 1) * d,
-            BF16_FLOPS if Xb.dtype == torch.bfloat16 else FP32_FLOPS)
+        chk["roof_shape"] = dict(B=B, m=m, d=d, itemsize=Xb.element_size())
+        chk["bound_ms"], chk["bound_by"] = bound_ms("pairwise_sq",
+                                                    **chk["roof_shape"])
         out["shapes"][key] = chk
     # device time per launch, traced after all the event timings above
     for key, Xb in shapes.items():
@@ -1733,10 +1774,14 @@ def profile_serving(index, Q, label="f32", **search_kw):
     profile_window(f"IVF serving {label} nprobe=16, 40 batches of 64", loop)
 
 
+# the device kernels of the eight wrappers, as a trace names them
+KERNEL_MARKERS = ("gather_score_kernel", "refine_merge_kernel",
+                  *PROBE_KERNELS, *ASSIGN_KERNELS, *SCAN_KERNELS,
+                  *ADC_KERNELS, *GROUPED_KERNELS, *PAIR_KERNELS)
+
+
 def _short(name: str) -> str:
-    for key in ("gather_score_kernel", "refine_merge_kernel",
-                *PROBE_KERNELS, *ASSIGN_KERNELS, *SCAN_KERNELS,
-                *ADC_KERNELS, *GROUPED_KERNELS, *PAIR_KERNELS):
+    for key in KERNEL_MARKERS:
         if key in name:
             return key
     return name if len(name) <= 70 else name[:67] + "..."
@@ -1824,27 +1869,24 @@ def counted(fn, syncs=False):
     """One counted run of a path: (result, seconds, launches, host syncs).
 
     Every launch count is zeroed just before ``fn`` and read just after;
-    seconds are host-clock with the device synchronised at both edges; host
-    syncs are those sync-debug mode reports inside ``fn`` (when ``syncs``)."""
+    seconds are host-clock with the device synchronised at both edges; with
+    ``syncs``, ``fn`` runs under ``obs.syncs.sync_counter`` (a sync other
+    than a counted read raises) and the count is its reads, else None."""
     import torch
     from repro_torch.kernels import _build
+    from repro_torch.obs.syncs import sync_counter
     torch.cuda.synchronize()
     _build.reset_launch_counts()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        if syncs:
-            torch.cuda.set_sync_debug_mode("warn")
-        t0 = time.perf_counter()
-        try:
+    t0 = time.perf_counter()
+    if syncs:
+        with sync_counter() as sc:
             out = fn()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
+    else:
+        out = fn()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(_build.launch_counts)
-    nsync = sum("synchronizing CUDA operation" in str(w.message)
-                for w in caught)
-    return out, secs, launches, nsync
+    return out, secs, launches, sc.syncs if syncs else None
 
 
 def probe_run(X, assign0, k, force=None, seed=34):
@@ -1854,13 +1896,14 @@ def probe_run(X, assign0, k, force=None, seed=34):
     documents)."""
     import torch
     from repro_torch.core import engine
+    from repro_torch.obs import syncs
     b = BASE
     cfg = engine.EngineConfig(batch_size=BATCH, mode="bkm", iters=b["epochs"],
                               min_move_frac=-1.0, force=force)
     res = engine.run(X, engine.init_state(X, assign0, k),
                      engine.probe_source(b["probe_p"]), cfg,
                      generator=torch.Generator().manual_seed(SEED + seed))
-    return res.history, float(res.final), res.host_syncs + 1
+    return res.history, float(syncs.read(res.final)), res.host_syncs + 1
 
 
 def baselines_small():
@@ -1960,10 +2003,11 @@ def check_path_shapes(X):
     chk["plain_ms"] = time_ms(lambda: ops.assign_centroids(X, C,
                                                            force="ref"),
                               [()], 1)
-    nbytes, flops = 4 * (n * d + k * d + 2 * n), 2 * n * k * d
-    chk["bound_ms"], chk["bound_by"] = bound_ms(nbytes, 3 * flops,
-                                                TF32_FLOPS)
-    chk["bound_fp32_ms"], _ = bound_ms(nbytes, flops)
+    from repro_torch.launch.roofline import FP32_FLOPS
+    chk["bound_ms"], chk["bound_by"] = bound_ms("assign_centroids", n=n, k=k,
+                                                d=d)
+    chk["bound_fp32_ms"], _ = bound_ms("assign_centroids", peak=FP32_FLOPS,
+                                       n=n, k=k, d=d)
     out["assign"] = chk
     k2, p, B = 1 << (SIFT1M["k"] - 1).bit_length(), BASE["probe_p"], BATCH
     Cp = X[torch.randperm(n, generator=g, device=DEV)[:k2]].contiguous()
@@ -1979,8 +2023,8 @@ def check_path_shapes(X):
                                                           force="ref"),
                               [()], 10)
     chk["mm_ms"] = time_ms(lambda: torch.matmul(xb, Cp.T), [()], 20)
-    chk["bound_ms"], chk["bound_by"] = bound_ms(
-        4 * (B * d + k2 * d + 2 * B * p), 2 * B * k2 * d)
+    chk["bound_ms"], chk["bound_by"] = bound_ms("probe_centroids", n=B,
+                                                k=k2, d=d, p=p)
     out["probe"] = chk
     # device time per call, traced after the event timings
     out["assign"]["device_us"] = kernel_device_us(
@@ -2122,6 +2166,277 @@ def baselines_phase(X, r, Q):
                                       gather_score=gs, sift_small=small)
 
 
+# --------------------------------------------------------------- phase 7
+
+OBS_EPOCHS = 12         # one-epoch runs, telemetry on and off in turns
+ENGINE_SLOTS = ("moves", "proposed", "empty_clusters", "distortion",
+                "hit_rate")
+BUILD_SLOTS = ("overflow", "guided_moves", "graph_updates",
+               "graph_mean_dist")
+
+
+def engine_telemetry(X, r):
+    """Phase 7.1: ``gk_means`` over phase 4's graph, telemetry off and then
+    on (same generator seed, so the same work), each under the strict sync
+    counter; the rows held against the result; then one-epoch
+    ``engine.run`` calls from one state, on and off in turns, for the
+    per-epoch cost."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.core.gkmeans import gk_means
+    from repro_torch.core.permute import draw_words
+    from repro_torch.kernels import _build
+    from repro_torch.obs import telemetry as obs_tel
+    from repro_torch.obs.syncs import sync_counter
+    c = SIFT1M
+    runs = {}
+    for tel in (False, True):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        with sync_counter() as sc:
+            rr = gk_means(X, c["k"], kappa=c["kappa"], iters=ITERS,
+                          batch_size=BATCH, graph=r.graph, telemetry=tel,
+                          generator=torch.Generator().manual_seed(SEED + 50),
+                          device=DEV)
+        runs[tel] = dict(res=rr, syncs=sc.syncs,
+                         launches=dict(_build.launch_counts))
+    on, off = runs[True], runs[False]
+    rr = on["res"]
+    ep = len(rr.history)
+    d = obs_tel.to_dict(rr.telemetry)          # CPU rows: no device read
+    moves, prop = d["moves"][:ep], d["proposed"][:ep]
+    hist32 = [float(torch.tensor(h, dtype=torch.float32)) for h in rr.history]
+    checks = {
+        "syncs": on["syncs"] == rr.host_syncs == ep + 1,
+        "syncs_off": off["syncs"] == off["res"].host_syncs
+        == len(off["res"].history) + 1,
+        "moves": moves == rr.moves,
+        "distortion": d["distortion"][:ep] == hist32,
+        "proposed_ge_moves": all(p >= m for p, m in zip(prop, moves)),
+        "hit_rate": all(abs(h - m / max(p, 1)) <= 1e-6 for h, m, p in zip(
+            d["hit_rate"][:ep], moves, prop)),
+        "empty_clusters": all(0 <= e < rr.k
+                              for e in d["empty_clusters"][:ep]),
+        "rows_past_epochs_zero": all(v == 0 for vals in d.values()
+                                     for v in vals[ep:]),
+        "gather_score_launched": on["launches"]["gather_score"] > 0,
+        "off_has_no_rows": off["res"].telemetry is None,
+    }
+    log(f"engine telemetry (gk_means over phase 4's graph, k={c['k']} -> "
+        f"{rr.k}, {ITERS} iterations), rows per epoch:")
+    for t in range(ep):
+        log("  " + json.dumps({s: d[s][t] for s in ENGINE_SLOTS}))
+    # the cost: one-epoch runs from one state with the same words, in turns
+    src = engine.graph_source(r.graph.ids)
+    words = [draw_words(torch.Generator().manual_seed(SEED + 51))]
+    epoch_s = {True: [], False: []}
+    for tel in (True, False, False, True) * (OBS_EPOCHS // 4):
+        st = engine.init_state(X, r.assign, r.k)
+        cfg = engine.EngineConfig(batch_size=BATCH, iters=1, telemetry=tel)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.run(X, st, src, cfg, epoch_words=words)
+        torch.cuda.synchronize()
+        epoch_s[tel].append(time.perf_counter() - t0)
+    # the work telemetry adds to an epoch, alone: one pre-guard sum and add
+    # a batch (the per-epoch row is a handful of ops more)
+    nb = c["n"] // BATCH
+    moved = torch.rand(BATCH, device=DEV) < 0.5
+    prop = torch.zeros((), dtype=torch.int32, device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(nb):
+        prop.add_(moved.sum(dtype=torch.int32))
+    torch.cuda.synchronize()
+    added_s = time.perf_counter() - t0
+    med = {tel: sorted(v)[len(v) // 2] for tel, v in epoch_s.items()}
+    out = dict(
+        iter_s_on=rr.seconds["iter"], iter_s_off=off["res"].seconds["iter"],
+        epochs_on=ep, epochs_off=len(off["res"].history),
+        epoch_s_on=epoch_s[True], epoch_s_off=epoch_s[False],
+        epoch_s_on_mean=sum(epoch_s[True]) / len(epoch_s[True]),
+        epoch_s_off_mean=sum(epoch_s[False]) / len(epoch_s[False]),
+        epoch_s_on_median=med[True], epoch_s_off_median=med[False],
+        added_work_s=added_s, host_syncs=on["syncs"], distortion=rr.distortion,
+        distortion_off=off["res"].distortion,
+        gather_score_launches=on["launches"]["gather_score"],
+        rows={s: d[s][:ep] for s in ENGINE_SLOTS}, checks=checks)
+    log(f"engine telemetry cost: iter stage {out['iter_s_on']:.3f} s on, "
+        f"{out['iter_s_off']:.3f} s off ({ep} and {out['epochs_off']} "
+        f"epochs); one-epoch run {out['epoch_s_on_mean']:.4f} s on, "
+        f"{out['epoch_s_off_mean']:.4f} s off, medians {med[True]:.4f} and "
+        f"{med[False]:.4f} (each of {OBS_EPOCHS // 2}: on {epoch_s[True]}, "
+        f"off {epoch_s[False]}); the added work alone ({nb} pre-guard sums "
+        f"and adds) {added_s:.4f} s; host syncs "
+        f"{on['syncs']} (epochs + 1 = {ep + 1}); checks {json.dumps(checks)}")
+    return all(checks.values()), out
+
+
+def build_telemetry(X, ref_tel):
+    """Phase 7.2: the main path's graph build (phase 4's seed) through the
+    kernels with telemetry, under the strict sync counter (a build reads
+    nothing back); its rows against its own diagnostics, round to round,
+    and against the plain versions' build of phase 4 (``ref_tel``)."""
+    import torch
+    from repro_torch.core.knn_graph import build_knn_graph
+    from repro_torch.kernels import _build
+    from repro_torch.obs import telemetry as obs_tel
+    from repro_torch.obs.syncs import sync_counter
+    c = SIFT1M
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with sync_counter() as sc:
+        _, diag = build_knn_graph(
+            X, c["kappa"], xi=c["xi"], tau=c["tau"],
+            generator=torch.Generator().manual_seed(SEED), device=DEV,
+            telemetry=True, return_diagnostics=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    d = obs_tel.to_dict(diag.telemetry)
+    md, md_ref = d["graph_mean_dist"], ref_tel["graph_mean_dist"]
+    checks = {
+        "syncs": sc.syncs == 0,
+        "overflow": d["overflow"] == diag.overflow.tolist(),
+        "guided_moves": d["guided_moves"] == diag.guided_moves.tolist(),
+        "mean_dist_non_increasing": all(
+            b <= a * (1 + 1e-6) for a, b in zip(md, md[1:])),
+        "updates_round0": d["graph_updates"][0] > 0,
+        "mean_dist_vs_plain": len(md) == len(md_ref) and all(
+            abs(a - b) <= 0.01 * b for a, b in zip(md, md_ref)),
+        "overflow_round0_vs_plain": d["overflow"][0] == ref_tel["overflow"][0],
+        "refine_merge_launched": launches["refine_merge"] > 0,
+    }
+    gaps = [abs(a - b) / b for a, b in zip(md, md_ref)]
+    log(f"graph-build telemetry (n={c['n']} kappa={c['kappa']} xi={c['xi']} "
+        f"tau={c['tau']}, {secs:.3f} s, {sc.syncs} host syncs), rows per "
+        "round:")
+    for t in range(c["tau"]):
+        log("  " + json.dumps({s: d[s][t] for s in BUILD_SLOTS}))
+    log(f"graph_mean_dist through the kernels vs the plain versions, "
+        f"relative gap per round {gaps} (limit 0.01); launches "
+        f"{json.dumps(launches)}; checks {json.dumps(checks)}")
+    return all(checks.values()), dict(seconds=secs, host_syncs=sc.syncs,
+                                      rows={s: d[s] for s in BUILD_SLOTS},
+                                      mean_dist_gap=gaps, checks=checks)
+
+
+def scope_check(label, fn):
+    """Phase 7.3: trace ``fn`` (launch counts zeroed just before).  The
+    ranges of each ``repro_torch.kernels.<name>`` must equal its wrapper
+    calls, each range must hold at least one kernel launch of the CUDA
+    runtime, and every device launch of the eight kernels that the trace
+    kept must come from a launch inside a range.  (A trace loses some
+    device records, see ``kernel_device_us``; the host's it keeps.)"""
+    from repro_torch.kernels import _build
+    from repro_torch.obs.timing import scope_coverage
+    _build.reset_launch_counts()
+    events, _ = _trace_events(fn)
+    launches = {k: v for k, v in _build.launch_counts.items() if v}
+    cov = scope_coverage(events, KERNEL_MARKERS)
+    ok = (bool(launches) and cov["ranges"] == launches
+          and all(cov["range_launches"].get(k, 0) >= v
+                  for k, v in launches.items())
+          and cov["in_range"] == cov["device_launches"] > 0)
+    log(f"kernel scopes[{label}]: ranges {cov['ranges']}, wrapper calls "
+        f"{launches}, runtime launches inside the ranges "
+        f"{cov['range_launches']}, device launches the trace kept "
+        f"{cov['device_launches']}, of them launched in a range "
+        f"{cov['in_range']} {'OK' if ok else 'FAIL'}")
+    return ok, dict(cov, launches=launches)
+
+
+def kernel_entries(gs, rm, ca, sc, cc, pw):
+    """Each kernel's device us per call at its main shape from phase 2 (the
+    kernels line's), with its inventory arguments; CUDA-event time of a
+    wrapper call where the trace kept no device time."""
+    picks = (("gather_score", gs, gs["bkm"]), ("refine_merge", rm, rm),
+             ("probe_centroids", ca["probe"][16], ca["probe"][16]),
+             ("assign_centroids", ca["assign"]["n10k"], ca["assign"]["n10k"]),
+             ("ivf_scan", sc[16], sc[16]),
+             ("ivf_scan_adc", cc["adc"]["pq8"], cc["adc"]["pq8"]),
+             ("ivf_scan_grouped", cc["grouped"], cc["grouped"]),
+             ("pairwise_sq", pw["shapes"]["sift1m"], pw["shapes"]["sift1m"]))
+    out = []
+    for name, shaped, timed in picks:
+        us, how = timed.get("device_us"), "torch.profiler device time a call"
+        if us is None:
+            us, how = timed["ms"] * 1e3, "CUDA events a wrapper call"
+        out.append({"kernel": name, "shape": shaped["roof_shape"], "us": us,
+                    "us_from": how})
+    return out
+
+
+def obs_phase(X, r, ref_tel, index, Q, entries):
+    """Phase 7, the observability layer on phase 4's data: engine and
+    graph-build telemetry, the kernel scopes in two traces, and the run
+    records read back by ``launch/obs_report.py``."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch import index as ivf
+    from repro_torch.core import engine
+    from repro_torch.core.permute import draw_words
+    from repro_torch.kernels import _build
+    from repro_torch.launch import obs_report
+    from repro_torch.obs import emit
+    t_phase = time.perf_counter()
+    c = SIFT1M
+    ok_eng, eng = engine_telemetry(X, r)
+    ok_build, build = build_telemetry(X, ref_tel)
+    b = SERVE["batch"]
+
+    def served():
+        for b0 in range(0, 40 * b, b):
+            ivf.search(index, Q[b0:b0 + b], topk=SERVE["topk"], nprobe=16)
+            torch.cuda.synchronize()
+    st = engine.init_state(X, r.assign, r.k)
+    src = engine.graph_source(r.graph.ids)
+    words = draw_words(torch.Generator().manual_seed(SEED + 6))
+    ok_s1, sc_served = scope_check("f32 served batches, nprobe=16", served)
+    ok_s2, sc_epoch = scope_check("engine epoch", lambda: engine.epoch(
+        X, st, src, words, engine.EngineConfig(batch_size=BATCH)))
+    kernels = [e["kernel"] for e in entries]
+    krec = emit.run_record(
+        "kernels", metrics={"kernels": entries},
+        notes=["device us per call at each kernel's main shape, phase 2"])
+    erec = emit.run_record(
+        "engine", shapes=dict(n=c["n"], d=c["d"], k=r.k),
+        config=dict(iters=ITERS, batch_size=BATCH, kappa=c["kappa"],
+                    telemetry=True),
+        metrics={key: eng[key] for key in (
+            "iter_s_on", "iter_s_off", "epochs_on", "epoch_s_on_median",
+            "epoch_s_off_median", "added_work_s", "host_syncs",
+            "distortion")},
+        telemetry=eng["rows"])
+    grec = emit.run_record(
+        "graph_build", shapes=dict(n=c["n"], d=c["d"]),
+        config=dict(kappa=c["kappa"], xi=c["xi"], tau=c["tau"],
+                    telemetry=True),
+        metrics=dict(seconds=build["seconds"],
+                     host_syncs=build["host_syncs"]),
+        telemetry=build["rows"])
+    with tempfile.TemporaryDirectory() as tmp:
+        for rec in (krec, erec, grec):
+            emit.write_json(os.path.join(tmp, f"BENCH_{rec['name']}.json"),
+                            rec)
+        rc = obs_report.main(["--dir", tmp, "--require", "kernels", "engine",
+                              "graph_build", *kernels])
+        fracs = {row["kernel"]: row["achieved_frac"]
+                 for row in obs_report.kernel_rows(krec)}
+    checks = dict(engine=ok_eng, graph_build=ok_build, scopes_served=ok_s1,
+                  scopes_epoch=ok_s2, obs_report_rc0=rc == 0,
+                  every_kernel=sorted(kernels) == sorted(_build.KERNELS),
+                  achieved_at_most_1=all(f <= 1.0 for f in fracs.values()))
+    secs = time.perf_counter() - t_phase
+    log(f"obs phase: achieved fractions {json.dumps(fracs)}; checks "
+        f"{json.dumps(checks)}; {secs:.1f} s")
+    return all(checks.values()), dict(
+        seconds=secs, engine=eng, graph_build=build, achieved_frac=fracs,
+        scopes={"served": sc_served, "epoch": sc_epoch}, checks=checks)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2178,7 +2493,7 @@ def main() -> int:
     if not ivf_parity_small(X_small, r_small):
         failures.append("SIFT_SMALL IVF parity")
     del X_small, r_small
-    ok_main, launches, res = main_path(X)
+    ok_main, launches, res, ref_tel = main_path(X)
     if not ok_main:
         failures.append("main path")
     profile_main_path(X, res)
@@ -2205,6 +2520,10 @@ def main() -> int:
     ok_base, base = baselines_phase(X, res, Q)
     if not ok_base:
         failures.append("baselines")
+    ok_obs, _ = obs_phase(X, res, ref_tel, index, Q,
+                          kernel_entries(gs, rm, ca, sc, cc, pw))
+    if not ok_obs:
+        failures.append("obs layer")
     del X
 
     kernels = [

@@ -17,9 +17,14 @@ Differences from the reference, all stated:
   rounding, and a run can diverge from it once one borderline move flips.
 * Host syncs: ``run`` reads each epoch's move count (with its distortion)
   once, for the ``min_move_frac`` early stop — ONE host sync per epoch —
-  where the reference's in-trace ``while_loop`` syncs once per run.  An
-  epoch itself syncs nothing: the visit order is made on the CPU and copied
-  without blocking (``core.permute``).
+  where the reference's in-trace ``while_loop`` syncs once per run.  The
+  read goes through ``obs.syncs.read``, so an active ``sync_counter``
+  counts it.  An epoch itself syncs nothing: the visit order is made on the
+  CPU and copied without blocking (``core.permute``).
+* Telemetry (``EngineConfig(telemetry=True)``): ``run`` fills one row per
+  epoch on the device (``RunResult.telemetry``) and adds no host sync; the
+  rows stay on the device.  With it off, the move step launches nothing
+  more than it does without the option.
 
 Candidate sources: ``graph`` (the clusters of the sample's κ neighbours),
 ``dense`` (all k clusters, scored with one ``(B, k)`` matmul, as the
@@ -29,9 +34,9 @@ runs it in lloyd mode) and ``probe`` (the p clusters whose centroids
 the sample's own cluster as the last column, so empty cells cannot crowd
 it out).  The probe kernel's cap p <= 128 is a stated difference:
 ``probe_source`` raises above it.  Out of scope (raise
-``NotImplementedError``): ``shards > 1``, ``payload_bf16``, ``valid`` masks
-and ``telemetry``.  ``sparse_updates`` is accepted: on one device it is the
-same plain scatter (``repro/core/engine.py:620-622``).
+``NotImplementedError``): ``shards > 1``, ``payload_bf16`` and ``valid``
+masks.  ``sparse_updates`` is accepted: on one device it is the same plain
+scatter (``repro/core/engine.py:620-622``).
 """
 from __future__ import annotations
 
@@ -43,6 +48,8 @@ from repro_torch.core import permute
 from repro_torch.core.objective import cluster_stats
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.centroid_assign import MAX_P
+from repro_torch.obs import syncs
+from repro_torch.obs import telemetry as obs_tel
 
 
 class BKMState(NamedTuple):
@@ -72,7 +79,7 @@ class EngineConfig(NamedTuple):
     payload_bf16: bool = False
     shards: int = 1
     force: Optional[str] = None  # kernel dispatch override (None | 'ref')
-    telemetry: bool = False
+    telemetry: bool = False     # `run`: per-epoch Telemetry rows
 
 
 def init_state(X: torch.Tensor, assign: torch.Tensor, k: int) -> BKMState:
@@ -105,8 +112,6 @@ def _check_cfg(cfg: EngineConfig, source: CandidateSource) -> None:
         raise NotImplementedError("shards > 1: not ported yet")
     if cfg.payload_bf16:
         raise NotImplementedError("payload_bf16: not ported yet")
-    if cfg.telemetry:
-        raise NotImplementedError("telemetry: not ported yet")
     if source.kind not in ("graph", "dense", "probe"):
         raise NotImplementedError(f"{source.kind} source: not ported yet")
     if cfg.mode not in ("bkm", "lloyd"):
@@ -167,11 +172,12 @@ def _score_dense(xb, u, D, cnt, mode, eps):
 
 
 def _move_step(X, st: BKMState, idx, lookup, source, cfg: EngineConfig,
-               cbuf=None):
+               cbuf=None, proposed=None):
     """One batched candidate -> score -> move step, in place on ``st``.
 
     ``cbuf`` (k, d): the probe source's centroid buffer, refilled here with
-    ``D / max(cnt, 1)`` from the live statistics."""
+    ``D / max(cnt, 1)`` from the live statistics.  ``proposed`` (() int32,
+    or None): adds the batch's moves before the leaver guard."""
     k = st.cnt.shape[0]
     xb = X[idx]
     u = st.assign[idx]
@@ -189,6 +195,8 @@ def _move_step(X, st: BKMState, idx, lookup, source, cfg: EngineConfig,
             cand = lookup[source.G[idx]]                  # (B, κ) int32
         moved, want_v = _score_gathered(xb, u, cand, st.D, st.cnt, cfg.mode,
                                         cfg.eps, cfg.force)
+    if proposed is not None:
+        proposed.add_(moved.sum(dtype=torch.int32))
     # leaver guard: block all leavers of a cluster whose leaver count would
     # reach its population (conservative, rare)
     ul = u.long()
@@ -206,14 +214,20 @@ def _move_step(X, st: BKMState, idx, lookup, source, cfg: EngineConfig,
 
 
 def epoch(X: torch.Tensor, state: BKMState, source: CandidateSource,
-          words: permute.Words, cfg: EngineConfig = EngineConfig()
-          ) -> BKMState:
+          words: permute.Words, cfg: EngineConfig = EngineConfig(),
+          proposed: Optional[torch.Tensor] = None) -> BKMState:
     """One pass over a shuffled view of the data in mini-batches.
 
     Visits ``n // bs * bs`` samples in the Feistel order of ``words`` (the
     epoch's 4 subkey words).  Candidates come from the epoch-start
     assignment.  Updates ``state`` in place and returns it with ``moves``
     set to this epoch's accepted moves.  No host sync.
+
+    ``proposed``: a side tensor (() int32 on X's device) that receives the
+    epoch's moves proposed before the leaver guard (zeroed first) — how
+    ``run`` fills its telemetry; the reference's ``_epoch_impl`` returns
+    that count beside the state.  None (the default) counts nothing, with
+    ``cfg.telemetry`` on or off.
     """
     _check_cfg(cfg, source)
     n = X.shape[0]
@@ -223,9 +237,11 @@ def epoch(X: torch.Tensor, state: BKMState, source: CandidateSource,
     lookup = state.assign.clone()         # epoch-start snapshot
     cbuf = torch.empty_like(state.D) if source.kind == "probe" else None
     state.moves.zero_()
+    if proposed is not None:
+        proposed.zero_()
     for i in range(nb):
         _move_step(X, state, order[i * bs:(i + 1) * bs], lookup, source, cfg,
-                   cbuf)
+                   cbuf, proposed)
     return state
 
 
@@ -244,6 +260,10 @@ class RunResult(NamedTuple):
     epochs: int
     final: torch.Tensor     # () f32 distortion after the last epoch
     host_syncs: int         # host syncs this run performed
+    # per-epoch Telemetry on X's device (cfg.telemetry; else None): moves,
+    # proposed, empty_clusters, distortion, hit_rate; rows past the epochs
+    # run stay 0
+    telemetry: Optional[obs_tel.Telemetry] = None
 
 
 def run(X: torch.Tensor, state: BKMState, source: CandidateSource,
@@ -255,7 +275,8 @@ def run(X: torch.Tensor, state: BKMState, source: CandidateSource,
     reference's ``jax.random.bits(fold_in(key, t), (4,))``); otherwise they
     are drawn from ``generator`` (a CPU ``torch.Generator``).  Host syncs:
     exactly one per epoch run (its move count and distortion are read
-    together for the early stop); the final distortion stays on device.
+    together for the early stop, through ``obs.syncs.read``); the final
+    distortion stays on device, and so does the telemetry.
     """
     _check_cfg(cfg, source)
     if epoch_words is None and generator is None:
@@ -264,17 +285,28 @@ def run(X: torch.Tensor, state: BKMState, source: CandidateSource,
     xsq_total = (X.float() ** 2).sum()
     thresh = cfg.min_move_frac * n
     hist, mhist = [], []
-    syncs = 0
+    reads = 0
+    tel = obs_tel.init(cfg.iters, X.device) if cfg.telemetry else None
+    prop = (torch.zeros((), dtype=torch.int32, device=X.device)
+            if cfg.telemetry else None)
     for t in range(cfg.iters):
         words = (epoch_words[t] if epoch_words is not None
                  else permute.draw_words(generator))
-        epoch(X, state, source, words, cfg)
+        epoch(X, state, source, words, cfg, prop)
         dist = stats_distortion(xsq_total, state.D, state.cnt, n)
-        m, dv = torch.stack([state.moves.double(), dist.double()]).tolist()
-        syncs += 1
+        if tel is not None:
+            obs_tel.record(
+                tel, t, moves=state.moves, proposed=prop,
+                empty_clusters=(state.cnt <= 0.0).sum(dtype=torch.int32),
+                distortion=dist,
+                hit_rate=state.moves.float() / torch.clamp(prop.float(),
+                                                           min=1.0))
+        m, dv = syncs.read(torch.stack([state.moves.double(),
+                                        dist.double()])).tolist()
+        reads += 1
         hist.append(dv)
         mhist.append(int(m))
         if m <= thresh:
             break
     final = stats_distortion(xsq_total, state.D, state.cnt, n)
-    return RunResult(state, hist, mhist, len(hist), final, syncs)
+    return RunResult(state, hist, mhist, len(hist), final, reads, tel)

@@ -8,8 +8,12 @@ epochs where each sample scores only its κ neighbours' clusters.
 Host syncs: one per engine epoch (the early-stop test, see ``core.engine``)
 plus one for the final distortion — ``epochs + 1`` in all, counted in
 ``GKMeansResult.host_syncs``; the graph build and the initialisation sync
-nothing.  (The ``span`` timers synchronise the device at their edges to
-time it.)
+nothing.  Each of those reads goes through ``obs.syncs.read``, so under
+``obs.syncs.sync_counter()`` the counter gives the same number and any
+other sync raises.  (The ``span`` timers synchronise the device at their
+edges to time it; sync-debug mode does not report that.)  With
+``telemetry=True`` the engine's per-epoch rows come back in the same final
+read as the distortion.
 """
 from __future__ import annotations
 
@@ -23,6 +27,8 @@ from repro_torch.core import engine
 from repro_torch.core.graph_build import BuildDiagnostics
 from repro_torch.core.knn_graph import KnnGraph, build_knn_graph
 from repro_torch.core.two_means import pad_plan, two_means_tree
+from repro_torch.obs import syncs
+from repro_torch.obs import telemetry as obs_tel
 from repro_torch.obs.timing import span
 
 
@@ -38,6 +44,9 @@ class GKMeansResult:
     seconds: dict = field(default_factory=dict)
     graph_diag: Optional[BuildDiagnostics] = None
     host_syncs: int = 0
+    # the engine's per-epoch Telemetry on the CPU (gk_means(telemetry=True);
+    # else None)
+    telemetry: Optional[obs_tel.Telemetry] = None
 
 
 def _tree_init(X: torch.Tensor, k: int,
@@ -72,10 +81,10 @@ def gk_means(X, k: int, *, kappa: int = 32, xi: int = 64, tau: int = 8,
     (a CPU ``torch.Generator``; seeded from 0 when omitted), so two runs
     from equal generators make the same draws.  ``graph``: a pre-built
     KnnGraph; None builds Alg. 3's own.  ``force="ref"`` runs the plain
-    PyTorch versions of the kernels.
+    PyTorch versions of the kernels.  ``telemetry``: the engine's per-epoch
+    rows in ``GKMeansResult.telemetry``, as the reference's (the graph build
+    is not instrumented here).
     """
-    if telemetry:
-        raise NotImplementedError("telemetry: not ported yet")
     dev = resolve_device(device)
     X = as_f32(X, dev)
     if generator is None:
@@ -98,9 +107,18 @@ def gk_means(X, k: int, *, kappa: int = 32, xi: int = 64, tau: int = 8,
         state = engine.init_state(X, assign, k2)
         cfg = engine.EngineConfig(batch_size=min(batch_size, n), mode=mode,
                                   iters=iters, min_move_frac=min_move_frac,
-                                  force=force)
+                                  force=force, telemetry=telemetry)
         res = engine.run(X, state, source, cfg, generator=generator)
         C = res.state.D / torch.clamp(res.state.cnt, min=1.0)[:, None]
-        final = float(res.final)                         # the last host sync
+        # the last host sync: the final distortion, with the telemetry
+        # packed beside it in f64 (one transfer)
+        if res.telemetry is None:
+            final, tel = float(syncs.read(res.final)), None
+        else:
+            host = syncs.read(torch.cat([res.final.double().view(1),
+                                         obs_tel.pack(res.telemetry)]))
+            final = float(host[0])
+            tel = obs_tel.unpack(host[1:], res.telemetry.rows)
     return GKMeansResult(res.state.assign, C, k2, final, res.history,
-                         res.moves, graph, sec, gdiag, res.host_syncs + 1)
+                         res.moves, graph, sec, gdiag, res.host_syncs + 1,
+                         tel)

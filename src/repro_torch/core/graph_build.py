@@ -22,8 +22,11 @@ into its sorted, id-deduped top-κ list (``_refine_rows``:
 
 The reference runs the rounds inside one ``lax.scan`` trace; the port runs
 them eagerly, with no host sync inside a build (the per-round diagnostics
-stay on the device).  Out of this slice: ``GraphBuilder`` over a mesh,
-``shards > 1`` and ``telemetry``.
+stay on the device).  ``GraphBuildConfig(telemetry=True)`` adds per-round
+``Telemetry`` rows to the diagnostics, also on the device (``overflow``,
+``guided_moves``, ``graph_updates`` and ``graph_mean_dist``, the last two
+over all the build's rows, phantoms included, as the reference's are).  Out
+of this slice: ``GraphBuilder`` over a mesh and ``shards > 1``.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ from repro_torch.core.permute import draw_words
 from repro_torch.core.two_means import draw_salts, two_means_dist
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.refine_merge import source_norms
+from repro_torch.obs import telemetry as obs_tel
 
 # beyond this list width the sort-based merge_topk replaces the kernel
 _WIDE_KAPPA = 64
@@ -48,6 +52,10 @@ _WIDE_KAPPA = 64
 class BuildDiagnostics(NamedTuple):
     overflow: torch.Tensor      # (tau,) int32 members beyond the table cap
     guided_moves: torch.Tensor  # (tau,) int32 moves of the guided pass
+    # per-round Telemetry (tau rows) with cfg.telemetry, else None: the two
+    # counters above plus graph_updates (list entries changed by the round)
+    # and graph_mean_dist (mean finite list distance after it)
+    telemetry: Optional[obs_tel.Telemetry] = None
 
 
 class GraphBuildConfig(NamedTuple):
@@ -63,7 +71,7 @@ class GraphBuildConfig(NamedTuple):
     shards: int = 1
     force: Optional[str] = None  # kernel dispatch override (None | 'ref')
     random_init: bool = True    # seed lists with κ random candidates
-    telemetry: bool = False
+    telemetry: bool = False     # per-round Telemetry in BuildDiagnostics
     spill: int = 8              # overflow spill width
 
 
@@ -215,8 +223,6 @@ def build_graph(X: torch.Tensor, cfg: GraphBuildConfig, *,
                          f"{cfg.source!r}")
     if cfg.shards != 1:
         raise NotImplementedError("shards > 1: not ported yet")
-    if cfg.telemetry:
-        raise NotImplementedError("telemetry: not ported yet")
     if draws is None and generator is None:
         raise ValueError("pass draws or a generator")
     if cfg.source == "descent":
@@ -237,6 +243,20 @@ def _init_lists(X_pad, init_ids, n_rows, ysq, cfg):
                         X_pad, ysq, cfg.chunk, cfg.force)
 
 
+def _round_telemetry(tel, t, g_ids, g_d, gi0, **counts):
+    """File round t's slots: the given counters, the list entries that
+    differ from the round-start ids ``gi0``, and the mean finite list
+    distance, both over all rows (no host sync; None passes through)."""
+    if tel is None:
+        return
+    fin = torch.isfinite(g_d)
+    dsum = torch.where(fin, g_d, 0.0).sum()
+    dcnt = fin.sum().to(torch.float32)
+    obs_tel.record(tel, t, graph_updates=(g_ids != gi0).sum(
+        dtype=torch.int32), graph_mean_dist=dsum / torch.clamp(dcnt, min=1.0),
+        **counts)
+
+
 def _build_descent(X, cfg, generator, draws):
     n = X.shape[0]
     dev = X.device
@@ -246,14 +266,18 @@ def _build_descent(X, cfg, generator, draws):
             draws.init_ids if draws is not None else
             random_graph(n, cfg.kappa, generator, device="cpu"))
     g_ids, g_d = _init_lists(Xf, init, n, ysq, cfg)
-    for pick1, pick2, slot in _descent_round_draws(n, cfg, dev, generator,
-                                                   draws):
+    tel = obs_tel.init(cfg.tau, dev) if cfg.telemetry else None
+    for t, (pick1, pick2, slot) in enumerate(_descent_round_draws(
+            n, cfg, dev, generator, draws)):
         cand = descent_candidates(g_ids, pick1, pick2, slot)
         del pick1, pick2, slot
+        gi0 = g_ids                  # _refine_rows returns new tensors
         g_ids, g_d = _refine_rows(Xf, torch.clamp(cand, min=0), cand, g_ids,
                                   g_d, Xf, ysq, cfg.chunk, cfg.force)
+        # overflow and guided_moves stay 0, as the reference's descent rows
+        _round_telemetry(tel, t, g_ids, g_d, gi0)
     zeros = torch.zeros((cfg.tau,), dtype=torch.int32, device=dev)
-    return KnnGraph(g_ids, g_d), BuildDiagnostics(zeros, zeros.clone())
+    return KnnGraph(g_ids, g_d), BuildDiagnostics(zeros, zeros.clone(), tel)
 
 
 def _build_partition(X, cfg, generator, draws):
@@ -274,6 +298,7 @@ def _build_partition(X, cfg, generator, draws):
     ecfg = engine.EngineConfig(batch_size=cfg.bkm_batch, sparse_updates=True,
                                force=cfg.force)
     overflow, moves = [], []
+    tel = obs_tel.init(cfg.tau, dev) if cfg.telemetry else None
     for t in range(cfg.tau):
         assign = two_means_dist(X_pad, row_ids, k0, salts=draws.salts[t])
         mv = torch.zeros((), dtype=torch.int32, device=dev)
@@ -295,17 +320,20 @@ def _build_partition(X, cfg, generator, draws):
         # mask self and phantoms of self; phantom duplicates dedupe in merge
         cand_ids = torch.where(cand_ids == real_id[:, None].to(torch.int32),
                                -1, cand_ids)
+        gi0 = g_ids                  # _refine_rows returns new tensors
         g_ids, g_d = _refine_rows(X_pad,
                                   torch.clamp(cand_rows, min=0).contiguous(),
                                   cand_ids.contiguous(), g_ids, g_d, X_pad,
                                   ysq, cfg.chunk, cfg.force)
+        _round_telemetry(tel, t, g_ids, g_d, gi0, overflow=ovf,
+                         guided_moves=mv)
         overflow.append(ovf)
         moves.append(mv)
     diag = BuildDiagnostics(
         torch.stack(overflow) if overflow else
         torch.zeros((0,), dtype=torch.int32, device=dev),
         torch.stack(moves) if moves else
-        torch.zeros((0,), dtype=torch.int32, device=dev))
+        torch.zeros((0,), dtype=torch.int32, device=dev), tel)
     return KnnGraph(g_ids[:n].contiguous(), g_d[:n].contiguous()), diag
 
 

@@ -141,19 +141,22 @@ def build_knn_graph(X, kappa: int, *, xi: int = 64, tau: int = 8,
                     chunk: int = 1024, guided: bool = True,
                     force: Optional[str] = None,
                     device: DeviceLike = None,
-                    return_diagnostics: bool = False):
+                    return_diagnostics: bool = False,
+                    telemetry: bool = False):
     """Approximate KNN graph by iterated fast k-means (Alg. 3).
 
     Returns ``KnnGraph`` (n, κ), ids sorted by distance — plus per-round
     ``BuildDiagnostics`` when ``return_diagnostics=True``.  Runs on
     ``device`` (default ``cuda``; raises without one).  Randomness comes from
     ``generator`` (CPU ``torch.Generator``) or the explicit ``draws``
-    (``graph_build.BuildDraws``).
+    (``graph_build.BuildDraws``).  ``telemetry=True`` adds per-round rows
+    to the diagnostics (``BuildDiagnostics.telemetry``).
     """
     from repro_torch.core.graph_build import GraphBuildConfig, build_graph
     Xd = as_f32(X, resolve_device(device))
     cfg = GraphBuildConfig(kappa=kappa, source="partition", xi=xi, tau=tau,
                            cap_factor=cap_factor, bkm_batch=bkm_batch,
-                           guided=guided, chunk=chunk, force=force)
+                           guided=guided, chunk=chunk, force=force,
+                           telemetry=telemetry)
     graph, diag = build_graph(Xd, cfg, generator=generator, draws=draws)
     return (graph, diag) if return_diagnostics else graph

@@ -16,9 +16,11 @@ sorted top-k list of the scans, ``cp.async`` copies, and the merge pass of
 the split kernels).  Nothing here runs at import: the CPU
 tests import every module, on machines that may have no ``nvcc``.
 
-Every wrapper launches through ``launch``, which makes the tensors' device
-current, takes its current stream, raises on a failed launch and only then
-adds one to the kernel's entry of ``launch_counts``.  The counts are
+Every wrapper launches through ``launch``, which names the launch
+``repro_torch.kernels.<name>`` for a running profiler
+(``obs.timing.kernel_scope``), makes the tensors' device current, takes its
+current stream, raises on a failed launch and only then adds one to the
+kernel's entry of ``launch_counts``.  The counts are
 wrapper calls: the split kernels (``probe_centroids``,
 ``assign_centroids``, ``ivf_scan``, ``ivf_scan_adc``, ``ivf_scan_grouped``)
 make one or two device launches per call (a partial
@@ -38,6 +40,8 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 import torch
+
+from repro_torch.obs.timing import kernel_scope
 
 SOURCES = ("gather_score", "refine_merge", "centroid_assign",
            "assign_centroids", "ivf_scan", "ivf_scan_adc", "ivf_scan_grouped",
@@ -147,13 +151,15 @@ def launch(name: str, fn, dev: torch.device, *args) -> None:
     """Launch kernel ``name`` through its C function ``fn`` on CUDA device
     ``dev``.
 
-    ``dev`` is made current first (the C launchers' ``cudaFuncSetAttribute``
-    calls and launches act on the current device), then its current stream
-    is taken and passed as ``fn``'s last argument.  A nonzero return code
-    (a ``cudaError_t``, or -1 for arguments the launcher refuses) raises
-    ``RuntimeError``; only a launch that returned 0 is counted.
+    The launch runs inside ``kernel_scope(name)`` (a profiler range while a
+    profiler runs, else nothing).  ``dev`` is made current first (the C
+    launchers' ``cudaFuncSetAttribute`` calls and launches act on the
+    current device), then its current stream is taken and passed as
+    ``fn``'s last argument.  A nonzero return code (a ``cudaError_t``, or -1
+    for arguments the launcher refuses) raises ``RuntimeError``; only a
+    launch that returned 0 is counted.
     """
-    with torch.cuda.device(dev):
+    with kernel_scope(name), torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*args, stream)
     if rc != 0:

@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import argparse
 import time
-import warnings
 from typing import List, Optional
 
 import numpy as np
@@ -37,6 +36,7 @@ from repro_torch import index as ivf
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core.gkmeans import gk_means
 from repro_torch.data import gmm_blobs
+from repro_torch.obs.syncs import sync_counter
 
 
 def _data(n: int, d: int, components: int, seed: int,
@@ -124,9 +124,9 @@ def sweep(index: ivf.IvfIndex, Q: torch.Tensor, gt: torch.Tensor, *,
           rerank: Optional[int] = None) -> List[dict]:
     """Serve Q in batches at each nprobe; print and return one row each:
     recall@topk (all of Q at once), scan share, p50/p90/p99 ms per batch,
-    QPS, the host syncs seen inside the timed ``search`` calls
-    (``torch.cuda.set_sync_debug_mode``; 0 expected) and the bytes a scan
-    streams per candidate row.  ``qgroup``, ``codec`` and ``rerank`` go to
+    QPS, the host syncs counted inside the timed ``search`` calls (each runs
+    under ``obs.syncs.sync_counter``, where a stray sync raises; 0 expected)
+    and the bytes a scan streams per candidate row.  ``qgroup``, ``codec`` and ``rerank`` go to
     ``search``."""
     dev = index.device
     nq = Q.shape[0]
@@ -141,24 +141,16 @@ def sweep(index: ivf.IvfIndex, Q: torch.Tensor, gt: torch.Tensor, *,
         ids, _ = ivf.search(index, Q, nprobe=p, **kw)          # for recall
         ivf.search(index, Q[:batch], nprobe=p, **kw)            # warm batch
         _sync(dev)
-        lat = []
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            for _ in range(rounds):
-                for b0 in range(0, nq - batch + 1, batch):
-                    qb = Q[b0:b0 + batch]
-                    t0 = time.perf_counter()
-                    if dev.type == "cuda":
-                        torch.cuda.set_sync_debug_mode("warn")
-                    try:
-                        ivf.search(index, qb, nprobe=p, **kw)
-                    finally:
-                        if dev.type == "cuda":
-                            torch.cuda.set_sync_debug_mode(0)
-                    _sync(dev)
-                    lat.append(time.perf_counter() - t0)
-        syncs = sum("synchronizing CUDA operation" in str(w.message)
-                    for w in caught)
+        lat, syncs = [], 0
+        for _ in range(rounds):
+            for b0 in range(0, nq - batch + 1, batch):
+                qb = Q[b0:b0 + batch]
+                t0 = time.perf_counter()
+                with sync_counter() as sc:
+                    ivf.search(index, qb, nprobe=p, **kw)
+                syncs += sc.syncs
+                _sync(dev)
+                lat.append(time.perf_counter() - t0)
         lat = np.sort(np.array(lat)) * 1e3                      # ms/batch
         rec = recall(ids, gt)
         frac = ivf.scan_fraction(index, Q, nprobe=p)

@@ -1005,3 +1005,109 @@ def test_pairwise_sq_kernel_rejects_bad_input(dev):
     for _ in range(3):
         ops.pairwise_sq(Xb)
     assert _build.launch_counts["pairwise_sq"] == before + 3
+
+
+# ---------------------------------------------------------- the obs layer
+
+def test_sync_counter_raises_on_a_stray_sync(dev):
+    """Inside ``sync_counter`` a stray ``.item()`` raises; the counted reads
+    (``sc.get``, ``syncs.read``, ``sc.block``) do not, and count; the mode
+    is restored after."""
+    from repro_torch.obs import syncs
+    x = torch.arange(8.0, device=dev)
+    before = torch.cuda.get_sync_debug_mode()
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        with syncs.sync_counter():
+            x.sum().item()
+    assert torch.cuda.get_sync_debug_mode() == before
+    with syncs.sync_counter() as sc:
+        got = sc.get(x.sum())
+        back = syncs.read({"x": x})
+        sc.block()
+    assert sc.syncs == 3 and float(got) == 28.0
+    assert back["x"].device.type == "cpu"
+
+
+def test_telemetry_record_syncs_nothing_on_card(dev):
+    """``record`` with a 0-d device row and device values, and with an int
+    row, syncs nothing; ``to_dict`` reads once, counted."""
+    from repro_torch.obs import syncs
+    from repro_torch.obs import telemetry as obs_tel
+    tel = obs_tel.init(4, dev)
+    row = torch.full((), 2, dtype=torch.int64, device=dev)
+    v = torch.arange(5.0, device=dev)
+    with syncs.sync_counter() as sc:
+        obs_tel.record(tel, row, moves=v.sum().to(torch.int32),
+                       distortion=v.mean(), hit_rate=0.5)
+        obs_tel.record(tel, 1, proposed=9, graph_mean_dist=v.max())
+        d = obs_tel.to_dict(tel)
+    assert sc.syncs == 1
+    assert d["moves"] == [0, 0, 10, 0] and d["proposed"] == [0, 9, 0, 0]
+    assert d["distortion"][2] == 2.0 and d["hit_rate"][2] == 0.5
+    assert d["graph_mean_dist"][1] == 4.0
+
+
+def test_gk_means_under_sync_counter_on_card(dev):
+    """A small ``gk_means`` with telemetry under the strict counter: no
+    stray sync, epochs + 1 counted reads, rows equal to the result's."""
+    from repro_torch.core.gkmeans import gk_means
+    from repro_torch.data import gmm_blobs
+    from repro_torch.obs import syncs
+    from repro_torch.obs import telemetry as obs_tel
+    X = gmm_blobs(4096, 32, 64, generator=torch.Generator(dev).manual_seed(1))
+    before = _build.launch_counts["gather_score"]
+    with syncs.sync_counter() as sc:
+        r = gk_means(X, 64, kappa=16, xi=32, tau=3, iters=6,
+                     min_move_frac=0.0, telemetry=True,
+                     generator=torch.Generator().manual_seed(0), device=dev)
+    ep = len(r.history)
+    assert sc.syncs == r.host_syncs == ep + 1
+    assert _build.launch_counts["gather_score"] > before
+    d = obs_tel.to_dict(r.telemetry, rows=ep)
+    assert d["moves"] == r.moves
+    assert all(p >= m for p, m in zip(d["proposed"], d["moves"]))
+
+
+def test_search_syncs_nothing_on_card(dev):
+    """f32, query-grouped and int8 ``search`` under the strict counter: no
+    sync at all."""
+    from repro_torch import index as ivf
+    from repro_torch.obs import syncs
+    X, index = _small_index(dev, 32)
+    q8 = ivf.quantize_index(index, "int8")
+    Q = (X[:64] + 0.05 * torch.randn(64, 32, device=dev)).contiguous()
+    ivf.search(index, Q, nprobe=8)
+    torch.cuda.synchronize()
+    with syncs.sync_counter() as sc:
+        ivf.search(index, Q, nprobe=8)
+        ivf.search(index, Q, nprobe=8, qgroup=4)
+        ivf.search(q8, Q, nprobe=8, codec="int8")
+    assert sc.syncs == 0
+
+
+def test_profiler_range_per_launch(dev):
+    """In a torch.profiler trace each wrapper call of ``gather_score`` and
+    ``refine_merge`` is one ``repro_torch.kernels.<name>`` range holding its
+    kernel launch, and every device launch the trace kept came from one."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.obs.timing import kernel_scope, scope_coverage
+    assert kernel_scope("gather_score") is kernel_scope("refine_merge")
+    gs = _gs_case(1024, 128, 4096, 50, 0, dev)
+    rm = _rm_case(256, 64, 40, 16, 5000, 1, dev)
+    ops.gather_score(*gs)
+    ops.refine_merge(*rm)
+    want = {"gather_score": 5, "refine_merge": 5}
+    torch.cuda.synchronize()
+    before = dict(_build.launch_counts)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            ops.gather_score(*gs)
+            ops.refine_merge(*rm)
+        torch.cuda.synchronize()
+    calls = {k: _build.launch_counts[k] - before[k] for k in want}
+    cov = scope_coverage(prof.events(), ("gather_score_kernel",
+                                         "refine_merge_kernel"))
+    assert calls == want
+    assert cov["ranges"] == want and cov["range_launches"] == want
+    assert 0 < cov["device_launches"] == cov["in_range"] <= 10

@@ -100,15 +100,15 @@ def test_ops_dispatches_cpu_tensors_to_ref():
 
 
 def test_out_of_slice_options_raise():
-    """What stays out of scope raises: shards, telemetry, bf16 payloads and
-    a GraphBuilder over a mesh.  The dense and probe sources and the
+    """What stays out of scope raises: shards, bf16 payloads and a
+    GraphBuilder over a mesh (telemetry runs: tests/test_torch_obs.py).  The dense and probe sources and the
     descent build run (their parity tests: tests/test_torch_ivf_codec.py,
     tests/test_torch_baselines.py); the probe kernel's cap p <= 128
     raises."""
     X = torch.zeros((64, 4))
     st = teng.init_state(X, torch.zeros(64, dtype=torch.int32), 2)
     src = teng.graph_source(torch.zeros((64, 2), dtype=torch.int32))
-    for cfg in (teng.EngineConfig(shards=2), teng.EngineConfig(telemetry=True),
+    for cfg in (teng.EngineConfig(shards=2),
                 teng.EngineConfig(payload_bf16=True)):
         for source in (src, teng.dense_source(), teng.probe_source(2)):
             with pytest.raises(NotImplementedError):
@@ -116,14 +116,11 @@ def test_out_of_slice_options_raise():
     for p in (0, 129):
         with pytest.raises(ValueError, match="p <= 128"):
             teng.probe_source(p)
-    for cfg in (tgb.GraphBuildConfig(shards=2),
-                tgb.GraphBuildConfig(source="descent", telemetry=True)):
-        with pytest.raises(NotImplementedError):
-            tgb.build_graph(X, cfg, generator=torch.Generator())
+    with pytest.raises(NotImplementedError):
+        tgb.build_graph(X, tgb.GraphBuildConfig(shards=2),
+                        generator=torch.Generator())
     with pytest.raises(NotImplementedError):
         tgb.GraphBuilder(tgb.GraphBuildConfig(), mesh=object())
-    with pytest.raises(NotImplementedError):
-        gk_means(X, 2, telemetry=True, device="cpu")
     for source in (teng.dense_source(), teng.probe_source(2)):
         out = teng.epoch(X, teng.init_state(
             X, torch.zeros(64, dtype=torch.int32), 2), source, [1, 2, 3, 4],
