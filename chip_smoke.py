@@ -136,8 +136,23 @@ plain PyTorch version, or when any phase fails.  Phases:
    (``obs.emit``, in a temporary directory) read back by
    ``launch/obs_report.py`` (rc 0, all eight kernels, every achieved
    fraction of the roofline at most 1);
-8. one JSON line of the baselines (each path's seconds, quality and
-   launches), one of the kernels (with each kernel's launches on the
+8. clustered-KV decode (``core.kv_cluster``) at Qwen2-72B's attention
+   widths in ``benchmarks/kv_cluster_bench.py``'s full setting (B=16,
+   S=32,768, Hkv=8, G=8, hd=128, bf16 caches, kc=512, top_c=8; counts
+   zeroed just before, read just after: none of the eight kernels may
+   launch): a build without refinement (every key in its table once) and
+   one with two dense engine epochs at cap_factor 8 (keys dropped by the
+   cap printed), each under ``sync_counter`` (0 host syncs); kernel
+   launches of one ``run_slices`` epoch against one slice's ``engine.run``
+   epoch (runtime calls in a trace); full and clustered attention, each
+   call under ``sync_counter`` (0 host syncs), timed, with keys touched,
+   cache bytes read a step and ``candidate_recall``; top_c = kc against
+   ``decode_attention`` within rtol = atol = 1e-2, two batch rows at a
+   time; peak memory; then the bench's quick shape (B=4, S=8,192, Hkv=4,
+   G=4, hd=64, kc=128) built on the card and on the CPU from the same
+   draws: per-slice distortion within 1%, candidate recall within 2/64;
+9. one JSON line of the baselines (each path's seconds, quality and
+   launches), one of clustered-KV decode, one of the kernels (with each kernel's launches on the
    baselines' paths and its numbers at their shapes), the card's
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
@@ -2437,6 +2452,271 @@ def obs_phase(X, r, ref_tel, index, Q, entries):
         scopes={"served": sc_served, "epoch": sc_epoch}, checks=checks)
 
 
+# --------------------------------------------------------------- phase 8
+
+# clustered-KV decode at Qwen2-72B's attention widths
+# (src/repro/configs/qwen2_72b.py: n_kv_heads=8, n_heads=64, head_dim=128)
+# in the full setting of benchmarks/kv_cluster_bench.py (B=16, S=32,768, bf16
+# caches, kc = S/64, top_c=8), and the bench's quick shape for the card
+# against the port's own CPU run
+KV = dict(B=16, S=32_768, Hkv=8, G=8, hd=128, top_c=8)
+KV_QUICK = dict(B=4, S=8_192, Hkv=4, G=4, hd=64, top_c=8)
+KV_TOL = 1e-2           # the reference test's rtol = atol at top_c = kc
+KV_DIST_TOL = 0.01      # card vs CPU: per-slice distortion, relative
+KV_RECALL_TOL = 2 / 64  # card vs CPU: candidate recall over 64 heads
+
+
+def kv_data(c, seed, device):
+    """(q, k_cache, v_cache) in bf16, kv_cluster_bench.py's recipe: keys
+    around 64 centres per batch row, queries twice a cached key of their kv
+    head."""
+    import torch
+    B, S, H, G, hd = (c[key] for key in ("B", "S", "Hkv", "G", "hd"))
+    g = torch.Generator(device=device).manual_seed(seed)
+    centers = torch.randn(B, 64, H, hd, generator=g, device=device) * 2.0
+    which = torch.randint(0, 64, (B, S), generator=g, device=device)
+    bi = torch.arange(B, device=device)[:, None]
+    k = (centers[bi, which] + 0.3 * torch.randn(
+        B, S, H, hd, generator=g, device=device)).to(torch.bfloat16)
+    v = torch.randn(B, S, H, hd, generator=g, device=device).to(
+        torch.bfloat16)
+    tgt = torch.randint(0, S, (B, H * G), generator=g, device=device)
+    picked = k[bi, tgt, torch.arange(H * G, device=device)[None] // G]
+    return (2.0 * picked.float())[:, None].to(torch.bfloat16), k, v
+
+
+def kv_assign(table, S):
+    """(P, S) cluster ids of every key from a (B, Hkv, kc, cap) member
+    table; -1 for a key the cap dropped."""
+    import torch
+    B, H, kc, cap = table.shape
+    t = table.reshape(B * H, kc * cap).long()
+    cid = torch.arange(kc, device=t.device).repeat_interleave(cap)
+    a = torch.full((B * H, S + 1), -1, dtype=torch.long, device=t.device)
+    a.scatter_(1, torch.where(t >= 0, t, S), cid.expand_as(t))
+    return a[:, :S]
+
+
+def kv_distortion(k, table):
+    """Per-slice mean squared distance of the tabled keys to their
+    cluster's mean (float64 sums), (P,) on the host."""
+    import torch
+    B, S, H, hd = k.shape
+    X = k.permute(0, 2, 1, 3).reshape(B * H, S, hd).double()
+    a = kv_assign(table, S)
+    kc = table.shape[2]
+    keep = a >= 0
+    flat = torch.where(keep, a + torch.arange(B * H, device=a.device)[
+        :, None] * kc, 0).reshape(-1)
+    w = keep.reshape(-1).double()
+    D = torch.zeros(B * H * kc, hd, dtype=torch.float64,
+                    device=X.device).index_add_(0, flat,
+                                                X.reshape(-1, hd) * w[:, None])
+    n = torch.zeros(B * H * kc, dtype=torch.float64,
+                    device=X.device).index_add_(0, flat, w)
+    cent = D / n.clamp(min=1.0)[:, None]
+    d2 = ((X.reshape(-1, hd) - cent[flat]) ** 2).sum(-1) * w
+    return (d2.view(B * H, S).sum(1) / keep.sum(1)).cpu()
+
+
+def runtime_launches(fn):
+    """(kernel launches, wall seconds) of ``fn`` from the CUDA runtime and
+    driver calls of a torch.profiler trace (host records, which a trace
+    keeps whole)."""
+    import torch
+    events, wall = _trace_events(fn)
+    cpu = torch.autograd.DeviceType.CPU
+    return sum(1 for ev in events if ev.device_type == cpu
+               and "LaunchKernel" in ev.name), wall
+
+
+def kv_quick_parity():
+    """The bench's quick shape, built on the card and on the CPU from the
+    same draws (tree seeds and epoch words from one CPU generator): per-
+    slice distortion within 1%, candidate recall within 2/64."""
+    import torch
+    from repro_torch.core import kv_cluster as kv
+    from repro_torch.core.permute import draw_words
+    from repro_torch.core.two_means import draw_tree_seeds
+    c = KV_QUICK
+    B, S, H = c["B"], c["S"], c["Hkv"]
+    kc, P = S // 64, B * H
+    q, k, _ = kv_data(c, SEED + 42, DEV)
+    g = torch.Generator().manual_seed(SEED + 43)
+    drawn = [draw_tree_seeds(S, kc, g) for _ in range(P)]
+    seeds = tuple(torch.stack([d[j] for d in drawn]) for j in (0, 1))
+    words = draw_words(g, P * 2 * 4).view(P, 2, 4)
+    out = {}
+    for name, refine, cap_factor in (("plain", 0, 2), ("refined", 2, 8)):
+        res = {}
+        for dev, qq, kk in ((DEV, q, k), ("cpu", q.cpu(), k.cpu())):
+            t0 = time.perf_counter()
+            cl = kv.build_kv_clusters(kk, kc, cap_factor=cap_factor,
+                                      refine_epochs=refine, tree_seeds=seeds,
+                                      epoch_words=words, device=dev)
+            rec = float(kv.candidate_recall(qq, kk, cl, S, c["top_c"]))
+            res[dev] = dict(dist=kv_distortion(kk, cl.table), recall=rec,
+                            seconds=time.perf_counter() - t0)
+        gap = float(((res[DEV]["dist"] - res["cpu"]["dist"]).abs()
+                     / res["cpu"]["dist"]).max())
+        dr = abs(res[DEV]["recall"] - res["cpu"]["recall"])
+        out[name] = dict(max_dist_gap=gap, recall_card=res[DEV]["recall"],
+                         recall_cpu=res["cpu"]["recall"],
+                         mean_dist_card=float(res[DEV]["dist"].mean()),
+                         mean_dist_cpu=float(res["cpu"]["dist"].mean()),
+                         cpu_build_s=res["cpu"]["seconds"],
+                         ok=gap <= KV_DIST_TOL and dr <= KV_RECALL_TOL)
+    return out
+
+
+def kv_cluster_phase():
+    """Phase 8: clustered-KV decode at the full shape — two builds (no
+    refinement; two dense engine epochs at cap_factor 8) and the attention,
+    each under ``sync_counter`` (0 host syncs); tables, top_c = kc against
+    full attention, times, launches, bytes, recall, peak memory — then the
+    quick shape against the port's CPU run.  None of the eight kernels may
+    launch."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.core import kv_cluster as kv
+    from repro_torch.kernels import _build
+    from repro_torch.models import decode_attention
+    from repro_torch.obs.syncs import sync_counter
+    from repro_torch.obs.timing import device_span
+    t_phase = time.perf_counter()
+    c = KV
+    B, S, H, G, hd, top_c = (c[key] for key in
+                             ("B", "S", "Hkv", "G", "hd", "top_c"))
+    kc, P = S // 64, B * H
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    q, k, v = kv_data(c, SEED + 40, DEV)
+    ln = torch.tensor(S, device=DEV)
+    checks, builds, clusters = {}, {}, {}
+    for name, refine, cap_factor in (("plain", 0, 2), ("refined", 2, 8)):
+        ms = {}
+        with device_span("build", ms):
+            with sync_counter() as sc:
+                cl = kv.build_kv_clusters(
+                    k, kc, cap_factor=cap_factor, refine_epochs=refine,
+                    generator=torch.Generator().manual_seed(SEED + 41),
+                    device=DEV)
+        t = cl.table.reshape(P, -1).long()
+        seen = torch.zeros(P, S + 1, dtype=torch.int32, device=DEV)
+        seen.scatter_add_(1, torch.where(t >= 0, t, S),
+                          torch.ones_like(t, dtype=torch.int32))
+        held = int((t >= 0).sum())
+        once = bool((seen[:, :S] <= 1).all())
+        builds[name] = dict(
+            seconds=ms["build"] / 1e3, host_syncs=sc.syncs,
+            cap=cl.table.shape[-1], refine_epochs=refine,
+            dropped_by_cap=P * S - held, at_most_once=once,
+            empty_clusters=int((cl.table[..., 0] < 0).sum()),
+            largest_cluster=int((cl.table >= 0).sum(-1).max()))
+        checks[f"{name}_build_0_syncs"] = sc.syncs == 0
+        checks[f"{name}_keys_at_most_once"] = once
+        clusters[name] = cl
+    checks["plain_every_key_once"] = builds["plain"]["dropped_by_cap"] == 0
+    log(f"kv build: {json.dumps(builds)}")
+
+    # the refine epochs' launches: one run_slices epoch against one slice's
+    # engine.run epoch (a Python loop over the slices makes P of those)
+    flat = k.permute(0, 2, 1, 3).reshape(P, S, hd).float()
+    a0 = kv_assign(clusters["plain"].table, S).to(torch.int32)
+    cfg = engine.EngineConfig(batch_size=min(1024, S), iters=1,
+                              min_move_frac=-1.0)
+    words = torch.randint(0, 2 ** 32, (P, 1, 4),
+                          generator=torch.Generator().manual_seed(SEED + 44))
+    batched, b_wall = runtime_launches(lambda: engine.run_slices(
+        flat, a0, kc, cfg, epoch_words=words))
+    st0 = engine.init_state(flat[0], a0[0], kc)
+    single, s_wall = runtime_launches(lambda: engine.run(
+        flat[0], st0, engine.dense_source(), cfg, epoch_words=words[0]))
+    ms = {}
+    with device_span("epoch", ms):
+        engine.run_slices(flat, a0, kc, cfg, epoch_words=words)
+    epoch = dict(run_slices_launches=batched, one_slice_launches=single,
+                 python_loop_launches=P * single,
+                 run_slices_epoch_ms=ms["epoch"], traced_wall_s=b_wall,
+                 one_slice_traced_wall_s=s_wall)
+    log(f"kv refine epoch: {json.dumps(epoch)}")
+    del flat, a0, st0
+
+    # attention: syncs, time, keys and bytes a step
+    attn = {}
+    qf = q.float().reshape(B, H, G, hd)
+    best = (qf @ k.float().permute(0, 2, 3, 1)).argmax(-1)   # (B, H, G)
+    with sync_counter() as sc:
+        decode_attention(q, k, v, ln)
+    full_syncs = sc.syncs
+    full_ms = time_ms(lambda: decode_attention(q, k, v, ln), [()], reps=10)
+    bytes_full = B * H * S * hd * 2 * 2
+    attn["full"] = dict(us=full_ms * 1e3, host_syncs=full_syncs,
+                        keys_touched=S, cache_bytes=bytes_full)
+    checks["full_0_syncs"] = full_syncs == 0
+    for name, cl in clusters.items():
+        with sync_counter() as sc:
+            kv.clustered_decode_attention(q, k, v, cl, ln, top_c=top_c)
+            rec_t = kv.candidate_recall(q, k, cl, ln, top_c)
+        cms = time_ms(lambda: kv.clustered_decode_attention(
+            q, k, v, cl, ln, top_c=top_c), [()], reps=20)
+        cap = cl.table.shape[-1]
+        top = kv._select_clusters(qf * hd ** -0.5, cl, top_c)
+        valid = (kv._candidates(top, cl.table) >= 0).sum(-1).float()
+        # where the ball bound ranks the cluster of each head's best key
+        # (0 = first), and the spread of the radii behind that rank
+        bc = kv_assign(cl.table, S).view(B, H, S).gather(2, best)
+        bound = (qf @ cl.centroids.mT + torch.linalg.vector_norm(
+            qf, dim=-1)[..., None] * cl.radii[:, :, None, :])
+        rank = (bound > bound.gather(3, bc.clamp(min=0)[..., None])).sum(-1)
+        rq = torch.quantile(cl.radii.flatten(),
+                            torch.tensor([0.5, 0.9, 0.99], device=DEV))
+        touched = top_c * cap
+        attn[name] = dict(
+            us=cms * 1e3, host_syncs=sc.syncs, keys_touched=touched,
+            keys_attended_mean=float(valid.mean()),
+            cache_bytes=B * H * G * touched * hd * 2 * 2,
+            bytes_ratio=bytes_full / (B * H * G * touched * hd * 2 * 2),
+            candidate_recall=float(rec_t), top_c=top_c, cap=cap,
+            best_cluster_rank_median=float(rank.float().median()),
+            best_cluster_rank_max=int(rank.max()),
+            radius_p50_p90_p99=[float(x) for x in rq])
+        checks[f"{name}_attention_0_syncs"] = sc.syncs == 0
+    # top_c = kc is full attention (every key in one cluster), two batch
+    # rows at a time: the gathered candidates are 2·S per q head
+    err, ok_all = 0.0, True
+    cl = clusters["plain"]
+    for b0 in range(0, B, 2):
+        sl = slice(b0, b0 + 2)
+        part = kv.KVClusters(cl.centroids[sl], cl.table[sl], cl.radii[sl])
+        got = kv.clustered_decode_attention(q[sl], k[sl], v[sl], part, ln,
+                                            top_c=kc).float()
+        want = decode_attention(q[sl], k[sl], v[sl], ln).float()
+        err = max(err, float((got - want).abs().max()))
+        ok_all &= bool(torch.isfinite(got).all()) and bool(
+            ((got - want).abs() <= KV_TOL + KV_TOL * want.abs()).all())
+        del got, want
+    checks["top_c_kc_is_full"] = ok_all
+    attn["top_c_kc_max_abs_err"] = err
+    peak = torch.cuda.max_memory_allocated()
+    log(f"kv attention: {json.dumps(attn)}")
+    launches = {key: n for key, n in _build.launch_counts.items() if n}
+    checks["no_kernel_launch"] = not launches
+    del q, k, v, qf, best, clusters, cl, part
+    quick = kv_quick_parity()
+    checks.update({f"quick_{key}": r["ok"] for key, r in quick.items()})
+    secs = time.perf_counter() - t_phase
+    out = dict(shape=dict(c, kc=kc, dtype="bfloat16"), builds=builds,
+               refine_epoch=epoch, attention=attn, quick=quick,
+               peak_gib=(peak - base_mem) / 2 ** 30,
+               launches=launches, checks=checks, seconds=secs)
+    log(f"kv phase: quick {json.dumps(quick)}; checks {json.dumps(checks)}; "
+        f"{secs:.1f} s")
+    return all(checks.values()), out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2525,6 +2805,9 @@ def main() -> int:
     if not ok_obs:
         failures.append("obs layer")
     del X
+    ok_kv, kv_out = kv_cluster_phase()
+    if not ok_kv:
+        failures.append("clustered-KV decode")
 
     kernels = [
         dict(name="gather_score", route="cuda",
@@ -2753,6 +3036,7 @@ def main() -> int:
         return 1
     print(json.dumps({"baselines": base["paths"]
                       | {"sift_small": base["sift_small"]}}), flush=True)
+    print(json.dumps({"kv_cluster": kv_out}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 """GK-means core of the port: objective, engine, 2M trees, KNN graphs, the
-paper's baselines and graph search."""
+paper's baselines, graph search and clustered-KV decode attention."""
 from repro_torch.core.anns import graph_search
 from repro_torch.core.bkm import BKMState, init_state, run_bkm
 from repro_torch.core.closure import closure_kmeans
@@ -11,6 +11,9 @@ from repro_torch.core.graph_build import (BuildDiagnostics, GraphBuildConfig,
 from repro_torch.core.knn_graph import (KnnGraph, build_knn_graph,
                                         graph_distances, merge_topk,
                                         random_graph)
+from repro_torch.core.kv_cluster import (KVClusters, build_kv_clusters,
+                                         candidate_recall,
+                                         clustered_decode_attention)
 from repro_torch.core.lloyd import init_kmeanspp, init_random, lloyd
 from repro_torch.core.minibatch import minibatch_kmeans
 from repro_torch.core.nn_descent import nn_descent
@@ -25,8 +28,9 @@ from repro_torch.core.two_means import pad_plan, two_means_tree
 __all__ = [
     "BKMState", "BuildDiagnostics", "CandidateSource", "ClusterStats",
     "EngineConfig", "GKMeansResult", "GraphBuildConfig", "GraphBuilder",
-    "KnnGraph",
-    "brute_force_knn", "build_graph", "build_knn_graph",
+    "KVClusters", "KnnGraph",
+    "brute_force_knn", "build_graph", "build_knn_graph", "build_kv_clusters",
+    "candidate_recall", "clustered_decode_attention",
     "centroids", "closure_kmeans", "cluster_stats", "cooccurrence_rate",
     "delta_I", "delta_I_brute", "dense_source", "distortion", "gk_means",
     "graph_distances", "graph_search", "graph_source", "init_kmeanspp",

@@ -37,6 +37,12 @@ it out).  The probe kernel's cap p <= 128 is a stated difference:
 ``NotImplementedError``): ``shards > 1``, ``payload_bf16`` and ``valid``
 masks.  ``sparse_updates`` is accepted: on one device it is the same plain
 scatter (``repro/core/engine.py:620-622``).
+
+``run_slices`` is the dense source over P independent slices at once (the
+reference vmaps ``run_inline`` over cache slices in ``core.kv_cluster``):
+each move step scores every slice with one ``bmm``, and the leaver guard and
+the two scatters use flat ``slice·k + cluster`` ids, so an epoch launches
+what one slice's epoch launches.
 """
 from __future__ import annotations
 
@@ -138,35 +144,37 @@ def _score_gathered(xb, u, cand, D, cnt, mode, eps, force):
 
 def _score_dense(xb, u, D, cnt, mode, eps):
     """Best move per sample over all k clusters, from one (B, k) matmul
-    (``repro/core/engine.py::_score_dense``, same op order)."""
-    k = D.shape[0]
+    (``repro/core/engine.py::_score_dense``, same op order).  With a
+    leading slice axis — xb (P, B, d), u (P, B), D (P, k, d), cnt (P, k) —
+    the product is one ``bmm`` and every slice is scored the same way."""
+    k = D.shape[-2]
     ul = u.long()
-    dsq = (D * D).sum(-1)                                 # (k,)
-    dots = xb @ D.T                                       # (B, k)
-    xsq = (xb * xb).sum(-1)                               # (B,)
+    dsq = (D * D).sum(-1)                                 # (..., k)
+    dots = xb @ D.mT                                      # (..., B, k)
+    xsq = (xb * xb).sum(-1)                               # (..., B)
     if mode == "bkm":
-        nv = cnt[None, :]
-        gain_v = ((dsq[None, :] + 2.0 * dots + xsq[:, None]) / (nv + 1.0)
-                  - torch.where(nv > 0, dsq[None, :] / torch.clamp(
+        nv = cnt[..., None, :]
+        gain_v = ((dsq[..., None, :] + 2.0 * dots + xsq[..., None])
+                  / (nv + 1.0)
+                  - torch.where(nv > 0, dsq[..., None, :] / torch.clamp(
                       nv, min=1.0), 0.0))
-        du_sq = dsq[ul]
-        x_du = dots.gather(1, ul[:, None])[:, 0]
-        nu = cnt[ul]
+        du_sq = dsq.gather(-1, ul)
+        x_du = dots.gather(-1, ul[..., None])[..., 0]
+        nu = cnt.gather(-1, ul)
         num_u = du_sq - 2.0 * x_du + xsq
         resid = torch.where(nu > 1, num_u / torch.clamp(nu - 1.0, min=1.0),
                             0.0)
-        score = gain_v + (resid - du_sq / torch.clamp(nu, min=1.0))[:, None]
+        score = gain_v + (resid - du_sq / torch.clamp(nu, min=1.0))[..., None]
         cols = torch.arange(k, device=xb.device)
-        score = torch.where(cols[None, :] == ul[:, None], float("-inf"),
-                            score)
-        best = score.argmax(dim=1)                        # first maximum
-        moved = score.gather(1, best[:, None])[:, 0] > eps
+        score = torch.where(cols == ul[..., None], float("-inf"), score)
+        best = score.argmax(dim=-1)                       # first maximum
+        moved = score.gather(-1, best[..., None])[..., 0] > eps
     else:
         csq_n = torch.clamp(cnt, min=1.0)
-        d2 = (dsq[None, :] / (csq_n * csq_n)[None, :]
-              - 2.0 * dots / csq_n[None, :])
-        d2 = torch.where(cnt[None, :] > 0, d2, float("inf"))
-        best = d2.argmin(dim=1)                           # first minimum
+        d2 = (dsq[..., None, :] / (csq_n * csq_n)[..., None, :]
+              - 2.0 * dots / csq_n[..., None, :])
+        d2 = torch.where(cnt[..., None, :] > 0, d2, float("inf"))
+        best = d2.argmin(dim=-1)                          # first minimum
         moved = best != ul
     return moved, best.to(torch.int32)
 
@@ -310,3 +318,101 @@ def run(X: torch.Tensor, state: BKMState, source: CandidateSource,
             break
     final = stats_distortion(xsq_total, state.D, state.cnt, n)
     return RunResult(state, hist, mhist, len(hist), final, reads, tel)
+
+
+# ---------------------------------------------------------------------------
+# slice-batched dense runs (core.kv_cluster's refinement)
+# ---------------------------------------------------------------------------
+
+def _move_step_slices(Xf, st: BKMState, idx, k, cfg: EngineConfig, active):
+    """``_move_step`` with the dense source for all P slices at once, in
+    place on the flat state: ``Xf`` (P·n, d), ``st.assign`` (P·n,) slice-
+    local ids, ``st.D`` (P·k, d), ``st.cnt`` (P·k,), ``st.moves`` (P,);
+    ``idx`` (P, B) flat row ids; ``active`` (P,) bool or None (a slice
+    that has stopped moves nothing).  One ``bmm`` scores every slice; the
+    leaver guard and the two scatters use flat ``s·k + cluster`` ids."""
+    P, B = idx.shape
+    d = Xf.shape[1]
+    rows = idx.reshape(-1)
+    xb = Xf[rows].view(P, B, d)
+    u = st.assign[rows].view(P, B)
+    moved, want_v = _score_dense(xb, u, st.D.view(P, k, d),
+                                 st.cnt.view(P, k), cfg.mode, cfg.eps)
+    if active is not None:
+        moved = moved & active[:, None]
+    off = torch.arange(P, device=Xf.device)[:, None] * k
+    ul = (u.long() + off).reshape(-1)
+    moved = moved.reshape(-1)
+    leav = torch.zeros((P * k,), dtype=torch.float32, device=Xf.device)
+    leav.index_add_(0, ul, moved.float())
+    moved = moved & ((st.cnt - leav) >= 1.0)[ul]
+    v = torch.where(moved.view(P, B), want_v, u)
+    w = moved.float()
+    gx = xb.reshape(P * B, d) * w[:, None]
+    both = torch.cat([ul, (v.long() + off).reshape(-1)])
+    st.D.index_add_(0, both, torch.cat([-gx, gx]))
+    st.cnt.index_add_(0, both, torch.cat([-w, w]))
+    st.assign[rows] = v.reshape(-1)
+    st.moves.add_(moved.view(P, B).sum(dim=1, dtype=torch.int32))
+
+
+def run_slices(X: torch.Tensor, assign: torch.Tensor, k: int,
+               cfg: EngineConfig, *, epoch_words=None,
+               generator: Optional[torch.Generator] = None) -> BKMState:
+    """``run`` with the dense source over P independent slices at once.
+
+    X (P, n, d), assign (P, n) (cluster ids in [0, k) per slice).  Slice s
+    visits its rows in the Feistel order of its own words —
+    ``epoch_words`` (P, iters, 4), e.g. the reference's
+    ``jax.random.bits(fold_in(key_s, t), (4,))``, or drawn from
+    ``generator`` (a CPU ``torch.Generator``) — and equals ``run`` on
+    ``X[s]`` with ``dense_source()`` and those words: assignments and
+    counts exactly, D to f32 rounding (on the CPU, bit for bit).  Each
+    move step is one batched step over all slices, so an epoch launches
+    as many kernels as one slice's epoch, not P times as many.
+
+    ``min_move_frac``: a slice stops after the first epoch whose moves are
+    at most ``min_move_frac * n`` (it moves nothing after).  With
+    ``min_move_frac >= 0`` the run reads every slice's stop flag once an
+    epoch (one host sync, through ``obs.syncs.read``) and ends when all
+    have stopped; with ``min_move_frac < 0`` nothing can stop it, and it
+    reads nothing: 0 host syncs.  Returns the final state with slice axes:
+    assign (P, n) int32, D (P, k, d), cnt (P, k), moves (P,) (the last
+    epoch's).  Telemetry is not offered here.
+    """
+    _check_cfg(cfg, dense_source())
+    if cfg.telemetry:
+        raise NotImplementedError("run_slices: telemetry is not offered")
+    if epoch_words is None and generator is None:
+        raise ValueError("pass epoch_words or a generator")
+    P, n, d = X.shape
+    dev = X.device
+    Xf = X.float().reshape(P * n, d)
+    a = assign.to(device=dev, dtype=torch.int32).reshape(-1).clone()
+    flat = a.long() + (torch.arange(P * n, device=dev) // n) * k
+    stats = cluster_stats(Xf, flat, P * k)
+    st = BKMState(a, stats.D, stats.cnt,
+                  torch.zeros((P,), dtype=torch.int32, device=dev))
+    bs = min(cfg.batch_size, n)
+    nb = max(n // bs, 1)
+    thresh = cfg.min_move_frac * n
+    active = (torch.ones((P,), dtype=torch.bool, device=dev)
+              if thresh >= 0 else None)
+    if epoch_words is None:
+        epoch_words = permute.draw_words(
+            generator, P * cfg.iters * permute.ROUNDS).view(P, cfg.iters, -1)
+    off = (torch.arange(P, device=dev) * n)[:, None]
+    for t in range(cfg.iters):
+        # the slices' visit orders, made on the CPU (no host sync)
+        order = permute.epoch_orders(
+            [epoch_words[s][t] for s in range(P)], n, dev) + off
+        st.moves.zero_()
+        for i in range(nb):
+            _move_step_slices(Xf, st, order[:, i * bs:(i + 1) * bs], k, cfg,
+                              active)
+        if active is not None:
+            active &= st.moves > thresh
+            if not bool(syncs.read(active.any())):
+                break
+    return BKMState(st.assign.view(P, n), st.D.view(P, k, d),
+                    st.cnt.view(P, k), st.moves)

@@ -11,6 +11,8 @@ split into 16-bit halves so no intermediate leaves int64's range.
 The order is computed on the CPU and copied to the target device through
 pinned memory without blocking: the cycle walk's loop test reads its own
 CPU tensor, so an epoch order costs the device no host sync.
+``epoch_orders`` makes one order per row of words in one pass (the engine's
+slice-batched run).
 """
 from __future__ import annotations
 
@@ -50,34 +52,57 @@ def draw_words(generator: torch.Generator, count: int = ROUNDS) -> torch.Tensor:
                          dtype=torch.int64, device="cpu")
 
 
+def _subkeys(words) -> torch.Tensor:
+    """(P, ROUNDS) uint32 subkey words as an int64 CPU tensor, from one
+    row of words or a (P, ROUNDS) array of them."""
+    rows = words.tolist() if isinstance(words, torch.Tensor) else words
+    rows = [[int(w) & MASK32 for w in r] for r in rows]
+    sub = torch.tensor(rows, dtype=torch.int64).reshape(len(rows), -1)
+    if sub.shape[1] != ROUNDS:
+        raise ValueError(f"need {ROUNDS} subkey words, got {sub.shape[1]}")
+    return sub
+
+
+def epoch_orders(words, n: int,
+                 device: Optional[torch.device] = None) -> torch.Tensor:
+    """One pseudorandom permutation of ``arange(n)`` per row of ``words``
+    ((P, ROUNDS) uint32 values), as (P, n) int64 on device.  Row p equals
+    ``epoch_order(words[p], n)``.  Rows are permuted a block at a time, a
+    block of about 2**18 values, so the temporaries stay in cache."""
+    device = torch.device("cpu") if device is None else torch.device(device)
+    sub = _subkeys(words)
+    P = sub.shape[0]
+    if n <= 1:
+        return torch.zeros((P, n), dtype=torch.int64, device=device)
+    bits = max(1, (n - 1).bit_length())
+
+    def prp(x: torch.Tensor, sub: torch.Tensor) -> torch.Tensor:
+        lo_b, hi_b = bits // 2, bits - bits // 2
+        for r in range(ROUNDS):
+            lo = x & ((1 << lo_b) - 1)
+            hi = x >> lo_b
+            f = mix32(lo ^ sub[:, r:r + 1]) & ((1 << hi_b) - 1)
+            x = (lo << hi_b) | (hi ^ f)
+            lo_b, hi_b = hi_b, lo_b
+        return x
+
+    out = torch.empty((P, n), dtype=torch.int64)
+    step = max(1, (1 << 18) // n)
+    for p0 in range(0, P, step):
+        blk = sub[p0:p0 + step]
+        x = prp(torch.arange(n, dtype=torch.int64).expand(len(blk), n), blk)
+        walk = x >= n
+        while bool(walk.any()):            # CPU tensor: no device sync
+            x = torch.where(walk, prp(x, blk), x)
+            walk = x >= n
+        out[p0:p0 + step] = x
+    return to_device(out, device)
+
+
 def epoch_order(words: Words, n: int,
                 device: Optional[torch.device] = None) -> torch.Tensor:
     """A pseudorandom permutation of ``arange(n)`` as (n,) int64 on device.
 
     ``words`` are the ROUNDS subkey words (uint32 values).
     """
-    device = torch.device("cpu") if device is None else torch.device(device)
-    if n <= 1:
-        return torch.zeros((n,), dtype=torch.int64, device=device)
-    sub = [int(w) & MASK32 for w in
-           (words.tolist() if isinstance(words, torch.Tensor) else words)]
-    if len(sub) != ROUNDS:
-        raise ValueError(f"need {ROUNDS} subkey words, got {len(sub)}")
-    bits = max(1, (n - 1).bit_length())
-
-    def prp(x: torch.Tensor) -> torch.Tensor:
-        lo_b, hi_b = bits // 2, bits - bits // 2
-        for r in range(ROUNDS):
-            lo = x & ((1 << lo_b) - 1)
-            hi = x >> lo_b
-            f = mix32(lo ^ sub[r]) & ((1 << hi_b) - 1)
-            x = (lo << hi_b) | (hi ^ f)
-            lo_b, hi_b = hi_b, lo_b
-        return x
-
-    x = prp(torch.arange(n, dtype=torch.int64))
-    out = x >= n
-    while bool(out.any()):                 # CPU tensor: no device sync
-        x = torch.where(out, prp(x), x)
-        out = x >= n
-    return to_device(x, device)
+    return epoch_orders([words], n, device)[0]

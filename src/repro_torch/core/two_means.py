@@ -89,8 +89,19 @@ def two_means_tree(X: torch.Tensor, k: int, *,
     k must be a power of two and divide n (see ``pad_plan``).  ``seeds`` =
     (i1, i2), each (log2 k, k): the per-level in-segment seed offsets (see
     ``draw_tree_seeds``); drawn from ``generator`` when omitted.
+
+    Slice-batched form: X (P, n, d) holds P independent problems (the
+    per-(batch, kv-head) key caches of ``core.kv_cluster``); ``seeds`` are
+    then each (P, log2 k, k), or drawn per slice from ``generator``, and
+    assign is (P, n).  Every level runs once over all P·n rows, with
+    segment ids ``s·k + pos // m`` and one stable (segment, delta) sort per
+    refine step; slice s equals ``two_means_tree(X[s], k, seeds=(i1[s],
+    i2[s]))`` bit for bit on the CPU (its segment sums add the same rows in
+    the same order).
     """
-    n, _ = X.shape
+    sliced = X.dim() == 3
+    Xs = X if sliced else X[None]
+    P, n, d = Xs.shape
     if not _is_pow2(k):
         raise ValueError(f"k={k} must be a power of two (see pad_plan)")
     if n % k:
@@ -98,42 +109,51 @@ def two_means_tree(X: torch.Tensor, k: int, *,
     dev = X.device
     levels = k.bit_length() - 1
     if levels == 0:
-        return torch.zeros((n,), dtype=torch.int32, device=dev)
+        out = torch.zeros((P, n), dtype=torch.int32, device=dev)
+        return out if sliced else out[0]
     if seeds is None:
         if generator is None:
             raise ValueError("pass seeds or a generator")
-        seeds = draw_tree_seeds(n, k, generator)
+        drawn = [draw_tree_seeds(n, k, generator) for _ in range(P)]
+        seeds = tuple(torch.stack([s[j] for s in drawn]) for j in (0, 1))
+    elif not sliced:
+        seeds = tuple(torch.as_tensor(s)[None] for s in seeds)
     i1s, i2s = (to_device(torch.as_tensor(s).long(), dev) for s in seeds)
-    Xf = X.float()
-    pos = torch.arange(n, device=dev)
+    Xf = Xs.float().reshape(P * n, d)
+    pos = torch.arange(P * n, device=dev)
+    local = pos % n
+    seg0 = (pos // n) * k                      # each row's slice's segment 0
+    first = torch.arange(P, device=dev)[:, None] * n
     perm = pos.clone()
     for lvl in range(levels):
         m = n >> lvl
-        seg = pos // m
+        seg = seg0 + local // m
         Xp = Xf[perm]
-        tot = _segsum(Xp, seg, k)
+        tot = _segsum(Xp, seg, P * k)
         start = torch.arange(k, device=dev) * m
-        c1 = Xp[torch.clamp(start + i1s[lvl], 0, n - 1)]
-        c2 = Xp[torch.clamp(start + i2s[lvl], 0, n - 1)]
+
+        def seed_rows(i):
+            return Xp[(first + torch.clamp(start + i, 0, n - 1)).reshape(-1)]
+        c1, c2 = seed_rows(i1s[:, lvl]), seed_rows(i2s[:, lvl])
 
         def delta(c1, c2):
             a = c2[seg] - c1[seg]
             off = ((c1 * c1).sum(-1) - (c2 * c2).sum(-1))[seg]
             return 2.0 * (Xp * a).sum(-1) + off
 
-        half = (pos % m) < (m // 2)
+        half = (local % m) < (m // 2)
         for _ in range(refine_iters):
             srt = _stable_sort_by(seg, delta(c1, c2))
-            w = torch.zeros((n,), dtype=torch.float32, device=dev)
+            w = torch.zeros((P * n,), dtype=torch.float32, device=dev)
             w[srt] = half.float()
-            s1 = _segsum(Xp * w[:, None], seg, k)
-            n1 = _segsum(w, seg, k)
+            s1 = _segsum(Xp * w[:, None], seg, P * k)
+            n1 = _segsum(w, seg, P * k)
             c1 = s1 / torch.clamp(n1, min=1.0)[:, None]
             c2 = (tot - s1) / torch.clamp(float(m) - n1, min=1.0)[:, None]
         perm = perm[_stable_sort_by(seg, delta(c1, c2))]
-    assign = torch.empty((n,), dtype=torch.int32, device=dev)
-    assign[perm] = (pos // (n // k)).to(torch.int32)
-    return assign
+    assign = torch.empty((P * n,), dtype=torch.int32, device=dev)
+    assign[perm] = (local // (n // k)).to(torch.int32)
+    return assign.view(P, n) if sliced else assign
 
 
 # ---------------------------------------------------------------------------

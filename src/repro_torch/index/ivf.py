@@ -60,6 +60,20 @@ class IvfIndex:
                    biggest // int(block_rows), float(repack_threshold),
                    codec, codes, vnorm)
 
+    def to(self, device: DeviceLike) -> "IvfIndex":
+        """The same index with every tensor on ``device`` (e.g. an index
+        loaded with ``load_index(mmap=True)``, moved to the card)."""
+        dev = resolve_device(device)
+
+        def move(t):
+            return None if t is None else t.to(dev)
+        return replace(self, centroids=move(self.centroids),
+                       vecs=move(self.vecs), ids=move(self.ids),
+                       starts=move(self.starts), caps=move(self.caps),
+                       codec=None if self.codec is None
+                       else self.codec.to(dev),
+                       codes=move(self.codes), vnorm=move(self.vnorm))
+
     @property
     def device(self) -> torch.device:
         return self.vecs.device
@@ -205,10 +219,10 @@ def quantize_index(index: IvfIndex, kind: str, *, nsub: int = 8,
 
 
 def shard_lists(index: IvfIndex, shards: int):
-    """Not ported yet (the sharded IVF waits for ROADMAP.md item 1.11)."""
+    """Not ported yet: the sharded IVF comes with the sharded topologies."""
     raise NotImplementedError(
-        "shard_lists: the sharded IVF is not ported yet (ROADMAP.md, item "
-        "1.11, sharded topologies)")
+        "shard_lists: the sharded IVF is not ported yet (it comes with the "
+        "sharded topologies)")
 
 
 def repack(index: IvfIndex) -> IvfIndex:

@@ -6,8 +6,15 @@ little-endian header length, a JSON header padded so the data starts on a
 aligned.  ``.npz`` (compressed) is also read and written.  An index with a
 codec has the header key ``codec`` and the sections ``codes``, ``vnorm``
 and ``int8_scale``/``int8_zero`` or ``pq_codebook``.  An index saved by
-either package loads in the other.  ``load_index(mmap=True)`` (memmapped
-host arrays) is not ported.
+either package loads in the other.
+
+``load_index(mmap=True)`` keeps the index on the host: the flat format maps
+every section with ``np.memmap`` and wraps it with ``torch.from_numpy``, so
+nothing is read until it is touched and nothing is copied.  A stated
+difference: the reference maps read-only (its arrays are immutable
+anyway); here the mapping is copy-on-write (mode ``"c"``), so the tensors
+are writable and a write to them changes private pages, never the file
+(``add`` and ``remove`` return new tensors in any case).
 """
 from __future__ import annotations
 
@@ -87,12 +94,19 @@ def load_index(path: str, *, device: DeviceLike = None,
                mmap: bool = False) -> IvfIndex:
     """Read an index written by ``save_index`` (either package) onto
     ``device`` (default ``cuda``; pass ``device="cpu"`` for the CPU).
-    ``mmap=True`` is not ported and raises."""
+
+    ``mmap=True`` keeps the index on the host (``device`` must be None or
+    ``"cpu"``): a flat file's sections become copy-on-write memory maps,
+    read only when touched; an npz loads into host tensors.  Serve it on
+    the card after ``index.to("cuda")``.
+    """
     if mmap:
-        raise NotImplementedError(
-            "load_index(mmap=True): memmapped host arrays are not ported "
-            "(ROADMAP.md, item 1.9b)")
-    dev = resolve_device(device)
+        if device is not None and torch.device(device).type != "cpu":
+            raise ValueError("load_index(mmap=True) keeps the index on the "
+                             f"host; got device={device!r}")
+        dev = torch.device("cpu")
+    else:
+        dev = resolve_device(device)
     if path.endswith(".npz"):
         with np.load(path, allow_pickle=False) as z:
             try:
@@ -117,10 +131,17 @@ def load_index(path: str, *, device: DeviceLike = None,
             arrays = {}
             for name in _names(meta, path):
                 sec = meta["sections"][name]
+                shape = tuple(sec["shape"])
+                if mmap:
+                    arrays[name] = np.memmap(path, dtype=sec["dtype"],
+                                             mode="c",
+                                             offset=base + sec["offset"],
+                                             shape=shape)
+                    continue
                 f.seek(base + sec["offset"])
                 a = np.fromfile(f, dtype=sec["dtype"],
-                                count=int(np.prod(sec["shape"])))
-                arrays[name] = a.reshape(sec["shape"])
+                                count=int(np.prod(shape)))
+                arrays[name] = a.reshape(shape)
     t = {name: torch.from_numpy(np.ascontiguousarray(
         a, dtype=_DTYPES[name])).to(dev) for name, a in arrays.items()}
     codec = None

@@ -1,9 +1,9 @@
 """Carry the JAX package's state, given as numpy arrays, into the port.
 
 The clustering system's counterpart of carrying weights across: one
-reference graph, one initial state, one set of epoch keys and one packed
-IVF index can be fed to both packages, so their outputs compare like with
-like.
+reference graph, one initial state, one set of epoch keys, one packed IVF
+index and one set of clustered-KV clusters can be fed to both packages, so
+their outputs compare like with like.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import torch
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core.engine import BKMState
 from repro_torch.core.knn_graph import KnnGraph
+from repro_torch.core.kv_cluster import KVClusters
 from repro_torch.index.ivf import IvfIndex
 from repro_torch.index.quantize import Int8Codec, PqCodec
 
@@ -39,6 +40,18 @@ def bkm_state(assign, D, cnt, device: DeviceLike = None) -> BKMState:
                     _tensor(D, np.float32, dev),
                     _tensor(cnt, np.float32, dev),
                     torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def kv_clusters(centroids, table, radii, device: DeviceLike = None
+                ) -> KVClusters:
+    """KVClusters from (B, Hkv, kc, hd) centroids, (B, Hkv, kc, cap) member
+    tables and (B, Hkv, kc) radii (a ``repro.core.kv_cluster.KVClusters``'s
+    fields as numpy), on ``device`` (default ``cuda``; pass
+    ``device="cpu"`` for the CPU)."""
+    dev = resolve_device(device)
+    return KVClusters(_tensor(centroids, np.float32, dev),
+                      _tensor(table, np.int32, dev),
+                      _tensor(radii, np.float32, dev))
 
 
 def epoch_words(words) -> torch.Tensor:

@@ -1111,3 +1111,102 @@ def test_profiler_range_per_launch(dev):
     assert calls == want
     assert cov["ranges"] == want and cov["range_launches"] == want
     assert 0 < cov["device_launches"] == cov["in_range"] <= 10
+
+
+# ------------------------------------------------------ clustered-KV decode
+
+def _kv_case(dev, B=2, S=512, Hkv=2, G=2, hd=32, integer=False, seed=0):
+    """(q, k_cache, v_cache) on the card: keys around 16 centres per batch
+    row (integer-valued when ``integer``: every sum exact in f32, in any
+    order), queries that point at cached keys."""
+    g = torch.Generator().manual_seed(seed)
+    centers = torch.randn(B, 16, Hkv, hd, generator=g) * 2.0
+    which = torch.randint(0, 16, (B, S), generator=g)
+    k = centers[torch.arange(B)[:, None], which] + 0.3 * torch.randn(
+        B, S, Hkv, hd, generator=g)
+    if integer:
+        k = k.round()
+    v = torch.randn(B, S, Hkv, hd, generator=g)
+    tgt = torch.randint(0, S, (B, Hkv * G), generator=g)
+    picked = k[torch.arange(B)[:, None], tgt,
+               torch.arange(Hkv * G)[None] // G]
+    q = (2.0 * picked)[:, None]
+    return q.to(dev), k.to(dev), v.to(dev)
+
+
+def test_tree_and_run_slices_on_card_match_per_slice(dev):
+    """Integer-valued keys: the slice-batched tree and ``run_slices`` on the
+    card equal per-slice calls — assignments and counts exactly."""
+    from repro_torch.core import engine as eng
+    from repro_torch.core import two_means as tm
+    _, k, _ = _kv_case(dev, integer=True)
+    X = k.permute(0, 2, 1, 3).reshape(4, 512, 32).contiguous()
+    a = tm.two_means_tree(X, 32, generator=torch.Generator().manual_seed(1),
+                          refine_iters=2)
+    g = torch.Generator().manual_seed(1)
+    for s in range(4):
+        assert torch.equal(a[s], tm.two_means_tree(X[s], 32, generator=g,
+                                                   refine_iters=2))
+    words = torch.randint(0, 2 ** 32, (4, 3, 4),
+                          generator=torch.Generator().manual_seed(2))
+    for mode in ("bkm", "lloyd"):
+        cfg = eng.EngineConfig(batch_size=128, mode=mode, iters=3,
+                               min_move_frac=-1.0)
+        st = eng.run_slices(X, a, 32, cfg, epoch_words=words)
+        for s in range(4):
+            r = eng.run(X[s], eng.init_state(X[s], a[s], 32),
+                        eng.dense_source(), cfg, epoch_words=words[s])
+            assert torch.equal(st.assign[s], r.state.assign), (mode, s)
+            assert torch.equal(st.cnt[s], r.state.cnt), (mode, s)
+            torch.testing.assert_close(st.D[s], r.state.D, rtol=1e-5,
+                                       atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_kv_cluster_syncs_nothing_and_top_c_all_is_full(dev, dtype):
+    """A build with refinement and the attention calls under the strict
+    counter: no host sync, no kernel launch; at top_c = kc the clustered
+    attention is full attention (1e-5 in f32, the reference test's 1e-2
+    in bf16)."""
+    from repro_torch.core import kv_cluster as kv
+    from repro_torch.models import decode_attention
+    from repro_torch.obs import syncs
+    q, k, v = (t.to(dtype) for t in _kv_case(dev))
+    length = torch.tensor(400, device=dev)
+    before = dict(_build.launch_counts)
+    torch.cuda.synchronize()
+    with syncs.sync_counter() as sc:
+        cl = kv.build_kv_clusters(k, 32, refine_epochs=2, cap_factor=8,
+                                  generator=torch.Generator().manual_seed(0),
+                                  device=dev)
+        out = kv.clustered_decode_attention(q, k, v, cl, length, top_c=32)
+        full = decode_attention(q, k, v, length)
+        rec = kv.candidate_recall(q, k, cl, length, top_c=4)
+        torch.cuda.synchronize()
+    assert sc.syncs == 0
+    assert dict(_build.launch_counts) == before
+    assert out.dtype == dtype and cl.table.dtype == torch.int32
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(out.float(), full.float(), rtol=tol, atol=tol)
+    t = cl.table.reshape(4, -1)
+    for s in range(4):
+        assert sorted(t[s][t[s] >= 0].tolist()) == list(range(512))
+    assert 0.0 <= float(rec) <= 1.0
+
+
+def test_load_index_mmap_then_search_on_card(dev, tmp_path):
+    """An index saved on the card, loaded memory-mapped onto the host, then
+    moved to the card, searches exactly as the same file loaded there."""
+    from repro_torch import index as ivf
+    X, index = _small_index(dev, 32)
+    path = str(tmp_path / "ix.ivf")
+    ivf.save_index(index, path)
+    mapped = ivf.load_index(path, mmap=True)
+    assert mapped.device.type == "cpu"
+    moved = mapped.to(dev)
+    assert moved.device.type == "cuda"
+    direct = ivf.load_index(path, device=dev)
+    Q = (X[:64] + 0.05 * torch.randn(64, 32, device=dev)).contiguous()
+    a, b = ivf.search(moved, Q, nprobe=8), ivf.search(direct, Q, nprobe=8)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])

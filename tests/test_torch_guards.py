@@ -226,16 +226,22 @@ def _tiny_index():
 
 
 def test_ivf_out_of_slice_options_raise(tmp_path):
-    """Sharded lists and memmapped loads stay out of scope; a codec search
-    on an index without that codec, or with qgroup, is a ValueError."""
+    """Sharded lists stay out of scope; a memmapped load stays on the host;
+    a codec search on an index without that codec, or with qgroup, is a
+    ValueError."""
     tivf, index = _tiny_index()
     Q = torch.randn(3, 8)
     with pytest.raises(NotImplementedError):
         tivf.shard_lists(index, 2)
     path = str(tmp_path / "ix.ivf")
     tivf.save_index(index, path)
-    with pytest.raises(NotImplementedError, match="mmap"):
-        tivf.load_index(path, device="cpu", mmap=True)
+    mapped = tivf.load_index(path, mmap=True)
+    assert mapped.device.type == "cpu"
+    assert torch.equal(mapped.vecs, index.vecs)
+    assert torch.equal(tivf.search(mapped, Q, nprobe=2)[0],
+                       tivf.search(index, Q, nprobe=2)[0])
+    with pytest.raises(ValueError, match="on the host"):
+        tivf.load_index(path, device="cuda", mmap=True)
     for codec in ("int8", "pq"):
         with pytest.raises(ValueError, match="payload is 'f32'"):
             tivf.search(index, Q, codec=codec)
@@ -285,6 +291,15 @@ def test_interop_without_device_raises_when_no_cuda(monkeypatch):
                           np.zeros(2))
     index = interop.ivf_index(*arrays, block, device="cpu")
     assert index.device.type == "cpu" and index.max_list_tiles == 2
+    kv = (np.zeros((1, 2, 4, 3), np.float32), np.zeros((1, 2, 4, 2), np.int32),
+          np.zeros((1, 2, 4), np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        interop.kv_clusters(*kv)
+    assert interop.kv_clusters(*kv, device="cpu").table.dtype == torch.int32
+    from repro_torch.core.kv_cluster import build_kv_clusters
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_kv_clusters(np.zeros((1, 8, 1, 2), np.float32), 2,
+                          generator=torch.Generator())
 
 
 # ------------------------------------------------- the launch device guard

@@ -312,9 +312,9 @@ def test_port_saved_index_loads_in_jax(tmp_path, fname):
 
 
 def test_codec_index_file_is_refused(tmp_path):
-    """A codec file loads (tests/test_torch_ivf_codec.py); what is refused
-    is a codec kind neither package knows, and ``mmap=True``, which the
-    port does not have."""
+    """A codec file loads (tests/test_torch_ivf_codec.py), also memory-
+    mapped onto the host (``mmap=True``); what is refused is a codec kind
+    neither package knows."""
     X, C, a = _case(256, 16, 8, 13)
     j = jivf.quantize_index(
         jivf.build_ivf(X, FakeResult(a, C, 8), block_rows=16), "int8")
@@ -322,8 +322,11 @@ def test_codec_index_file_is_refused(tmp_path):
         path = os.path.join(tmp_path, fname)
         jivf.save_index(j, path)
         assert tivf.load_index(path, device="cpu").codec_kind == "int8"
-        with pytest.raises(NotImplementedError, match="mmap"):
-            tivf.load_index(path, device="cpu", mmap=True)
+        mapped = tivf.load_index(path, device="cpu", mmap=True)
+        assert mapped.codec_kind == "int8" and mapped.device.type == "cpu"
+        np.testing.assert_array_equal(mapped.codes.numpy(),
+                                      np.asarray(j.codes))
+        del mapped
         if fname.endswith(".npz"):
             with np.load(path) as z:
                 arrays = dict(z)
