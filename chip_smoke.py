@@ -151,9 +151,28 @@ plain PyTorch version, or when any phase fails.  Phases:
    time; peak memory; then the bench's quick shape (B=4, S=8,192, Hkv=4,
    G=4, hd=64, kc=128) built on the card and on the CPU from the same
    draws: per-slice distortion within 1%, candidate recall within 2/64;
-9. one JSON line of the baselines (each path's seconds, quality and
-   launches), one of clustered-KV decode, one of the kernels (with each kernel's launches on the
-   baselines' paths and its numbers at their shapes), the card's
+9. the sharded topology (``core/distributed.py`` and the engine's R-way
+   emulation) on phase 4's data, each stage a counted run: (a) the R = 4
+   emulation at SIFT1M's shape — ``build_knn_graph(shards=4)`` (under
+   ``sync_counter``: 0 host syncs), the 2M-tree init, ``engine.run(shards=4,
+   sparse_updates=True)`` (epochs + 1 host syncs with the final read) and
+   one epoch of the emulated probe source (p=16: ``probe_centroids`` and
+   ``gather_score`` per shard), once through the kernels and once through
+   the plain versions (cut: τ 2, 6 epochs): recall@κ within 0.02,
+   distortions within 1%; (b) a world-size-1 NCCL group (NCCL takes one
+   rank a card; ranks that exchange data run in the CPU tests):
+   ``GraphBuilder`` at SIFT_SMALL against the one-device build (recall
+   within 0.02, 0 host syncs), ``ShardedEngine.run`` on phase 4's graph
+   against ``engine.run`` from the same init (6 epochs; rows counted n,
+   distortion within 1%, host syncs epochs + 1) and ``ShardedIvf.search``
+   on phase 5's index (10,000 queries, nprobe 16; f32, qgroup 8, int8 and
+   PQ nsub=8 at rerank 0: ids equal to ``search``'s, 0 host syncs, the four
+   telemetry slots equal to the host's counts; the codecs' default rerank
+   recalls no less); each stage's seconds and launches printed;
+10. one JSON line of the baselines (each path's seconds, quality and
+   launches), one of clustered-KV decode, one of the sharded topology, one
+   of the kernels (with each kernel's launches on the baselines' paths,
+   its numbers at their shapes and its launches in phase 9), the card's
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Every bound comes from ``launch/roofline.py``'s inventory and every
@@ -2717,6 +2736,284 @@ def kv_cluster_phase():
     return all(checks.values()), out
 
 
+# --------------------------------------------------------------- phase 9
+
+# the sharded topology (core/distributed.py, the engine's R-way emulation)
+# at SIFT1M's shape on phase 4's data.  (a) The R = 4 emulation through the
+# kernels and through the plain versions; cut: tau 2 and 6 epochs (the
+# plain-version build's refine_merge takes ~16 s a round at this shape), one
+# epoch of the probe source.  (b) A world-size-1 NCCL group: NCCL takes one
+# rank a card and the machine has one, so ranks that exchange data run in
+# the CPU tests (gloo) only.
+SHARD = dict(R=4, tau=2, iters=6, probe_p=16, group_iters=6, nprobe=16)
+
+
+def _nonzero(launches):
+    return {k: v for k, v in launches.items() if v}
+
+
+def sharded_init(X, k, seed):
+    """The 2M-tree initialisation of gk_means (pad_plan's wrap rows, their
+    assignments dropped): (assign (n,), k rounded to a power of two)."""
+    import torch
+    from repro_torch.core.two_means import pad_plan, two_means_tree
+    n = X.shape[0]
+    n2, k2 = pad_plan(n, k)
+    Xi = X if n2 == n else torch.cat([X, X[:n2 - n]])
+    return two_means_tree(Xi, k2, generator=torch.Generator().manual_seed(
+        seed))[:n], k2
+
+
+def emulation_pipeline(X, force, truth):
+    """Phase 9(a), one pass: ``build_knn_graph(shards=4)`` (counted, under
+    the sync counter), the tree init, ``engine.run(shards=4,
+    sparse_updates=True)`` (its reads plus the final distortion's) and one
+    epoch of the emulated probe source, each a counted run."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.core.knn_graph import build_knn_graph
+    from repro_torch.obs import syncs
+    c, s = SIFT1M, SHARD
+    out = {}
+    (g, diag), secs, launches, nsync = counted(lambda: build_knn_graph(
+        X, c["kappa"], xi=c["xi"], tau=s["tau"], shards=s["R"], force=force,
+        generator=torch.Generator().manual_seed(SEED), device=DEV,
+        return_diagnostics=True), syncs=True)
+    out["build"] = dict(seconds=secs, launches=_nonzero(launches),
+                        host_syncs=nsync,
+                        recall=recall_on(g.ids, truth, c["kappa"]),
+                        overflow=diag.overflow.tolist(),
+                        guided_moves=diag.guided_moves.tolist())
+    (a0, k2), secs, launches, _ = counted(
+        lambda: sharded_init(X, c["k"], SEED + 1))
+    out["init"] = dict(seconds=secs, launches=_nonzero(launches))
+    cfg = engine.EngineConfig(batch_size=BATCH, iters=s["iters"],
+                              min_move_frac=1e-4, shards=s["R"],
+                              sparse_updates=True, force=force)
+
+    def run():
+        res = engine.run(X, engine.init_state(X, a0, k2),
+                         engine.graph_source(g.ids), cfg,
+                         generator=torch.Generator().manual_seed(SEED + 2))
+        return res, float(syncs.read(res.final))
+    (res, final), secs, launches, nsync = counted(run, syncs=True)
+    out["run"] = dict(seconds=secs, launches=_nonzero(launches),
+                      host_syncs=nsync, epochs=res.epochs,
+                      history=res.history, moves=res.moves, final=final,
+                      rows_counted=int(res.state.cnt.sum()))
+    pcfg = cfg._replace(iters=1, min_move_frac=-1.0)
+
+    def probe():
+        res = engine.run(X, engine.init_state(X, a0, k2),
+                         engine.probe_source(s["probe_p"]), pcfg,
+                         generator=torch.Generator().manual_seed(SEED + 3))
+        return float(syncs.read(res.final))
+    pfinal, secs, launches, _ = counted(probe)
+    out["probe_source"] = dict(seconds=secs, launches=_nonzero(launches),
+                               final=pfinal)
+    log(f"sharded (a) R={s['R']} emulation, "
+        f"{'kernels' if force is None else 'plain versions'}: "
+        f"{json.dumps(out)}")
+    return out, (a0, k2)
+
+
+def group_phase(X, r, init, index, runs, Q, gt):
+    """Phase 9(b): a world-size-1 NCCL group on the card.  GraphBuilder at
+    SIFT_SMALL against the one-device build; ShardedEngine.run on phase
+    4's graph against engine.run from the same init; ShardedIvf.search on
+    phase 5's index (f32, qgroup 8, int8 and PQ nsub=8 with rerank 0)
+    against search — each a counted run, the engine's and the searches'
+    under the sync counter."""
+    import tempfile
+    import torch
+    from repro_torch import index as ivf
+    from repro_torch.core import engine
+    from repro_torch.core.distributed import (ShardedEngine, ShardedIvf,
+                                              sharded_graph_builder)
+    from repro_torch.core.graph_build import GraphBuildConfig, build_graph
+    from repro_torch.data import sift_like
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_index as si
+    from repro_torch.launch.mesh import close_group, init_group
+    from repro_torch.obs import syncs
+    from repro_torch.obs import telemetry as obs_tel
+    c, s, cs = SIFT1M, SHARD, SIFT_SMALL
+    out, checks = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        init_group(DEV, rank=0, world_size=1, store_path=f"{tmp}/store")
+        try:
+            import torch.distributed as dist
+            log(f"sharded (b): process group backend {dist.get_backend()}, "
+                f"world size {dist.get_world_size()}")
+            Xs = sift_like(cs["n"], cs["d"], COMPONENTS,
+                           generator=torch.Generator(device=DEV).manual_seed(
+                               SEED))
+            truth = sampled_truth(Xs, cs["kappa"], 2000, SEED + 3)
+            bcfg = GraphBuildConfig(kappa=cs["kappa"], xi=cs["xi"],
+                                    tau=cs["tau"])
+            (g1, _), s1, l1, y1 = counted(lambda: sharded_graph_builder(
+                None, bcfg).build(Xs, generator=torch.Generator(
+                ).manual_seed(SEED)), syncs=True)
+            (g0, _), s0, l0, _ = counted(lambda: build_graph(
+                Xs, bcfg, generator=torch.Generator().manual_seed(SEED)))
+            rec1 = recall_on(g1.ids, truth, cs["kappa"])
+            rec0 = recall_on(g0.ids, truth, cs["kappa"])
+            out["graph_builder"] = dict(
+                shape="SIFT_SMALL", seconds=s1, launches=_nonzero(l1),
+                host_syncs=y1, recall=rec1, one_device_seconds=s0,
+                one_device_recall=rec0)
+            checks["builder_recall"] = abs(rec1 - rec0) <= RECALL_TOL
+            checks["builder_syncs"] = y1 == 0
+            checks["builder_launches"] = l1["refine_merge"] > 0
+            del Xs, g1, g0
+
+            a0, k2 = init
+            st = engine.init_state(X, a0, k2)
+            ecfg = engine.EngineConfig(batch_size=BATCH,
+                                       iters=s["group_iters"],
+                                       min_move_frac=1e-4,
+                                       sparse_updates=True)
+
+            def grun():
+                res = ShardedEngine(None, ecfg).run(
+                    X, r.graph.ids, st.assign, st.D, st.cnt,
+                    generator=torch.Generator().manual_seed(SEED + 2))
+                return res, float(syncs.read(res.final))
+
+            def srun():
+                res = engine.run(X, engine.init_state(X, a0, k2),
+                                 engine.graph_source(r.graph.ids), ecfg,
+                                 generator=torch.Generator().manual_seed(
+                                     SEED + 2))
+                return res, float(syncs.read(res.final))
+            (res1, f1), sec1, la1, sy1 = counted(grun, syncs=True)
+            (res0, f0), sec0, la0, sy0 = counted(srun, syncs=True)
+            out["engine"] = dict(
+                seconds=sec1, launches=_nonzero(la1), host_syncs=sy1,
+                epochs=res1.epochs, history=res1.history, final=f1,
+                rows_counted=int(res1.state.cnt.sum()),
+                one_device=dict(seconds=sec0, launches=_nonzero(la0),
+                                host_syncs=sy0, epochs=res0.epochs,
+                                final=f0))
+            checks["engine_rows"] = out["engine"]["rows_counted"] == c["n"]
+            checks["engine_distortion"] = abs(f1 - f0) <= 0.01 * f0
+            checks["engine_syncs"] = sy1 == res1.epochs + 1
+            del res1, res0, st
+
+            paths = (("f32", index, {}), ("qgroup8", index, {"qgroup": 8}),
+                     ("int8", runs["int8"]["index"],
+                      {"codec": "int8", "rerank": 0}),
+                     ("pq8", runs["pq"]["index"],
+                      {"codec": "pq", "rerank": 0}))
+            out["ivf"] = {}
+            for label, ix, kw in paths:
+                sh = ShardedIvf(ix)
+                sh.search(Q[:64], nprobe=s["nprobe"], **kw)    # warm-up
+                (ids, d2, tel), sec, la, sy = counted(lambda: sh.search(
+                    Q, topk=SERVE["topk"], nprobe=s["nprobe"],
+                    telemetry=True, **kw), syncs=True)
+                want, _ = ivf.search(ix, Q, topk=SERVE["topk"],
+                                     nprobe=s["nprobe"], **kw)
+                cids, _ = ops.probe_centroids(Q, ix.centroids, s["nprobe"])
+                total = int(ix.caps.long()[cids.long()].sum())
+                bpr = (4 * ix.dim if "codec" not in kw else
+                       ivf.bytes_per_row(ix.codec, ix.dim))
+                t = obs_tel.to_dict(tel)
+                slots_ok = (
+                    t["scanned_rows"] == [total]
+                    and t["scanned_rows_max_shard"] == [total]
+                    and abs(t["scan_frac"][0] - total / (
+                        Q.shape[0] * ix.capacity_rows)) <= 1e-6
+                    * t["scan_frac"][0]
+                    and abs(t["scanned_bytes"][0] - total * bpr) <= 1e-6
+                    * t["scanned_bytes"][0])
+                diff = int((ids != want).any(1).sum())
+                row = dict(seconds=sec, launches=_nonzero(la),
+                           host_syncs=sy, queries=Q.shape[0],
+                           queries_differing=diff,
+                           recall=si.recall(ids, gt),
+                           telemetry={k: t[k] for k in (
+                               "scanned_rows", "scanned_rows_max_shard",
+                               "scan_frac", "scanned_bytes")},
+                           host_scanned_rows=total, slots_ok=slots_ok)
+                if "codec" in kw:      # the default rerank, not counted
+                    dflt = dict(kw, rerank=None)
+                    row["recall_default_rerank"] = si.recall(sh.search(
+                        Q, topk=SERVE["topk"], nprobe=s["nprobe"],
+                        **dflt)[0], gt)
+                    row["one_device_recall_default_rerank"] = si.recall(
+                        ivf.search(ix, Q, topk=SERVE["topk"],
+                                   nprobe=s["nprobe"], **dflt)[0], gt)
+                    checks[f"ivf_{label}_rerank_recall"] = (
+                        row["recall_default_rerank"]
+                        >= row["one_device_recall_default_rerank"])
+                out["ivf"][label] = row
+                scan = ("ivf_scan_adc" if "codec" in kw else
+                        "ivf_scan_grouped" if "qgroup" in kw else "ivf_scan")
+                checks[f"ivf_{label}_launches"] = (
+                    la["probe_centroids"] > 0 and la[scan] > 0)
+                checks[f"ivf_{label}_ids"] = diff == 0
+                checks[f"ivf_{label}_syncs"] = sy == 0
+                checks[f"ivf_{label}_slots"] = slots_ok
+                del sh
+                log(f"sharded (b) ShardedIvf {label}: {json.dumps(row)}")
+        finally:
+            close_group()
+    return checks, out
+
+
+def sharded_phase(X, r, index, runs, Q, gt):
+    """Phase 9: the sharded topology, (a) the R = 4 emulation through the
+    kernels and the plain versions, (b) a world-size-1 NCCL group."""
+    t_phase = time.perf_counter()
+    c, s = SIFT1M, SHARD
+    log(f"sharded phase: (a) R={s['R']} emulation n={c['n']} d={c['d']} "
+        f"k={c['k']} kappa={c['kappa']} xi={c['xi']} tau={s['tau']} "
+        f"iters={s['iters']} batch={BATCH}; cuts: tau {c['tau']} -> "
+        f"{s['tau']}, iterations {ITERS} -> {s['iters']}, the probe source "
+        f"1 epoch; (b) a world-size-1 NCCL group; ranks that exchange data "
+        "run only in the CPU tests")
+    truth = sampled_truth(X, c["kappa"], 1000, SEED + 4)
+    emu = {}
+    for force in (None, "ref"):
+        emu[force or "kernel"], init = emulation_pipeline(X, force, truth)
+    k_, p_ = emu["kernel"], emu["ref"]
+    checks = {
+        "emu_build_syncs": k_["build"]["host_syncs"] == 0
+        and p_["build"]["host_syncs"] == 0,
+        "emu_run_syncs": all(e["run"]["host_syncs"] == e["run"]["epochs"] + 1
+                             for e in (k_, p_)),
+        "emu_recall": abs(k_["build"]["recall"] - p_["build"]["recall"])
+        <= RECALL_TOL,
+        "emu_distortion": abs(k_["run"]["final"] - p_["run"]["final"])
+        <= 0.01 * p_["run"]["final"],
+        "emu_probe_distortion": abs(k_["probe_source"]["final"]
+                                    - p_["probe_source"]["final"])
+        <= 0.01 * p_["probe_source"]["final"],
+        "emu_rows": k_["run"]["rows_counted"] == c["n"],
+        "emu_kernel_launches": k_["build"]["launches"].get(
+            "refine_merge", 0) > 0 and all(
+            k_["probe_source"]["launches"].get(n, 0) > 0
+            for n in ("probe_centroids", "gather_score")),
+        "emu_plain_launches_none": not any(
+            p_[st]["launches"] for st in ("build", "run", "probe_source")),
+    }
+    gchecks, group = group_phase(X, r, init, index, runs, Q, gt)
+    checks.update(gchecks)
+    secs = time.perf_counter() - t_phase
+    launches = {}
+    for part in (k_["build"], k_["run"], k_["probe_source"],
+                 group["graph_builder"], group["engine"],
+                 *group["ivf"].values()):
+        for name, v in part["launches"].items():
+            launches[name] = launches.get(name, 0) + v
+    log(f"sharded phase checks: {json.dumps(checks)}; kernel launches "
+        f"{json.dumps(launches)}; {secs:.1f} s")
+    return all(checks.values()), dict(
+        seconds=secs, emulation={"kernels": k_, "plain": p_}, group=group,
+        launches=launches, checks=checks)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2804,6 +3101,9 @@ def main() -> int:
                           kernel_entries(gs, rm, ca, sc, cc, pw))
     if not ok_obs:
         failures.append("obs layer")
+    ok_sh, sharded = sharded_phase(X, res, index, runs, Q, gt)
+    if not ok_sh:
+        failures.append("sharded topology")
     del X
     ok_kv, kv_out = kv_cluster_phase()
     if not ok_kv:
@@ -3031,9 +3331,14 @@ def main() -> int:
                       ("assign_centroids", "assign")):
         by_name[name]["baselines_shapes"] = {
             key: at_shape(base["shapes"][key], "plan", "shape")}
+    for kd in kernels:
+        kd["sharded_launches"] = sharded["launches"].get(kd["name"], 0)
     log(f"total {time.perf_counter() - t_all:.1f} s; failures: {failures}")
     if failures:
         return 1
+    print(json.dumps({"sharded": {k: sharded[k] for k in (
+        "seconds", "emulation", "group", "launches", "checks")}}),
+        flush=True)
     print(json.dumps({"baselines": base["paths"]
                       | {"sift_small": base["sift_small"]}}), flush=True)
     print(json.dumps({"kv_cluster": kv_out}), flush=True)

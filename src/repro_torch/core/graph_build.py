@@ -25,8 +25,22 @@ them eagerly, with no host sync inside a build (the per-round diagnostics
 stay on the device).  ``GraphBuildConfig(telemetry=True)`` adds per-round
 ``Telemetry`` rows to the diagnostics, also on the device (``overflow``,
 ``guided_moves``, ``graph_updates`` and ``graph_mean_dist``, the last two
-over all the build's rows, phantoms included, as the reference's are).  Out
-of this slice: ``GraphBuilder`` over a mesh and ``shards > 1``.
+over all the build's rows, phantoms included, as the reference's are).
+
+Topologies.  ``GraphBuilder(cfg, group=...)`` runs the build over a
+``torch.distributed`` group: every rank passes the full X and gets the full
+graph back, while the rounds work on the rank's contiguous block of the
+padded rows.  X is gathered once per build (candidates may live on any
+rank); the tree is ``two_means_dist`` over the group; the guided pass runs
+``engine.sharded_epoch`` with cluster-sharded statistics; each rank tables
+its own rows' cluster slots (``members_table_local`` with capacity
+``cap / R`` and its spill list) and the round gathers the slices and the
+spill lists and sums the overflow; the refinement is local.  With
+``GraphBuildConfig(shards=R)`` one device emulates that R-way build: the
+tree and the guided pass blocked the same way, R table slices, so the
+result equals the group's (bit for bit on the CPU).  The descent source
+ignores ``shards`` (its rounds have no blocked step); over a group its rows
+must divide by the group size.
 """
 from __future__ import annotations
 
@@ -36,11 +50,12 @@ import torch
 
 from repro_torch._device import to_device
 from repro_torch.core import engine
+from repro_torch.core.comm import Comm
 from repro_torch.core.knn_graph import (KnnGraph, members_table_local,
                                         merge_topk, random_graph)
 from repro_torch.core.objective import cluster_stats
 from repro_torch.core.permute import draw_words
-from repro_torch.core.two_means import draw_salts, two_means_dist
+from repro_torch.core.two_means import TreeTopo, draw_salts, two_means_dist
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.refine_merge import source_norms
 from repro_torch.obs import telemetry as obs_tel
@@ -209,6 +224,23 @@ def descent_candidates(g_ids: torch.Tensor, pick1: torch.Tensor,
     return torch.where(cand == own, -1, cand).to(torch.int32)
 
 
+def _check_layout(n: int, cfg: GraphBuildConfig, R: int) -> None:
+    """Raise unless the build's rows, table and clusters divide R ways."""
+    k0, n_pad = _plan(n, cfg)
+    if n_pad % R:
+        raise ValueError(f"{n_pad} build rows do not divide into {R} shards"
+                         + (" (see core.distributed.usable_rows)"
+                            if cfg.source == "descent" else ""))
+    if cfg.source != "partition":
+        return
+    if (cfg.cap_factor * cfg.xi) % R:
+        raise ValueError(f"member-table capacity {cfg.cap_factor * cfg.xi} "
+                         f"must divide into {R} per-shard slices")
+    if cfg.guided and k0 % R:
+        raise ValueError(f"k0={k0} must divide into {R} cluster blocks for "
+                         "the guided pass (raise xi or use fewer shards)")
+
+
 def build_graph(X: torch.Tensor, cfg: GraphBuildConfig, *,
                 generator: Optional[torch.Generator] = None,
                 draws=None) -> Tuple[KnnGraph, BuildDiagnostics]:
@@ -216,116 +248,186 @@ def build_graph(X: torch.Tensor, cfg: GraphBuildConfig, *,
 
     Randomness: ``draws`` if given (``BuildDraws`` for the partition
     source, ``DescentDraws`` for descent), else drawn from ``generator`` (a
-    CPU ``torch.Generator``).  No host sync.
+    CPU ``torch.Generator``).  ``cfg.shards=R`` emulates an R-way group
+    build (``GraphBuilder(cfg, group=...)``) on one device.  No host sync.
     """
     if cfg.source not in ("partition", "descent"):
         raise ValueError(f"source must be 'partition' or 'descent', got "
                          f"{cfg.source!r}")
-    if cfg.shards != 1:
-        raise NotImplementedError("shards > 1: not ported yet")
+    if cfg.shards < 1:
+        raise ValueError(f"shards must be >= 1, got {cfg.shards}")
     if draws is None and generator is None:
         raise ValueError("pass draws or a generator")
+    n = X.shape[0]
     if cfg.source == "descent":
-        return _build_descent(X, cfg, generator, draws)
-    return _build_partition(X, cfg, generator, draws)
+        g_ids, g_d, diag = _build_descent(X, cfg, generator, draws)
+    else:
+        _check_layout(n, cfg, cfg.shards)
+        g_ids, g_d, diag = _build_partition(X, cfg, generator, draws)
+    return KnnGraph(g_ids[:n].contiguous(), g_d[:n].contiguous()), diag
 
 
-def _init_lists(X_pad, init_ids, n_rows, ysq, cfg):
-    """Empty (-1, inf) lists, refined against κ random candidates per row
-    when ``random_init``."""
-    dev = X_pad.device
+def _init_lists(X_own, Xsrc, init_ids, n_rows, ysq, cfg):
+    """Empty (-1, inf) lists of the ``n_rows`` rows ``X_own``, refined
+    against κ random candidate rows of ``Xsrc`` per row when
+    ``random_init``."""
+    dev = X_own.device
     g_ids = torch.full((n_rows, cfg.kappa), -1, dtype=torch.int32, device=dev)
     g_d = torch.full((n_rows, cfg.kappa), float("inf"), device=dev)
     if not cfg.random_init:
         return g_ids, g_d
     cand0 = to_device(torch.as_tensor(init_ids).to(torch.int32), dev)
-    return _refine_rows(X_pad, torch.clamp(cand0, min=0), cand0, g_ids, g_d,
-                        X_pad, ysq, cfg.chunk, cfg.force)
+    return _refine_rows(X_own, torch.clamp(cand0, min=0), cand0, g_ids, g_d,
+                        Xsrc, ysq, cfg.chunk, cfg.force)
 
 
-def _round_telemetry(tel, t, g_ids, g_d, gi0, **counts):
+def _round_telemetry(tel, t, g_ids, g_d, gi0, comm=None, **counts):
     """File round t's slots: the given counters, the list entries that
     differ from the round-start ids ``gi0``, and the mean finite list
-    distance, both over all rows (no host sync; None passes through)."""
+    distance, both over all rows — over the group's rows with ``comm`` (no
+    host sync; None passes through)."""
     if tel is None:
         return
     fin = torch.isfinite(g_d)
+    upd = (g_ids != gi0).sum(dtype=torch.int32)
     dsum = torch.where(fin, g_d, 0.0).sum()
     dcnt = fin.sum().to(torch.float32)
-    obs_tel.record(tel, t, graph_updates=(g_ids != gi0).sum(
-        dtype=torch.int32), graph_mean_dist=dsum / torch.clamp(dcnt, min=1.0),
-        **counts)
+    if comm is not None:
+        upd, dsum, dcnt = comm.psum(upd), comm.fsum(dsum), comm.psum(dcnt)
+    obs_tel.record(tel, t, graph_updates=upd,
+                   graph_mean_dist=dsum / torch.clamp(dcnt, min=1.0),
+                   **counts)
 
 
-def _build_descent(X, cfg, generator, draws):
+def _local_rows(n_rows: int, comm: Optional[Comm], dev):
+    """(first row, rows) of this rank's block, all rows without a group."""
+    B = n_rows if comm is None else n_rows // comm.size
+    lo = 0 if comm is None else comm.rank * B
+    return lo, torch.arange(lo, lo + B, device=dev)
+
+
+def _build_descent(X, cfg, generator, draws, comm=None):
     n = X.shape[0]
     dev = X.device
-    Xf = X.float().contiguous()
+    lo, row_ids = _local_rows(n, comm, dev)
+    B = row_ids.shape[0]
+    X_loc = X[lo:lo + B].float().contiguous()
+    Xf = X_loc if comm is None else comm.all_gather(X_loc)
     ysq = source_norms(Xf)
     init = (None if not cfg.random_init else
             draws.init_ids if draws is not None else
             random_graph(n, cfg.kappa, generator, device="cpu"))
-    g_ids, g_d = _init_lists(Xf, init, n, ysq, cfg)
+    if init is not None:
+        init = torch.as_tensor(init)[lo:lo + B]
+    g_ids, g_d = _init_lists(X_loc, Xf, init, B, ysq, cfg)
     tel = obs_tel.init(cfg.tau, dev) if cfg.telemetry else None
     for t, (pick1, pick2, slot) in enumerate(_descent_round_draws(
             n, cfg, dev, generator, draws)):
-        cand = descent_candidates(g_ids, pick1, pick2, slot)
-        del pick1, pick2, slot
+        G_full = g_ids if comm is None else comm.all_gather(g_ids)
+        cand = descent_candidates(G_full, pick1, pick2, slot)[lo:lo + B]
+        del pick1, pick2, slot, G_full
         gi0 = g_ids                  # _refine_rows returns new tensors
-        g_ids, g_d = _refine_rows(Xf, torch.clamp(cand, min=0), cand, g_ids,
-                                  g_d, Xf, ysq, cfg.chunk, cfg.force)
+        g_ids, g_d = _refine_rows(X_loc, torch.clamp(cand, min=0), cand,
+                                  g_ids, g_d, Xf, ysq, cfg.chunk, cfg.force)
         # overflow and guided_moves stay 0, as the reference's descent rows
-        _round_telemetry(tel, t, g_ids, g_d, gi0)
+        _round_telemetry(tel, t, g_ids, g_d, gi0, comm)
     zeros = torch.zeros((cfg.tau,), dtype=torch.int32, device=dev)
-    return KnnGraph(g_ids, g_d), BuildDiagnostics(zeros, zeros.clone(), tel)
+    return g_ids, g_d, BuildDiagnostics(zeros, zeros.clone(), tel)
 
 
-def _build_partition(X, cfg, generator, draws):
+def _guided_stats(X, assign, k0, topo: TreeTopo):
+    """The guided pass's (D, cnt): per-shard composite sums added in shard
+    order, and integer counts summed (the reference's ``_guided_stats``)."""
+    D = topo.fsum_blocks(lambda xb, ab: cluster_stats(xb, ab, k0).D, X,
+                         assign)
+    cnt = torch.zeros((k0,), dtype=torch.int64, device=X.device)
+    cnt.index_add_(0, assign.long(), torch.ones_like(assign, dtype=torch.int64))
+    return D, topo.isum(cnt).to(torch.float32)
+
+
+def _member_table(assign, row_ids, k0, cap, spill, R, comm):
+    """(table_T (cap, k0), spill ids (R·spill,), overflow ()): each shard's
+    (cap / R, k0) slice of its own rows and its spill list, stacked in
+    shard order (gathered over the group)."""
+    if comm is not None:
+        tT, sp, ovf = members_table_local(assign, row_ids, k0, cap // R,
+                                          spill)
+        return comm.all_gather(tT), comm.all_gather(sp), comm.psum(ovf)
+    if R == 1:
+        return members_table_local(assign, row_ids, k0, cap, spill)
+    B = assign.shape[0] // R
+    parts = [members_table_local(assign[s * B:(s + 1) * B],
+                                 row_ids[s * B:(s + 1) * B], k0, cap // R,
+                                 spill) for s in range(R)]
+    return (torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]),
+            torch.stack([p[2] for p in parts]).sum(dtype=torch.int32))
+
+
+def _build_partition(X, cfg, generator, draws, comm=None):
     n, _ = X.shape
     dev = X.device
     k0, n_pad = _plan(n, cfg)
+    R = comm.size if comm is not None else cfg.shards
     if draws is None:
         draws = draw_build(n, cfg, generator)
     Xf = X.float().contiguous()
     real_id = to_device(torch.cat([torch.arange(n), torch.as_tensor(
         draws.pad_extra).long().cpu()]), dev)
-    X_pad = Xf[real_id].contiguous() if n_pad > n else Xf
+    lo, row_ids = _local_rows(n_pad, comm, dev)
+    B = row_ids.shape[0]
+    X_loc = Xf[real_id[lo:lo + B]].contiguous() if n_pad > n or comm \
+        else Xf
+    # candidates may live on any rank: X is gathered once per build
+    X_pad = X_loc if comm is None else comm.all_gather(X_loc)
     ysq = source_norms(X_pad)
-    row_ids = torch.arange(n_pad, device=dev)
-    g_ids, g_d = _init_lists(X_pad, draws.init_ids, n_pad, ysq, cfg)
+    own_real = real_id[row_ids].to(torch.int32)
+    init = (None if draws.init_ids is None
+            else torch.as_tensor(draws.init_ids)[lo:lo + B])
+    g_ids, g_d = _init_lists(X_loc, X_pad, init, B, ysq, cfg)
 
     cap = cfg.cap_factor * cfg.xi
+    topo = TreeTopo(cfg.shards, comm)
     ecfg = engine.EngineConfig(batch_size=cfg.bkm_batch, sparse_updates=True,
+                               shards=R if comm is None else 1,
                                force=cfg.force)
     overflow, moves = [], []
     tel = obs_tel.init(cfg.tau, dev) if cfg.telemetry else None
     for t in range(cfg.tau):
-        assign = two_means_dist(X_pad, row_ids, k0, salts=draws.salts[t])
+        assign = two_means_dist(X_loc, row_ids, k0, salts=draws.salts[t],
+                                shards=R if comm is None else 1, comm=comm)
         mv = torch.zeros((), dtype=torch.int32, device=dev)
         if cfg.guided and t > 0:
             # the intertwined evolving step: one graph-guided engine epoch
             # over this round's partition (round 0's graph is still random)
-            D, cnt = cluster_stats(X_pad, assign, k0)
-            st = engine.BKMState(assign, D, cnt, mv)
-            engine.epoch(X_pad, st, engine.graph_source(g_ids),
-                         draws.epoch_words[t], ecfg)
+            D, cnt = _guided_stats(X_loc, assign, k0, topo)
+            src = engine.graph_source(g_ids)
+            if comm is None:
+                st = engine.BKMState(assign, D, cnt, mv)
+                engine.epoch(X_loc, st, src, draws.epoch_words[t], ecfg)
+            else:
+                k0_loc = k0 // R
+                coff = comm.rank * k0_loc
+                st = engine.BKMState(assign, D[coff:coff + k0_loc].clone(),
+                                     cnt, mv)
+                engine.sharded_epoch(X_loc, st, src, draws.epoch_words[t],
+                                     ecfg, comm, coff)
             assign = st.assign
-        table_T, spill_ids, ovf = members_table_local(assign, row_ids, k0,
-                                                      cap, cfg.spill)
+        table_T, spill_ids, ovf = _member_table(assign, row_ids, k0, cap,
+                                                cfg.spill, R, comm)
         cand_rows = torch.cat([table_T[:, assign.long()].T,
-                               spill_ids[None, :].expand(n_pad, -1)], dim=1)
+                               spill_ids[None, :].expand(B, -1)], dim=1)
         cand_ids = torch.where(
             cand_rows >= 0, real_id[torch.clamp(cand_rows, min=0).long()],
             -1).to(torch.int32)
         # mask self and phantoms of self; phantom duplicates dedupe in merge
-        cand_ids = torch.where(cand_ids == real_id[:, None].to(torch.int32),
-                               -1, cand_ids)
+        cand_ids = torch.where(cand_ids == own_real[:, None], -1, cand_ids)
         gi0 = g_ids                  # _refine_rows returns new tensors
-        g_ids, g_d = _refine_rows(X_pad,
+        g_ids, g_d = _refine_rows(X_loc,
                                   torch.clamp(cand_rows, min=0).contiguous(),
                                   cand_ids.contiguous(), g_ids, g_d, X_pad,
                                   ysq, cfg.chunk, cfg.force)
-        _round_telemetry(tel, t, g_ids, g_d, gi0, overflow=ovf,
+        _round_telemetry(tel, t, g_ids, g_d, gi0, comm, overflow=ovf,
                          guided_moves=mv)
         overflow.append(ovf)
         moves.append(mv)
@@ -334,28 +436,46 @@ def _build_partition(X, cfg, generator, draws):
         torch.zeros((0,), dtype=torch.int32, device=dev),
         torch.stack(moves) if moves else
         torch.zeros((0,), dtype=torch.int32, device=dev), tel)
-    return KnnGraph(g_ids[:n].contiguous(), g_d[:n].contiguous()), diag
+    return g_ids, g_d, diag
 
 
 class GraphBuilder:
-    """A graph build's config, bound once: ``build(X, generator=...,
-    draws=...)`` runs the single-device ``build_graph``.  The reference's
-    mesh-resident builder (``mesh=...``) is not ported yet and raises."""
+    """A graph build's config, bound once, on one device or over a group.
 
-    def __init__(self, cfg: GraphBuildConfig, mesh=None,
-                 data_axes: Tuple[str, ...] = ("data",)):
-        if mesh is not None:
-            raise NotImplementedError("GraphBuilder over a mesh: not ported "
-                                      "yet")
+    ``build(X, generator=..., draws=...)`` runs ``build_graph`` (``group``
+    None), or the group build (``group`` a ``torch.distributed``
+    ProcessGroup, or ``"world"`` for the default group): every rank passes
+    the same X and the same draws (or a generator in the same state) and
+    gets the full graph and the diagnostics back.  The group's backend must
+    match X's device (NCCL with ``cuda``, gloo with ``cpu``).  The padded
+    rows, the member-table capacity and, for the guided pass, the k0
+    clusters must divide by the group size (``ValueError`` otherwise).
+    """
+
+    def __init__(self, cfg: GraphBuildConfig, group=None):
         self.cfg = cfg
-        self.mesh = None
-        self.data_axes = tuple(data_axes)
-        self.shards = 1
+        self.comm = (None if group is None else
+                     Comm(None if group == "world" else group))
+        self.shards = 1 if self.comm is None else self.comm.size
 
     def build(self, X: torch.Tensor, *,
               generator: Optional[torch.Generator] = None, draws=None
               ) -> Tuple[KnnGraph, BuildDiagnostics]:
-        return build_graph(X, self.cfg, generator=generator, draws=draws)
+        if self.comm is None:
+            return build_graph(X, self.cfg, generator=generator, draws=draws)
+        cfg = self.cfg
+        if cfg.source not in ("partition", "descent"):
+            raise ValueError(f"source must be 'partition' or 'descent', got "
+                             f"{cfg.source!r}")
+        if draws is None and generator is None:
+            raise ValueError("pass draws or a generator")
+        self.comm.check(X.device)
+        n = X.shape[0]
+        _check_layout(n, cfg, self.comm.size)
+        fn = _build_descent if cfg.source == "descent" else _build_partition
+        g_ids, g_d, diag = fn(X, cfg, generator, draws, self.comm)
+        return (KnnGraph(self.comm.all_gather(g_ids)[:n].contiguous(),
+                         self.comm.all_gather(g_d)[:n].contiguous()), diag)
 
     def __repr__(self):
         return (f"GraphBuilder(shards={self.shards}, "

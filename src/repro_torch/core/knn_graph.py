@@ -139,7 +139,7 @@ def build_knn_graph(X, kappa: int, *, xi: int = 64, tau: int = 8,
                     generator: Optional[torch.Generator] = None,
                     draws=None, bkm_batch: int = 1024, cap_factor: int = 2,
                     chunk: int = 1024, guided: bool = True,
-                    force: Optional[str] = None,
+                    shards: int = 1, force: Optional[str] = None,
                     device: DeviceLike = None,
                     return_diagnostics: bool = False,
                     telemetry: bool = False):
@@ -150,13 +150,15 @@ def build_knn_graph(X, kappa: int, *, xi: int = 64, tau: int = 8,
     ``device`` (default ``cuda``; raises without one).  Randomness comes from
     ``generator`` (CPU ``torch.Generator``) or the explicit ``draws``
     (``graph_build.BuildDraws``).  ``telemetry=True`` adds per-round rows
-    to the diagnostics (``BuildDiagnostics.telemetry``).
+    to the diagnostics (``BuildDiagnostics.telemetry``).  ``shards=R``
+    emulates an R-way group build on one device (equal to a
+    ``GraphBuilder(group=...)`` build over R ranks).
     """
     from repro_torch.core.graph_build import GraphBuildConfig, build_graph
     Xd = as_f32(X, resolve_device(device))
     cfg = GraphBuildConfig(kappa=kappa, source="partition", xi=xi, tau=tau,
                            cap_factor=cap_factor, bkm_batch=bkm_batch,
-                           guided=guided, chunk=chunk, force=force,
-                           telemetry=telemetry)
+                           guided=guided, chunk=chunk, shards=shards,
+                           force=force, telemetry=telemetry)
     graph, diag = build_graph(Xd, cfg, generator=generator, draws=draws)
     return (graph, diag) if return_diagnostics else graph

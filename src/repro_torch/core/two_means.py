@@ -11,10 +11,15 @@ segment exactly.
   eager torch has no trace to split) keeps clusters as contiguous blocks of
   a permutation and splits with a stable sort on (segment, delta) — two
   stable ``argsort`` passes, delta then segment.
-* ``two_means_dist`` (the graph build's tree, ``shards=1``) keeps a segment
-  id per row, seeds by a salted min-hash of the row id, and splits at an
-  exact radix-select median on the composite (monotone-u32(delta) ‖ row id)
-  key, whose running counts are an integer ``cumsum`` (exact at any n).
+* ``two_means_dist`` (the graph build's tree) keeps a segment id per row,
+  seeds by a salted min-hash of the row id, and splits at an exact
+  radix-select median on the composite (monotone-u32(delta) ‖ row id) key,
+  whose running counts are an integer ``cumsum`` (exact at any n).  Its
+  rows may be sharded over a ``torch.distributed`` group (``comm``), or
+  blocked on one device as R shards would hold them (``shards=R``): the
+  only cross-shard combines are integer sums and minimums (all-reduces)
+  and float sums of per-shard partials added in shard order
+  (``TreeTopo.fsum_blocks``), so both forms give the same tree.
 
 Where the reference multiplies (B, k) one-hot matrices (64 GB each at
 n = 2**20, k = 2**14), the port takes ``index_add_`` segment sums and gathers
@@ -32,6 +37,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from repro_torch._device import to_device
+from repro_torch.core.comm import Comm, ordered_sum
 from repro_torch.core.permute import MASK32, mix32
 
 UMAX = MASK32
@@ -157,8 +163,45 @@ def two_means_tree(X: torch.Tensor, k: int, *,
 
 
 # ---------------------------------------------------------------------------
-# the distributed tree's single-device form (histogram medians)
+# the distributed tree (histogram medians), on one device or over a group
 # ---------------------------------------------------------------------------
+
+class TreeTopo:
+    """Cross-shard combines of the distributed tree (the reference's
+    ``_TreeTopo``).
+
+    ``comm`` set: the group's collectives.  None: one device, where
+    ``shards=R`` emulates R ranks holding contiguous row blocks.  Integer
+    sums and minimums are order-invariant, so the emulation takes them over
+    all rows at once; float sums go through ``fsum_blocks``, which adds the
+    same per-block partials in block order in both topologies
+    (``core.comm.ordered_sum``)."""
+
+    def __init__(self, shards: int = 1, comm: Optional[Comm] = None):
+        self.comm = comm
+        self.R = comm.size if comm is not None else shards
+
+    def isum(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.comm is None else self.comm.psum(x)
+
+    def umin(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.comm is None else self.comm.pmin(x)
+
+    def owner_fsum(self, x: torch.Tensor) -> torch.Tensor:
+        """A float sum whose every element is one owner's value plus
+        zeros (exact in any order)."""
+        return x if self.comm is None else self.comm.psum(x)
+
+    def fsum_blocks(self, partial_fn, *rows: torch.Tensor) -> torch.Tensor:
+        """Ordered float combine of per-shard partials of ``rows``."""
+        if self.comm is not None:
+            return self.comm.fsum(partial_fn(*rows))
+        if self.R == 1:
+            return partial_fn(*rows)
+        blocked = [a.reshape((self.R, -1) + a.shape[1:]) for a in rows]
+        return ordered_sum([partial_fn(*(a[s] for a in blocked))
+                            for s in range(self.R)])
+
 
 def monotone_u32(f: torch.Tensor) -> torch.Tensor:
     """Order-preserving f32 -> uint32 key (as int64), IEEE total-order trick."""
@@ -166,11 +209,12 @@ def monotone_u32(f: torch.Tensor) -> torch.Tensor:
     return torch.where((b >> 31) == 0, b | 0x80000000, (~b) & MASK32)
 
 
-def _radix_left(ukey, pos_u, seg, k, r, active):
+def _radix_left(ukey, pos_u, seg, k, r, active, topo: TreeTopo):
     """Mark the r[c] smallest composite (ukey ‖ pos_u) keys of every segment.
 
-    8 rounds of a (256, k) digit histogram, high byte first.  Row ids are
-    unique, so the key is a total order and exactly r[c] rows come back.
+    8 rounds of a (256, k) digit histogram, high byte first, summed over
+    the shards.  Row ids are unique, so the key is a total order and exactly
+    r[c] rows come back.
     """
     left = torch.zeros_like(active)
     cols = torch.arange(k, device=seg.device)
@@ -179,7 +223,7 @@ def _radix_left(ukey, pos_u, seg, k, r, active):
         digit = (word >> (8 * (3 - rnd % 4))) & 0xFF
         hist = torch.zeros((256 * k,), dtype=torch.int64, device=seg.device)
         hist.index_add_(0, digit * k + seg, active.long())
-        hist = hist.view(256, k)
+        hist = topo.isum(hist.view(256, k))
         cum = torch.cumsum(hist, dim=0)
         dstar = (cum > r[None, :]).to(torch.int8).argmax(dim=0)
         below = (cum - hist)[dstar, cols]
@@ -190,20 +234,20 @@ def _radix_left(ukey, pos_u, seg, k, r, active):
     return left
 
 
-def _seg_min(vals, seg, k):
+def _seg_min(vals, seg, k, topo: TreeTopo):
     out = torch.full((k,), UMAX, dtype=torch.int64, device=vals.device)
-    return out.scatter_reduce_(0, seg, vals, reduce="amin")
+    return topo.umin(out.scatter_reduce_(0, seg, vals, reduce="amin"))
 
 
-def _seed_rows(h, pos_u, seg, k, exclude=None):
-    """Local row index of each segment's min-hash member (row-id tie-break);
-    -1 for an empty segment."""
+def _seed_rows(h, pos_u, seg, k, topo: TreeTopo, exclude=None):
+    """Global row id of each segment's min-hash member (row-id tie-break),
+    and its local row index (-1 where this shard does not hold it)."""
     hx = h if exclude is None else torch.where(pos_u == exclude[seg], UMAX, h)
-    hmin = _seg_min(hx, seg, k)
+    hmin = _seg_min(hx, seg, k, topo)
     cand = torch.where(hx == hmin[seg], pos_u, UMAX)
     if exclude is not None:
         cand = torch.where(pos_u == exclude[seg], UMAX, cand)
-    pos_c = _seg_min(cand, seg, k)                        # (k,) row ids
+    pos_c = _seg_min(cand, seg, k, topo)                  # (k,) row ids
     hit = pos_u == pos_c[seg]
     local = torch.where(hit, torch.arange(seg.shape[0], device=seg.device),
                         -1)
@@ -225,25 +269,32 @@ def draw_salts(levels: int, generator: torch.Generator) -> torch.Tensor:
 def two_means_dist(X: torch.Tensor, row_ids: torch.Tensor, k: int, *,
                    salts: Optional[Sequence] = None,
                    generator: Optional[torch.Generator] = None,
-                   shards: int = 1, refine_iters: int = 4) -> torch.Tensor:
+                   shards: int = 1, comm: Optional[Comm] = None,
+                   refine_iters: int = 4) -> torch.Tensor:
     """Equal-size 2M tree with radix-select medians; returns assign (B,) int32.
 
-    X (B, d) / row_ids (B,) (unique ids < 2**32); k a power of two dividing
-    B.  ``salts`` (log2 k, 2) are the per-level hash salts (the reference's
+    X (B, d) / row_ids (B,) (unique ids < 2**32) are all rows, or with
+    ``comm`` this rank's rows of a group (B on every rank); k a power of two
+    dividing the global row count.  ``shards=R`` (one device) emulates an
+    R-rank group whose ranks hold contiguous blocks of B / R rows: the
+    result equals the group's, bit for bit on the CPU.  ``salts`` (log2 k,
+    2) are the per-level hash salts (the reference's
     ``jax.random.bits(fold_in(key, lvl), (2,))``), drawn from ``generator``
-    when omitted.  Only ``shards=1`` is ported.
+    when omitted; every rank must use the same.
     """
-    if shards != 1:
-        raise NotImplementedError("two_means_dist with shards > 1: not ported")
     if not _is_pow2(k):
         raise ValueError(f"k={k} must be a power of two (see pad_plan)")
-    n = X.shape[0]
+    topo = TreeTopo(shards, comm)
+    B = X.shape[0]
+    if comm is None and B % topo.R:
+        raise ValueError(f"n={B} rows do not divide into {topo.R} shards")
+    n = B * (topo.R if comm is not None else 1)
     if n % k:
         raise ValueError(f"padded n={n} must be divisible by k={k}")
     dev = X.device
     levels = k.bit_length() - 1
     if levels == 0:
-        return torch.zeros((n,), dtype=torch.int32, device=dev)
+        return torch.zeros((B,), dtype=torch.int32, device=dev)
     if salts is None:
         if generator is None:
             raise ValueError("pass salts or a generator")
@@ -252,17 +303,19 @@ def two_means_dist(X: torch.Tensor, row_ids: torch.Tensor, k: int, *,
              (salts.tolist() if isinstance(salts, torch.Tensor) else salts)]
     Xf = X.float()
     pos_u = row_ids.long() & MASK32
-    seg = torch.zeros((n,), dtype=torch.int64, device=dev)
-    ones = torch.ones((n,), dtype=torch.int64, device=dev)
-    all_rows = torch.ones((n,), dtype=torch.bool, device=dev)
+    seg = torch.zeros((B,), dtype=torch.int64, device=dev)
+    ones = torch.ones((B,), dtype=torch.int64, device=dev)
+    all_rows = torch.ones((B,), dtype=torch.bool, device=dev)
     for lvl in range(levels):
         m = n >> lvl
-        tot = _segsum(Xf, seg, k)
-        cntc = _segsum(ones, seg, k)
-        pos1, i1 = _seed_rows(mix32(pos_u ^ salts[lvl][0]), pos_u, seg, k)
-        _, i2 = _seed_rows(mix32(pos_u ^ salts[lvl][1]), pos_u, seg, k,
+        tot = topo.fsum_blocks(lambda xb, sb: _segsum(xb, sb, k), Xf, seg)
+        cntc = topo.isum(_segsum(ones, seg, k))
+        pos1, i1 = _seed_rows(mix32(pos_u ^ salts[lvl][0]), pos_u, seg, k,
+                              topo)
+        _, i2 = _seed_rows(mix32(pos_u ^ salts[lvl][1]), pos_u, seg, k, topo,
                            exclude=pos1)
-        c1, c2 = _rows_or_zero(Xf, i1), _rows_or_zero(Xf, i2)
+        c1 = topo.owner_fsum(_rows_or_zero(Xf, i1))
+        c2 = topo.owner_fsum(_rows_or_zero(Xf, i2))
         r_half = torch.full((k,), m >> 1, dtype=torch.int64, device=dev)
 
         def delta_of(c1, c2):
@@ -272,12 +325,14 @@ def two_means_dist(X: torch.Tensor, row_ids: torch.Tensor, k: int, *,
 
         for _ in range(refine_iters):
             w = _radix_left(monotone_u32(delta_of(c1, c2)), pos_u, seg, k,
-                            r_half, all_rows)
-            s1 = _segsum(Xf * w.float()[:, None], seg, k)
-            n1 = _segsum(w.long(), seg, k)
+                            r_half, all_rows, topo)
+            s1 = topo.fsum_blocks(
+                lambda xb, sb, wb: _segsum(xb * wb[:, None], sb, k), Xf,
+                seg, w.float())
+            n1 = topo.isum(_segsum(w.long(), seg, k))
             c1 = s1 / torch.clamp(n1, min=1).float()[:, None]
             c2 = (tot - s1) / torch.clamp(cntc - n1, min=1).float()[:, None]
         left = _radix_left(monotone_u32(delta_of(c1, c2)), pos_u, seg, k,
-                           r_half, all_rows)
+                           r_half, all_rows, topo)
         seg = seg * 2 + torch.where(left, 0, 1)
     return seg.to(torch.int32)

@@ -24,8 +24,9 @@ device; an overflowing ``add`` and ``repack`` re-attach the codec;
 """
 from __future__ import annotations
 
+import heapq
 from dataclasses import dataclass, replace
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -218,11 +219,79 @@ def quantize_index(index: IvfIndex, kind: str, *, nsub: int = 8,
     return attach_codec(index, codec)
 
 
-def shard_lists(index: IvfIndex, shards: int):
-    """Not ported yet: the sharded IVF comes with the sharded topologies."""
-    raise NotImplementedError(
-        "shard_lists: the sharded IVF is not ported yet (it comes with the "
-        "sharded topologies)")
+class ShardedLists(NamedTuple):
+    """Per-shard re-pack of an index's inverted lists, by cell
+    (``repro.index.ivf.ShardedLists``, array for array).
+
+    Shard r owns the slab ``[r·rows_loc, (r+1)·rows_loc)`` of the stacked
+    rows: its cells' lists back to back, hole rows up to the common size,
+    and a trailing local null tile; and the start/cap table ``[r·k,
+    (r+1)·k)``, whose unowned cells have cap 0 (a local tile map sends
+    their probes to the null tile).
+    """
+    vecs: torch.Tensor       # (R * rows_loc, d)
+    ids: torch.Tensor        # (R * rows_loc,) int32, -1 = hole
+    starts: torch.Tensor     # (R * k,) int32 local row offsets (0 unowned)
+    caps: torch.Tensor       # (R * k,) int32 local caps, 0 for unowned cells
+    owner: torch.Tensor      # (k,) int64 (CPU) the shard owning each cell
+    rows_loc: int            # rows a shard holds, its null tile included
+    shards: int
+    codes: Optional[torch.Tensor] = None   # (R * rows_loc, width) uint8
+    vnorm: Optional[torch.Tensor] = None   # (R * rows_loc,) f32
+
+
+def shard_lists(index: IvfIndex, shards: int) -> ShardedLists:
+    """Partition the packed lists across ``shards`` by cell.
+
+    Cells go greedily, by descending capacity (ties by cell id), to the
+    least-loaded shard (ties to the lowest shard), so a shard's slab holds
+    little beyond the largest shard's rows even when ``k % shards != 0`` or
+    the lists are skewed — the reference's loop.  The owner map is built on
+    the host (one read of ``caps``); the rows move in one scatter on the
+    index's device.  Codes and norms move with their rows.
+    """
+    if shards < 1:
+        raise ValueError(f"shards must be >= 1, got {shards}")
+    dev = index.device
+    bl, k, R = index.block_rows, index.k, shards
+    caps_h = index.caps.long().cpu()
+    owner = torch.zeros((k,), dtype=torch.int64)
+    heap = [(0, r) for r in range(R)]          # (load, shard): a min-heap
+    for c in torch.argsort(-caps_h, stable=True).tolist():
+        load, r = heapq.heappop(heap)
+        owner[c] = r
+        heapq.heappush(heap, (load + int(caps_h[c]), r))
+    loads = torch.zeros((R,), dtype=torch.int64).index_add_(0, owner, caps_h)
+    rows_loc = int(loads.max()) + bl                 # + local null tile
+    # local start of cell c: the caps of the lower cells of its shard
+    by_shard = torch.zeros((R, k), dtype=torch.int64)
+    by_shard[owner, torch.arange(k)] = caps_h
+    local = (torch.cumsum(by_shard, 1) - by_shard)[owner, torch.arange(k)]
+    owner_d, local_d = owner.to(dev), local.to(dev)
+    table = owner_d * k + torch.arange(k, device=dev)
+    sstarts = torch.zeros((R * k,), dtype=torch.int32, device=dev)
+    scaps = torch.zeros((R * k,), dtype=torch.int32, device=dev)
+    sstarts[table] = local_d.to(torch.int32)
+    scaps[table] = index.caps.to(torch.int32)
+    # every list row to its slab row; a row outside every list (none in a
+    # packed layout) goes to a trash row past the slabs
+    rows = torch.arange(index.capacity_rows, device=dev)
+    c = _row_lists(index, rows).clamp(max=k - 1)
+    off = rows - index.starts.long()[c]
+    inside = (off >= 0) & (off < index.caps.long()[c])
+    dst = torch.where(inside, owner_d[c] * rows_loc + local_d[c] + off,
+                      R * rows_loc)
+
+    def move(src, fill):
+        out = torch.full((R * rows_loc + 1,) + src.shape[1:], fill,
+                         dtype=src.dtype, device=dev)
+        out[dst] = src[:index.capacity_rows]
+        return out[:R * rows_loc]
+    return ShardedLists(
+        vecs=move(index.vecs, 0), ids=move(index.ids, -1), starts=sstarts,
+        caps=scaps, owner=owner, rows_loc=rows_loc, shards=R,
+        codes=None if index.codes is None else move(index.codes, 0),
+        vnorm=None if index.vnorm is None else move(index.vnorm, 0))
 
 
 def repack(index: IvfIndex) -> IvfIndex:

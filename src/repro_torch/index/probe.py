@@ -16,8 +16,9 @@ tiles with a running top-k:
   top ``rerank`` candidates against the f32 rows.
 
 ``search`` syncs the host zero times on every path: each shape it needs is
-a plain int of the index or of the query count.  Not ported: the sharded
-merges (``merge_shard_topk``, ``merge_probe_cells``).
+a plain int of the index or of the query count.  ``merge_shard_topk`` and
+``merge_probe_cells`` merge per-shard results (``core.distributed.
+ShardedIvf``) with the kernels' first-minimum tie order.
 """
 from __future__ import annotations
 
@@ -213,6 +214,35 @@ def search(index: IvfIndex, Q, *, topk: int = 10, nprobe: int = 8,
                                force=force)
     return kops.ivf_scan(Q, index.vecs, index.ids, tm,
                          block_rows=index.block_rows, topk=topk, force=force)
+
+
+def merge_shard_topk(ids: torch.Tensor, part: torch.Tensor, topk: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge per-shard local top-k lists into the global top-k.
+
+    ids/part: (R, q, t) gathered shard results, ``part`` the raw partial
+    distances (+inf, id -1 at empty slots).  A packed row lives on one
+    shard, so no id dedupe is needed; the selection is ``stable_topk`` over
+    the candidates in shard order — the scan kernels' first-minimum tie
+    order.  Returns (ids (q, topk), part (q, topk)), still raw.
+    """
+    R, q, t = ids.shape
+    ent_i = ids.permute(1, 0, 2).reshape(q, R * t)
+    ent_d = part.permute(1, 0, 2).reshape(q, R * t)
+    d, i = kref.stable_topk(ent_d, ent_i, topk)
+    return i, d
+
+
+def merge_probe_cells(gd: torch.Tensor, gi: torch.Tensor, p: int
+                      ) -> torch.Tensor:
+    """Merge per-shard coarse-probe lists into the global top-p cells.
+
+    gd/gi: (L, q) gathered per-shard probe values (+inf at slab holes) and
+    global cell ids, L = R · p_loc in shard-major order.  Selects by
+    iterated first minimum over L, as the reference does
+    (``kernels.ref.first_min_merge``).  Returns cids (q, p) int32.
+    """
+    return kref.first_min_merge(gd, gi, p).to(torch.int32)
 
 
 def scan_fraction(index: IvfIndex, Q, *, nprobe: int = 8,

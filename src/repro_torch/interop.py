@@ -2,8 +2,8 @@
 
 The clustering system's counterpart of carrying weights across: one
 reference graph, one initial state, one set of epoch keys, one packed IVF
-index and one set of clustered-KV clusters can be fed to both packages, so
-their outputs compare like with like.
+index (or its per-shard re-pack) and one set of clustered-KV clusters can
+be fed to both packages, so their outputs compare like with like.
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core.engine import BKMState
 from repro_torch.core.knn_graph import KnnGraph
 from repro_torch.core.kv_cluster import KVClusters
-from repro_torch.index.ivf import IvfIndex
+from repro_torch.index.ivf import IvfIndex, ShardedLists
 from repro_torch.index.quantize import Int8Codec, PqCodec
 
 
@@ -89,5 +89,21 @@ def ivf_index(centroids, vecs, ids, starts, caps, block_rows: int,
         _tensor(centroids, np.float32, dev), _tensor(vecs, np.float32, dev),
         _tensor(ids, np.int32, dev), _tensor(starts, np.int32, dev),
         _tensor(caps, np.int32, dev), block_rows, repack_threshold, codec,
+        None if codes is None else _tensor(codes, np.uint8, dev),
+        None if vnorm is None else _tensor(vnorm, np.float32, dev))
+
+
+def sharded_lists(vecs, ids, starts, caps, owner, rows_loc: int, shards: int,
+                  codes=None, vnorm=None,
+                  device: DeviceLike = None) -> ShardedLists:
+    """ShardedLists from the arrays of a reference ``shard_lists`` result
+    (``repro.index.ivf.ShardedLists``'s fields as numpy), array for array,
+    on ``device`` (default ``cuda``; pass ``device="cpu"`` for the CPU);
+    ``owner`` stays on the CPU, as the port keeps it."""
+    dev = resolve_device(device)
+    return ShardedLists(
+        _tensor(vecs, np.float32, dev), _tensor(ids, np.int32, dev),
+        _tensor(starts, np.int32, dev), _tensor(caps, np.int32, dev),
+        _tensor(owner, np.int64, "cpu"), int(rows_loc), int(shards),
         None if codes is None else _tensor(codes, np.uint8, dev),
         None if vnorm is None else _tensor(vnorm, np.float32, dev))

@@ -185,6 +185,28 @@ def stable_topk(d: torch.Tensor, ids: torch.Tensor, k: int
     return sd, torch.where(sd == INF, torch.full_like(si, -1), si)
 
 
+def first_min_merge(gd: torch.Tensor, gi: torch.Tensor, p: int
+                    ) -> torch.Tensor:
+    """Merge per-shard candidate lists by iterated first minimum.
+
+    gd, gi: (L, q) candidate values and ids, shard-major along L.  The
+    reference takes p passes of ``argmin`` over L (the first minimum) and
+    retires each winner's value to +inf (``repro/core/engine.py::
+    _probe_sharded``, ``repro.index.probe.merge_probe_cells``): the
+    entries below +inf come out in stable ascending order, and a pass past
+    them finds an all-inf column and takes its row 0.  Returns (q, p) ids.
+    """
+    L, q = gd.shape
+    order = torch.sort(gd, dim=0, stable=True).indices
+    ids = gi.gather(0, order[:min(p, L)])
+    if p > L:
+        ids = torch.cat([ids, gi[:1].expand(p - L, q)])
+    live = (gd < INF).sum(0)
+    r = torch.arange(p, device=gd.device)[:, None]
+    return torch.where(r < live[None, :], ids,
+                       gi[:1].expand(p, q)).T.contiguous()
+
+
 def finalize_d2(ids: torch.Tensor, od: torch.Tensor, Q: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Raw scan partials (``||v||² − 2q·v``) -> exact squared L2

@@ -1210,3 +1210,93 @@ def test_load_index_mmap_then_search_on_card(dev, tmp_path):
     Q = (X[:64] + 0.05 * torch.randn(64, 32, device=dev)).contiguous()
     a, b = ivf.search(moved, Q, nprobe=8), ivf.search(direct, Q, nprobe=8)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+# ------------------------------------------------------ the sharded topology
+
+def test_sharded_emulation_on_card_matches_plain(dev):
+    """The R = 4 emulation on the card on integer data (exact distances
+    and sums, so atomic adds cannot reorder anything): the graph build
+    through the kernels equals the plain versions' build, and the engine
+    run from it equals the plain run."""
+    from repro_torch.core import engine
+    from repro_torch.core.knn_graph import build_knn_graph
+    from repro_torch.core.two_means import two_means_tree
+    g = torch.Generator().manual_seed(5)
+    X = torch.randint(0, 4, (2048, 16), generator=g).float().to(dev)
+    out = {}
+    for force in (None, "ref"):
+        before = _build.launch_counts["refine_merge"]
+        graph = build_knn_graph(X, 8, xi=32, tau=3, shards=4, force=force,
+                                generator=torch.Generator().manual_seed(1),
+                                device=dev)
+        assert (_build.launch_counts["refine_merge"] > before) == (
+            force is None)
+        a0 = two_means_tree(X, 64, generator=torch.Generator().manual_seed(2))
+        res = engine.run(X, engine.init_state(X, a0, 64),
+                         engine.graph_source(graph.ids),
+                         engine.EngineConfig(batch_size=128, iters=4,
+                                             shards=4, sparse_updates=True,
+                                             force=force),
+                         generator=torch.Generator().manual_seed(3))
+        out[force] = (graph, res)
+    (gk, rk), (gr, rr) = out[None], out["ref"]
+    assert torch.equal(gk.ids, gr.ids) and torch.equal(gk.dist, gr.dist)
+    assert torch.equal(rk.state.assign, rr.state.assign)
+    assert rk.history == rr.history
+
+
+def test_nccl_group_of_one_on_card(dev, tmp_path):
+    """A world-size-1 NCCL group on the card: ``ShardedEngine.run`` (one
+    counted read an epoch, nothing else syncs), ``GraphBuilder`` and
+    ``ShardedIvf.search`` (no sync; ids equal to ``search``'s)."""
+    from repro_torch import index as ivf
+    from repro_torch.core import engine
+    from repro_torch.core.distributed import (ShardedEngine, ShardedIvf,
+                                              sharded_graph_builder)
+    from repro_torch.core.graph_build import GraphBuildConfig, build_graph
+    from repro_torch.core.recall import brute_force_knn, recall_at
+    from repro_torch.core.two_means import two_means_tree
+    from repro_torch.data import gmm_blobs
+    from repro_torch.launch.mesh import close_group, init_group
+    from repro_torch.obs import syncs
+    init_group(dev, rank=0, world_size=1, store_path=tmp_path / "store")
+    try:
+        X = gmm_blobs(4096, 32, 64,
+                      generator=torch.Generator(dev).manual_seed(1))
+        cfg = GraphBuildConfig(kappa=8, xi=32, tau=3)
+        gt = brute_force_knn(X, 8)
+        g1, _ = sharded_graph_builder(None, cfg).build(
+            X, generator=torch.Generator().manual_seed(1))
+        g0, _ = build_graph(X, cfg, generator=torch.Generator().manual_seed(1))
+        assert abs(float(recall_at(g1.ids, gt, 8))
+                   - float(recall_at(g0.ids, gt, 8))) <= 0.02
+        st = engine.init_state(X, two_means_tree(
+            X, 64, generator=torch.Generator().manual_seed(2)), 64)
+        ecfg = engine.EngineConfig(batch_size=256, iters=5,
+                                   sparse_updates=True, min_move_frac=-1.0)
+        eng = ShardedEngine(None, ecfg)
+        eng.run(X, g0.ids, st.assign, st.D, st.cnt,
+                generator=torch.Generator().manual_seed(3))   # warm-up
+        torch.cuda.synchronize()
+        with syncs.sync_counter() as sc:
+            res = eng.run(X, g0.ids, st.assign, st.D, st.cnt,
+                          generator=torch.Generator().manual_seed(3))
+        assert sc.syncs == res.host_syncs == res.epochs == 5
+        assert int(res.state.cnt.sum()) == 4096
+        one = engine.run(X, engine.BKMState(st.assign.clone(), st.D.clone(),
+                                            st.cnt.clone(), st.moves.clone()),
+                         engine.graph_source(g0.ids), ecfg,
+                         generator=torch.Generator().manual_seed(3))
+        assert abs(res.history[-1] - one.history[-1]) <= 0.01 * one.history[-1]
+        Xi, index = _small_index(dev, 32)
+        Q = (Xi[:64] + 0.05 * torch.randn(64, 32, device=dev)).contiguous()
+        sh = ShardedIvf(index)
+        sh.search(Q, nprobe=8)
+        torch.cuda.synchronize()
+        with syncs.sync_counter() as sc:
+            ids, d2 = sh.search(Q, nprobe=8)
+        assert sc.syncs == 0
+        assert torch.equal(ids, ivf.search(index, Q, nprobe=8)[0])
+    finally:
+        close_group()

@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import ast
+import contextlib
 from pathlib import Path
 
 import numpy as np
@@ -99,28 +100,53 @@ def test_ops_dispatches_cpu_tensors_to_ref():
             tops.pairwise_sq(Xb, force=force)
 
 
-def test_out_of_slice_options_raise():
-    """What stays out of scope raises: shards, bf16 payloads and a
-    GraphBuilder over a mesh (telemetry runs: tests/test_torch_obs.py).  The dense and probe sources and the
-    descent build run (their parity tests: tests/test_torch_ivf_codec.py,
-    tests/test_torch_baselines.py); the probe kernel's cap p <= 128
-    raises."""
-    X = torch.zeros((64, 4))
-    st = teng.init_state(X, torch.zeros(64, dtype=torch.int32), 2)
-    src = teng.graph_source(torch.zeros((64, 2), dtype=torch.int32))
-    for cfg in (teng.EngineConfig(shards=2),
-                teng.EngineConfig(payload_bf16=True)):
+@contextlib.contextmanager
+def _gloo_world(tmp_path):
+    """A world-size-1 gloo group in this process, left on exit."""
+    from repro_torch.launch.mesh import close_group, init_group
+    init_group("cpu", rank=0, world_size=1, store_path=tmp_path / "store")
+    try:
+        yield
+    finally:
+        close_group()
+
+
+def test_out_of_slice_options_raise(tmp_path):
+    """The sharded options run: shards, bf16 payloads and a GraphBuilder
+    over a process group (their parity tests: tests/test_torch_sharded.py;
+    telemetry runs: tests/test_torch_obs.py), as do the dense and probe
+    sources and the descent build (tests/test_torch_ivf_codec.py,
+    tests/test_torch_baselines.py).  What still raises: the probe kernel's
+    cap p <= 128, and a shard layout that does not divide."""
+    X = torch.randn(64, 4, generator=torch.Generator().manual_seed(1))
+    src = teng.graph_source(torch.randint(
+        0, 64, (64, 2), generator=torch.Generator().manual_seed(2),
+        dtype=torch.int32))
+    for cfg in (teng.EngineConfig(shards=2, batch_size=16),
+                teng.EngineConfig(payload_bf16=True, sparse_updates=True,
+                                  batch_size=16)):
         for source in (src, teng.dense_source(), teng.probe_source(2)):
-            with pytest.raises(NotImplementedError):
-                teng.epoch(X, st, source, [1, 2, 3, 4], cfg)
+            out = teng.epoch(X, teng.init_state(
+                X, torch.arange(64, dtype=torch.int32) % 2, 2), source,
+                [1, 2, 3, 4], cfg)
+            assert out.assign.shape == (64,) and int(out.cnt.sum()) == 64
     for p in (0, 129):
         with pytest.raises(ValueError, match="p <= 128"):
             teng.probe_source(p)
-    with pytest.raises(NotImplementedError):
-        tgb.build_graph(X, tgb.GraphBuildConfig(shards=2),
+    bcfg = tgb.GraphBuildConfig(kappa=4, xi=8, tau=2, shards=2)
+    g2, _ = tgb.build_graph(X, bcfg,
+                            generator=torch.Generator().manual_seed(3))
+    assert g2.ids.shape == (64, 4) and bool((g2.ids >= 0).all())
+    with pytest.raises(ValueError, match="divide"):
+        tgb.build_graph(X, bcfg._replace(shards=3),
                         generator=torch.Generator())
-    with pytest.raises(NotImplementedError):
-        tgb.GraphBuilder(tgb.GraphBuildConfig(), mesh=object())
+    with _gloo_world(tmp_path):
+        g1, _ = tgb.GraphBuilder(bcfg._replace(shards=1), group="world"
+                                 ).build(X, generator=torch.Generator(
+                                     ).manual_seed(3))
+    want, _ = tgb.build_graph(X, bcfg._replace(shards=1),
+                              generator=torch.Generator().manual_seed(3))
+    assert torch.equal(g1.ids, want.ids) and torch.equal(g1.dist, want.dist)
     for source in (teng.dense_source(), teng.probe_source(2)):
         out = teng.epoch(X, teng.init_state(
             X, torch.zeros(64, dtype=torch.int32), 2), source, [1, 2, 3, 4],
@@ -131,6 +157,35 @@ def test_out_of_slice_options_raise():
                                             tau=1),
         generator=torch.Generator().manual_seed(0))
     assert g.ids.shape == (64, 4) and bool((g.ids >= 0).all())
+
+
+def test_group_backend_must_match_device(tmp_path):
+    """A gloo group takes CPU tensors only and an NCCL group CUDA tensors
+    only: a mismatch raises before any collective, nothing is copied."""
+    from repro_torch.core.comm import Comm
+    from repro_torch.core.distributed import ShardedEngine
+    with _gloo_world(tmp_path):
+        comm = Comm()
+        assert comm.backend == "gloo" and comm.size == 1
+        comm.check("cpu")
+        with pytest.raises(ValueError, match="gloo group takes cpu"):
+            comm.check("cuda")
+        with pytest.raises(ValueError, match="gloo group takes cpu"):
+            comm.psum(torch.zeros(2, device="meta"))
+        comm.backend = "nccl"
+        with pytest.raises(ValueError, match="nccl group takes cuda"):
+            comm.psum(torch.zeros(2))
+        with pytest.raises(ValueError, match="nccl group takes cuda"):
+            comm.all_gather(torch.zeros(2))
+        eng = ShardedEngine(cfg=teng.EngineConfig(batch_size=8))
+        eng.comm.backend = "nccl"
+        X = torch.zeros((16, 4))
+        with pytest.raises(ValueError, match="nccl group takes cuda"):
+            eng.run(X, torch.zeros((16, 2), dtype=torch.int32),
+                    torch.zeros(16, dtype=torch.int32), torch.zeros(2, 4),
+                    torch.ones(2), epoch_words=[[1, 2, 3, 4]])
+    with pytest.raises(RuntimeError, match="not initialised"):
+        Comm()
 
 
 def test_sparse_updates_is_the_plain_scatter_on_one_device():
@@ -226,13 +281,16 @@ def _tiny_index():
 
 
 def test_ivf_out_of_slice_options_raise(tmp_path):
-    """Sharded lists stay out of scope; a memmapped load stays on the host;
-    a codec search on an index without that codec, or with qgroup, is a
-    ValueError."""
+    """Sharded lists run (their parity test: tests/test_torch_sharded.py);
+    a memmapped load stays on the host; a codec search on an index without
+    that codec, or with qgroup, is a ValueError."""
     tivf, index = _tiny_index()
     Q = torch.randn(3, 8)
-    with pytest.raises(NotImplementedError):
-        tivf.shard_lists(index, 2)
+    parts = tivf.shard_lists(index, 2)
+    assert parts.shards == 2 and parts.vecs.shape[0] == 2 * parts.rows_loc
+    assert int((parts.ids >= 0).sum()) == index.size
+    with pytest.raises(ValueError, match="shards"):
+        tivf.shard_lists(index, 0)
     path = str(tmp_path / "ix.ivf")
     tivf.save_index(index, path)
     mapped = tivf.load_index(path, mmap=True)
