@@ -169,10 +169,30 @@ plain PyTorch version, or when any phase fails.  Phases:
    PQ nsub=8 at rerank 0: ids equal to ``search``'s, 0 host syncs, the four
    telemetry slots equal to the host's counts; the codecs' default rerank
    recalls no less); each stage's seconds and launches printed;
-10. one JSON line of the baselines (each path's seconds, quality and
-   launches), one of clustered-KV decode, one of the sharded topology, one
-   of the kernels (with each kernel's launches on the baselines' paths,
-   its numbers at their shapes and its launches in phase 9), the card's
+10. the analysis layer, the autotune table and the clustering dry run
+   (``repro_torch.analysis``, ``kernels/autotune.py``,
+   ``launch/dryrun_cluster.py``): (a) the linter over the tree against
+   ``analysis/baseline.json`` (0 new findings, 0 stale); (b) each
+   ``autotune_table.json`` entry at its shape (the sweep's: SIFT1M-shaped
+   rows, k = 16,384 cells, the probe at 10,000 queries, at one served
+   batch of 64 and at the probe source's 1,024 rows, the scans at one
+   served batch at nprobe 16), the table's knob against today's default:
+   ``torch.equal`` outputs, both CUDA-event times; (c) the
+   contract audit through an NCCL group of one (host syncs, collective
+   budgets at R = 1, dtypes; sync-debug mode "error" inside each call);
+   (d) the whole dry run on ``meta`` (24 cells: VLAD10M and SIFT1M, dense /
+   sparse / sparse_bf16, bkm / lloyd, R = 256 / 512); (e) one rank's epoch
+   for real at SIFT1M with R = 64, dense and sparse, through a
+   ``RecordingComm`` on the card: ``torch.cuda.max_memory_allocated``
+   within 10% of the dry run's argument + temporary bytes of the same
+   cell, and the same recorded wire bytes;
+11. one JSON line of the sharded topology, one of the baselines (each
+   path's seconds, quality and launches), one of clustered-KV decode, one
+   of phase 10 (``{"dryrun": ...}``), one of the kernels (with each
+   kernel's launches on the baselines' paths, its numbers at their shapes,
+   its launches in phase 9 and its ``autotune`` field: the table's knob,
+   its entries' shapes and knobs and phase 10's times, or "exempt" with
+   the reason), the card's
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Every bound comes from ``launch/roofline.py``'s inventory and every
@@ -190,8 +210,18 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 
-SIFT_SMALL = dict(n=65_536, d=128, k=1_024, kappa=32, xi=64, tau=8)
-SIFT1M = dict(n=1_000_000, d=128, k=10_000, kappa=50, xi=64, tau=10)
+sys.path.insert(0, str(HERE / "src"))
+from repro_torch.configs import gkmeans_paper as _paper  # noqa: E402
+
+
+def _shape(c):
+    """A ``configs.gkmeans_paper.ClusterConfig``'s shape as the dict the
+    phases read."""
+    return dict(n=c.n, d=c.d, k=c.k, kappa=c.kappa, xi=c.xi, tau=c.tau)
+
+
+SIFT_SMALL = _shape(_paper.SIFT_SMALL)   # Table 1's CPU-scaled analogue
+SIFT1M = _shape(_paper.SIFT1M)           # Table 1
 ITERS = 20
 BATCH = 1024
 COMPONENTS = 256        # mixture components of the synthetic data
@@ -784,10 +814,13 @@ def _probe_fault(X, C, p, *, csq=True, keep=None):
 
 
 def probe_plan(n, k, p):
-    """The probe's split plan on this card, as a dict."""
-    from repro_torch.kernels import _build
+    """The probe's split plan on this card (the autotune table's knob), as
+    a dict."""
+    from repro_torch.kernels import _build, autotune
     from repro_torch.kernels.centroid_assign import split_plan
-    return split_plan(n, k, p, _build.sm_count(0))._asdict()
+    knob = autotune.resolve("probe_centroids", "cuda",
+                            {"n": n, "k": k, "p": p}, None)
+    return split_plan(n, k, p, _build.sm_count(0), knob)._asdict()
 
 
 def assign_plan(n, k):
@@ -1513,10 +1546,12 @@ def _grouped_tile_maps(union, qmask, G, null_tile):
 def grouped_plan(qmask, G, topk):
     """The grouped scan's split plan on this card for these groups, as a
     dict, with the live chunks the kernel cuts (``slot_chunks``)."""
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, autotune
     from repro_torch.kernels.ivf_scan_grouped import slot_chunks, split_plan
     ngroups, U = qmask.shape[0] // G, qmask.shape[1]
-    plan = split_plan(ngroups, U, topk, _build.sm_count(0))._asdict()
+    knob = autotune.resolve("ivf_scan_grouped", "cuda",
+                            {"q": qmask.shape[0], "U": U, "topk": topk}, None)
+    plan = split_plan(ngroups, U, topk, _build.sm_count(0), knob)._asdict()
     bounds = slot_chunks(qmask, G, plan["splits"])
     live = (bounds[:, 1:] > bounds[:, :-1]).sum(1).float()
     plan["live_span_mean"] = float(bounds[:, -1].float().mean())
@@ -3014,6 +3049,177 @@ def sharded_phase(X, r, index, runs, Q, gt):
         launches=launches, checks=checks)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the analysis layer, the autotune table and the clustering dry run
+# ---------------------------------------------------------------------------
+
+DRY_REAL = dict(workload="sift1m", ranks=64)  # (e): one rank's body on the card
+DRY_MEM_TOL = 0.10      # card peak vs the meta tally, relative
+
+
+def autotune_checks(smi):
+    """(b): each table entry at its shape, the table's knob against the
+    default: ``torch.equal`` outputs and both CUDA-event times."""
+    import torch
+    from repro_torch.kernels import autotune
+    entries = autotune.load_table()
+    cases = autotune.sweep_cases(DEV)
+    out = []
+    for kernel, shape, _, call in cases:
+        hit = [e for e in entries if e["kernel"] == kernel
+               and e["backend"] == "cuda" and e["shape"] == shape]
+        if not hit:
+            continue
+        knob, default = hit[0]["tile"], autotune.DEFAULT_TILE[kernel]
+        same = all(torch.equal(a, b) for a, b in zip(call(knob),
+                                                     call(default)))
+        t_knob = min(autotune.time_us(call, knob) for _ in range(3))
+        t_def = min(autotune.time_us(call, default) for _ in range(3))
+        row = dict(kernel=kernel, knob=autotune.KNOBS[kernel], shape=shape,
+                   table=knob, default=default, equal=same,
+                   us_table=t_knob, us_default=t_def, card=smi)
+        log(f"autotune check: {json.dumps(row)}")
+        out.append(row)
+    covered = {r["kernel"] for r in out}
+    return out, covered == set(autotune.SWEEP_TILES) and all(
+        r["equal"] for r in out)
+
+
+def audit_on_card(tmp):
+    """(c): the contract audit through an NCCL group of one (sync-debug
+    mode "error" inside every audited call)."""
+    from repro_torch.analysis import contracts
+    from repro_torch.core.comm import Comm
+    from repro_torch.launch.mesh import close_group, init_group
+    init_group(DEV, rank=0, world_size=1, store_path=f"{tmp}/audit_store")
+    try:
+        res = contracts.run_audit(device=DEV, comm=Comm())
+    finally:
+        close_group()
+    rows = {r.name: dict(ok=r.ok, syncs=r.syncs, collectives=r.collectives,
+                         problems=r.problems) for r in res}
+    for name, row in rows.items():
+        log(f"audit on card: {name}: {json.dumps(row)}")
+    return rows, len(rows) == 9 and all(r["ok"] for r in rows.values())
+
+
+def dry_brief(rec):
+    c = rec.get("collectives", {})
+    return dict(
+        workload=rec["workload"], mode=rec["mode"],
+        cluster_mode=rec["cluster_mode"], ranks=rec["ranks"],
+        status=rec["status"], steps=rec.get("steps"),
+        per_step_wire_bytes=c.get("per_step_wire_bytes"),
+        counts={k: c[k]["count"] for k in ("all-gather", "all-reduce",
+                                           "all-to-all") if k in c},
+        wire_bytes=c.get("total_wire_bytes"), memory=rec.get("memory"),
+        fits_80gb=rec.get("fits_80gb"), roofline=rec.get("roofline"),
+        flops_analytic=rec.get("flops_analytic"),
+        hbm_bytes_analytic=rec.get("hbm_bytes_analytic"))
+
+
+def dry_real(smi):
+    """(e): one rank's epoch for real on the card at SIFT1M with R = 64,
+    dense and sparse, through a RecordingComm: its peak memory against the
+    meta tally of the same cell (argument + temporary bytes)."""
+    import torch
+    from repro_torch.launch import dryrun_cluster as dry
+    out = {}
+    for mode in ("dense", "sparse"):
+        meta = dry.run_cell(DRY_REAL["workload"], mode, DRY_REAL["ranks"])
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rec = dry.run_cell(DRY_REAL["workload"], mode, DRY_REAL["ranks"],
+                           device=DEV, generator=torch.Generator(
+                               device=DEV).manual_seed(SEED + 30))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        want = meta["memory"]["peak_bytes"]
+        row = dict(mode=mode, status=rec["status"], seconds=secs,
+                   card_peak_bytes=peak, meta_peak_bytes=want,
+                   card_tally_bytes=rec.get("memory", {}).get("peak_bytes"),
+                   rel_gap=(peak - want) / want,
+                   counts_equal=(rec.get("collectives", {}).get(
+                       "total_wire_bytes") == meta["collectives"][
+                       "total_wire_bytes"]), card=smi)
+        row["ok"] = (rec["status"] == "ok" and row["counts_equal"]
+                     and abs(row["rel_gap"]) <= DRY_MEM_TOL)
+        log(f"dry run on the card ({DRY_REAL}): {json.dumps(row)}")
+        if rec["status"] != "ok":
+            log(rec.get("traceback"))
+        out[mode] = row
+        del rec
+    return out, all(r["ok"] for r in out.values())
+
+
+def analysis_phase(smi):
+    """Phase 10: (a) lint against the baseline, (b) the autotune table's
+    knobs against the defaults, (c) the contract audit over an NCCL group
+    of one, (d) the whole dry run on meta, (e) one rank's body on the
+    card against the dry run's memory tally."""
+    import tempfile
+    from repro_torch.analysis import astlint
+    from repro_torch.launch import dryrun_cluster as dry
+    t_phase = time.perf_counter()
+    secs = {}
+    t0 = time.perf_counter()
+    findings, problems = astlint.check(str(HERE), log=log)
+    secs["lint"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tuned, ok_tune = autotune_checks(smi)
+    secs["autotune"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        audit, ok_audit = audit_on_card(tmp)
+        secs["audit"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cells = dry.run_all(out=f"{tmp}/dryrun_cluster.json", quiet=True)
+    secs["dryrun"] = time.perf_counter() - t0
+    brief = [dry_brief(r) for r in cells]
+    for b in brief:
+        log(f"dry run cell: {json.dumps(b)}")
+    t0 = time.perf_counter()
+    real, ok_real = dry_real(smi)
+    secs["real_body"] = time.perf_counter() - t0
+    checks = {"lint_clean": not findings and not problems,
+              "autotune_equal": ok_tune, "audit_nccl": ok_audit,
+              "dryrun_cells": len(cells) == 24 and all(
+                  r["status"] == "ok" for r in cells),
+              "dryrun_real_memory": ok_real}
+    secs["phase"] = time.perf_counter() - t_phase
+    log(f"analysis phase checks: {json.dumps(checks)}; seconds "
+        f"{json.dumps(secs)}")
+    return all(checks.values()), dict(
+        checks=checks, seconds=secs, autotune=tuned, audit=audit,
+        cells=brief, real_body=real, card=smi)
+
+
+def autotune_field(name, tuned):
+    """A kernel entry's ``autotune`` field: the table's knob, its entries
+    (shape and knob) and phase 10's times, or "exempt" with the reason from
+    its module."""
+    from repro_torch.kernels import autotune
+    if name not in autotune.SWEEP_TILES:
+        src = (HERE / "src/repro_torch/kernels" / f"{name}.py").read_text()
+        mark = f"# autotune: exempt({name}): "
+        reason = src.split(mark, 1)[1].split("\n\n", 1)[0] if mark in src \
+            else "?"
+        return "exempt: " + " ".join(w.strip("# ") for w in
+                                     reason.split("\n")).strip()
+    entries = [{k: e[k] for k in ("shape", "tile")}
+               for e in autotune.load_table() if e["kernel"] == name]
+    return dict(knob=autotune.KNOBS[name],
+                default=autotune.DEFAULT_TILE[name], entries=entries,
+                phase10=[{k: r[k] for k in ("shape", "table", "default",
+                                            "equal", "us_table",
+                                            "us_default")}
+                         for r in tuned if r["kernel"] == name])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3108,6 +3314,9 @@ def main() -> int:
     ok_kv, kv_out = kv_cluster_phase()
     if not ok_kv:
         failures.append("clustered-KV decode")
+    ok_an, analysis = analysis_phase(smi)
+    if not ok_an:
+        failures.append("analysis / autotune / dry run")
 
     kernels = [
         dict(name="gather_score", route="cuda",
@@ -3333,6 +3542,7 @@ def main() -> int:
             key: at_shape(base["shapes"][key], "plan", "shape")}
     for kd in kernels:
         kd["sharded_launches"] = sharded["launches"].get(kd["name"], 0)
+        kd["autotune"] = autotune_field(kd["name"], analysis["autotune"])
     log(f"total {time.perf_counter() - t_all:.1f} s; failures: {failures}")
     if failures:
         return 1
@@ -3342,6 +3552,7 @@ def main() -> int:
     print(json.dumps({"baselines": base["paths"]
                       | {"sift_small": base["sift_small"]}}), flush=True)
     print(json.dumps({"kv_cluster": kv_out}), flush=True)
+    print(json.dumps({"dryrun": analysis}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -69,6 +69,10 @@ def usable_rows(n: int, shards: int) -> int:
 
 
 def _comm(group) -> Comm:
+    """``group``: a ProcessGroup, None or "world" for the default group, or
+    a ``Comm`` (e.g. a ``core.comm.RecordingComm``), taken as it is."""
+    if isinstance(group, Comm):
+        return group
     return Comm(None if group in (None, "world") else group)
 
 

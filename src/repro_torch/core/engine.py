@@ -33,10 +33,11 @@ candidate-row exchange (``_exchange_rows``: an all-gather of ids and a SUM
 all-reduce of owner-masked rows, exact in any order); updates either gather
 every rank's moves and scatter the owned rows (``sparse_updates``, with the
 payload in bf16 under ``payload_bf16``) or sum the per-rank deltas in rank
-order.  In sparse mode a group run equals its emulation bit for bit on the
-CPU; in dense mode too, as both add the same per-shard deltas in the same
-order.  ``valid`` masks (padded rows) keep rows out of moves, statistics
-and the distortion in both topologies.
+order (``Comm.fsum_owned``: each rank receives its own cluster block of
+every rank's deltas).  In sparse mode a group run equals its emulation bit
+for bit on the CPU; in dense mode too, as both add the same per-shard
+deltas in the same order.  ``valid`` masks (padded rows) keep rows out of
+moves, statistics and the distortion in both topologies.
 
 Differences from the reference, all stated:
 
@@ -57,10 +58,14 @@ Differences from the reference, all stated:
   derives it from data (the first element of a sharded ``arange(k)``) only
   to dodge an XLA:CPU partitioning hazard that torch does not have.
 * The reference moves the batch rows as a transposed (d, R·B) gather and
-  the dense deltas as a (d, k) psum to keep its replication audit quiet;
-  here they travel as (R·B, d) and (k, d).  The dense deltas are gathered
-  and summed in rank order (the reference's psum leaves the order to the
-  backend), which is what makes dense group runs equal their emulation.
+  the dense deltas as one (d, k) psum to keep its replication audit quiet;
+  here the rows travel as (R·B, d), and each rank's (k, d) deltas go out
+  by one all-to-all of its R cluster blocks (``Comm.fsum_owned``): a rank
+  receives the R blocks of its own k_loc rows and adds them in rank order
+  (the reference's psum leaves the order to the backend), which is what
+  makes dense group runs equal their emulation.  A rank moves
+  k·d·4·(R−1)/R bytes for them, the psum's ring moves twice that.  The
+  counts' (k,) deltas are integer-valued and take a psum.
 * The bf16 payload travels as bf16: gloo has no 16-bit integer
   collectives, and eager torch does not hoist the f32 conversion across
   the gather, which is why the reference bitcasts it to u16.
@@ -345,10 +350,10 @@ def _exchange_rows(ids, D_loc, coff: int, comm: Comm):
     zeros, exact in any order.  Returns this rank's (B, C, d) rows."""
     B = ids.shape[0]
     k_loc = D_loc.shape[0]
-    loc = comm.all_gather(ids).long() - coff              # (R·B, C)
+    loc = comm.all_gather(ids, label="exchange").long() - coff  # (R·B, C)
     own = (loc >= 0) & (loc < k_loc)
     rows = torch.where(own[..., None], D_loc[loc.clamp(0, k_loc - 1)], 0.0)
-    rows = comm.psum(rows)
+    rows = comm.psum(rows, label="exchange")
     return rows[comm.rank * B:(comm.rank + 1) * B]
 
 
@@ -427,9 +432,9 @@ def _sparse_update(st, xb, u, moved, want_v, k, cfg, comm, coff):
     gx = xb * moved.float()[:, None]
     if cfg.payload_bf16:
         gx = gx.to(torch.bfloat16)
-    gu = comm.all_gather(u)
-    gv = comm.all_gather(torch.where(moved, want_v, u))
-    gx = comm.all_gather(gx).float()
+    gu = comm.all_gather(u, label="sparse_sync")
+    gv = comm.all_gather(torch.where(moved, want_v, u), label="sparse_sync")
+    gx = comm.all_gather(gx, label="sparse_sync").float()
     gul = gu.long()
     leav = torch.zeros((k,), dtype=torch.float32, device=xb.device)
     leav.index_add_(0, gul, (gu != gv).float())
@@ -506,11 +511,12 @@ def _move_step(X, st: BKMState, idx, lookup, source, cfg: EngineConfig,
         w = moved.float()
         gx = xb * w[:, None]
         if comm is not None:
-            # dense sync: every rank's deltas, added in rank order
+            # dense sync: each rank receives every rank's deltas of its own
+            # cluster block and adds them in rank order; the counts are
+            # integer-valued, exact in any order
             dD, dc = _deltas(u, v, gx, w, k)
-            k_loc = st.D.shape[0]
-            st.D.add_(comm.fsum(dD)[coff:coff + k_loc])
-            st.cnt.add_(comm.fsum(dc))
+            st.D.add_(comm.fsum_owned(dD, st.D.shape[0], label="dense_sync"))
+            st.cnt.add_(comm.psum(dc, label="dense_sync"))
         elif R > 1 and not cfg.sparse_updates:
             # mirror the group's dense sync: per-shard partial deltas,
             # summed in shard order
@@ -679,15 +685,17 @@ def _run(X, state, source, cfg, epoch_words, generator, valid, comm, coff):
                 distortion=dist,
                 hit_rate=state.moves.float() / torch.clamp(prop.float(),
                                                            min=1.0))
-        vals = [state.moves.double(), dist.double()]
+        # one transfer: the move count and the f32 values bit-cast to int32
+        vals = [state.moves, dist.view(torch.int32)]
         if n_host is None:
-            vals.append(n.double())
-        got = syncs.read(torch.stack(vals)).tolist()
+            vals.append(n.view(torch.int32))
+        got = syncs.read(torch.stack(vals))
+        f32 = got[1:].view(torch.float32).tolist()
         reads += 1
-        hist.append(got[1])
+        hist.append(f32[0])
         mhist.append(int(got[0]))
-        if got[0] <= cfg.min_move_frac * (n_host if n_host is not None
-                                          else got[2]):
+        if mhist[-1] <= cfg.min_move_frac * (n_host if n_host is not None
+                                             else f32[1]):
             break
     return RunResult(state, hist, mhist, len(hist), dist_of(state), reads,
                      tel)

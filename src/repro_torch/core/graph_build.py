@@ -190,6 +190,7 @@ def _descent_round_draws(n: int, cfg: GraphBuildConfig, dev,
             yield tuple(to_device(torch.as_tensor(a[t]).long(), dev)
                         for a in (draws.pick1, draws.pick2, draws.slot))
         return
+    # lint: boundary(a draw of the CPU generator: no device read)
     seed = int(torch.randint(0, 1 << 62, (), generator=generator))
     g = torch.Generator(device=dev).manual_seed(seed)
     for _ in range(cfg.tau):
@@ -372,6 +373,7 @@ def _build_partition(X, cfg, generator, draws, comm=None):
     if draws is None:
         draws = draw_build(n, cfg, generator)
     Xf = X.float().contiguous()
+    # lint: boundary(the build's draws are host values)
     real_id = to_device(torch.cat([torch.arange(n), torch.as_tensor(
         draws.pad_extra).long().cpu()]), dev)
     lo, row_ids = _local_rows(n_pad, comm, dev)
@@ -444,7 +446,8 @@ class GraphBuilder:
 
     ``build(X, generator=..., draws=...)`` runs ``build_graph`` (``group``
     None), or the group build (``group`` a ``torch.distributed``
-    ProcessGroup, or ``"world"`` for the default group): every rank passes
+    ProcessGroup, ``"world"`` for the default group, or a ``core.comm.Comm``
+    taken as it is): every rank passes
     the same X and the same draws (or a generator in the same state) and
     gets the full graph and the diagnostics back.  The group's backend must
     match X's device (NCCL with ``cuda``, gloo with ``cpu``).  The padded
@@ -454,7 +457,8 @@ class GraphBuilder:
 
     def __init__(self, cfg: GraphBuildConfig, group=None):
         self.cfg = cfg
-        self.comm = (None if group is None else
+        self.comm = (None if group is None else group
+                     if isinstance(group, Comm) else
                      Comm(None if group == "world" else group))
         self.shards = 1 if self.comm is None else self.comm.size
 

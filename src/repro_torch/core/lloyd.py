@@ -13,6 +13,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from repro_torch._device import DeviceLike, as_f32, resolve_device, to_device
+from repro_torch.core import permute
 from repro_torch.kernels import ops as kops
 
 
@@ -27,7 +28,7 @@ def init_random(X, k: int, *, generator: Optional[torch.Generator] = None,
     if ids is None:
         if generator is None:
             raise ValueError("pass ids or a generator")
-        ids = torch.randperm(Xf.shape[0], generator=generator)[:k]
+        ids = permute.random_rows(Xf.shape[0], k, generator)
     return Xf[to_device(torch.as_tensor(ids).long(), Xf.device)]
 
 

@@ -52,10 +52,19 @@ def draw_words(generator: torch.Generator, count: int = ROUNDS) -> torch.Tensor:
                          dtype=torch.int64, device="cpu")
 
 
+def random_rows(n: int, k: int, generator: torch.Generator) -> torch.Tensor:
+    """The first k of a random permutation of ``arange(n)`` (CPU int64),
+    drawn from ``generator`` (a CPU ``torch.Generator``): random distinct
+    rows, as a baseline's random init takes them."""
+    return torch.randperm(n, generator=generator)[:k]
+
+
 def _subkeys(words) -> torch.Tensor:
     """(P, ROUNDS) uint32 subkey words as an int64 CPU tensor, from one
     row of words or a (P, ROUNDS) array of them."""
+    # lint: boundary(the words are host values: a CPU tensor at most)
     rows = words.tolist() if isinstance(words, torch.Tensor) else words
+    # lint: boundary(host words, read one by one)
     rows = [[int(w) & MASK32 for w in r] for r in rows]
     sub = torch.tensor(rows, dtype=torch.int64).reshape(len(rows), -1)
     if sub.shape[1] != ROUNDS:
@@ -92,7 +101,8 @@ def epoch_orders(words, n: int,
         blk = sub[p0:p0 + step]
         x = prp(torch.arange(n, dtype=torch.int64).expand(len(blk), n), blk)
         walk = x >= n
-        while bool(walk.any()):            # CPU tensor: no device sync
+        # lint: boundary(a CPU tensor: no device sync)
+        while bool(walk.any()):
             x = torch.where(walk, prp(x, blk), x)
             walk = x >= n
         out[p0:p0 + step] = x

@@ -253,6 +253,7 @@ def scan_fraction(index: IvfIndex, Q, *, nprobe: int = 8,
     nprobe = min(nprobe, index.k)
     cids, _ = kops.probe_centroids(Q, index.centroids, nprobe, force=force)
     scanned = index.caps.long()[cids.long()].sum(-1).double()  # (q,)
+    # lint: boundary(a host diagnostic: one read by design)
     return float(scanned.mean() / max(index.capacity_rows, 1))
 
 

@@ -25,6 +25,11 @@ import torch
 
 from repro_torch.kernels import _build
 
+# autotune: exempt(assign_centroids): WAVES, the one knob of its split plan,
+# gives the same plan for every candidate (1-4) at the shapes its traffic
+# gives it: n = 10^4 makes 79 row tiles, fewer than one wave of 132 SMs,
+# and n = 10^6 (Lloyd, PQ training) makes 7,813 or 15,625, more than four.
+
 ROWS = (64, 128)  # row tiles of pass 1 (the wgmma N; csrc/assign_centroids.cu)
 COLS = 128       # centroids per tile (kCents); chunks are whole tiles
 MAX_SPLITS = 64

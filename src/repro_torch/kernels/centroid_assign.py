@@ -20,11 +20,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, autotune
 
 MAX_P = 128     # the probe kernel's largest list (csrc/centroid_assign.cu)
 ROWS = (64, 128)  # pass 1's row tiles (16·TM)
@@ -56,8 +56,11 @@ def pass1_smem(p: int, rows: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def split_plan(n: int, k: int, p: int, sms: int) -> ProbePlan:
-    """The probe's split of n rows × k centroids over ``sms`` SMs.
+def split_plan(n: int, k: int, p: int, sms: int,
+               ctas_per_sm: int = _CTAS_PER_SM) -> ProbePlan:
+    """The probe's split of n rows × k centroids over ``sms`` SMs
+    (``ctas_per_sm``: resident CTAs an SM in the cost model, the autotune
+    table's knob).
 
     Pure host arithmetic (no device read, so ``search`` keeps no host
     sync).  A CTA's time grows with its chunk's tiles; the card runs
@@ -76,7 +79,7 @@ def split_plan(n: int, k: int, p: int, sms: int) -> ProbePlan:
     best = None
     for rows in ROWS:
         row_tiles = -(-n // rows)
-        per_sm = min(_CTAS_PER_SM,
+        per_sm = min(ctas_per_sm,
                      _SM_SHARED // (pass1_smem(p, rows) + _CTA_RESERVED))
         slots = max(1, sms * per_sm)
         scale = _ROW64_COST if rows == 64 else 1.0
@@ -115,14 +118,16 @@ def _norms(X: torch.Tensor, C: torch.Tensor):
     return (C * C).sum(-1), (X * X).sum(-1)
 
 
-def probe_centroids(X: torch.Tensor, C: torch.Tensor, p: int
+def probe_centroids(X: torch.Tensor, C: torch.Tensor, p: int, *,
+                    ctas_per_sm: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(ids (n, p) int32, d2 (n, p) f32), computed by the CUDA kernels.
 
     The p nearest centroids of each row, ascending by ``||c||² − 2x·c``
     with ties to the lower index; d2 = ``max(part + ||x||², 0)``.
-    1 <= p <= min(k, 128).  One or two device launches (``split_plan``);
-    the launch count adds one per call.
+    1 <= p <= min(k, 128).  One or two device launches (``split_plan``, its
+    ``ctas_per_sm`` from the autotune table unless given); the launch count
+    adds one per call.
     """
     n, k, d = _check(X, C)
     if not 1 <= p <= min(k, MAX_P):
@@ -132,7 +137,9 @@ def probe_centroids(X: torch.Tensor, C: torch.Tensor, p: int
     out_d = torch.empty((n, p), dtype=torch.float32, device=X.device)
     if n == 0:
         return out_i, out_d
-    plan = split_plan(n, k, p, _build.sm_count(X.device.index))
+    cps = autotune.resolve("probe_centroids", autotune.BACKEND,
+                           {"n": n, "k": k, "p": p}, ctas_per_sm)
+    plan = split_plan(n, k, p, _build.sm_count(X.device.index), cps)
     part_v = part_i = None
     if plan.splits > 1:
         part_v = torch.empty((n, plan.splits, p), dtype=torch.float32,

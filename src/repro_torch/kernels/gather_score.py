@@ -23,6 +23,10 @@ import torch
 
 from repro_torch.kernels import _build
 
+# autotune: exempt(gather_score): its row layout (lanes a row, rows a warp,
+# samples a CTA) follows d alone (``layout``) and one launch covers the
+# batch: there is no host-side plan to tune.
+
 _MODES = {"bkm": 0, "lloyd": 1}
 SAMPLES_PER_CTA = 2     # the kernel's kSamples (csrc/gather_score.cu)
 

@@ -21,6 +21,12 @@ import torch
 
 from repro_torch.kernels import _build
 
+# autotune: exempt(ivf_scan): CTAS_PER_SM, the one knob of its split plan,
+# gives one plan for every candidate (2-32) at 1,000 queries or more,
+# and at the served batch (64 queries, nprobe 16) no candidate beat
+# today's 8 by more than the spread between rounds in two sweeps on the
+# H100: the table would hold nothing for it.
+
 MAX_TOPK = 1024     # the kernel's largest list (csrc/common.cuh)
 CTAS_PER_SM = 8     # the split's target: pass 1 holds 8 CTAs an SM
 MAX_MERGE = 32_768  # candidates one merging warp takes per query, at most

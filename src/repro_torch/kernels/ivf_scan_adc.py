@@ -28,6 +28,12 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ivf_scan import INT_MAX, split_plan
 
+# autotune: exempt(ivf_scan_adc): CTAS_PER_SM, the one knob of its split
+# plan (``ivf_scan.split_plan``), gives one plan for every candidate
+# (2-32) at 1,000 queries or more, and at the served batch (64 queries,
+# nprobe 16) no candidate beat today's 8 by more than the spread between
+# rounds in two sweeps on the H100: the table would hold nothing for it.
+
 MAX_TOPK = 1024         # the kernel's largest list (csrc/common.cuh)
 MAX_LUT_FLOATS = 32768  # M·W floats of table in shared memory (128 KiB)
 

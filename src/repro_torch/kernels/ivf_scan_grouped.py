@@ -15,11 +15,11 @@ through ``kernels.ops``.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, autotune
 
 MAX_TOPK = 1024     # the kernel's largest list (csrc/common.cuh)
 MAX_GROUP = 8       # queries per group: one merging warp each
@@ -38,20 +38,21 @@ class ScanPlan(NamedTuple):
     ctas: int
 
 
-def split_plan(ngroups: int, U: int, topk: int, sms: int) -> ScanPlan:
+def split_plan(ngroups: int, U: int, topk: int, sms: int,
+               ctas_per_sm: int = CTAS_PER_SM) -> ScanPlan:
     """The grouped scan's split of ngroups unions of U slots over ``sms``
-    SMs.
+    SMs (``ctas_per_sm``: the autotune table's knob).
 
     Pure host arithmetic (no device read).  One chunk per group once the
     groups alone fill the card (ngroups >= sms); else enough chunks for
-    about ``CTAS_PER_SM`` CTAs per SM, each at least ``MIN_SLOTS`` slots of
+    about ``ctas_per_sm`` CTAs per SM, each at least ``MIN_SLOTS`` slots of
     U and at most ``MAX_MERGE`` merged candidates per row, evened out.
     """
     if not 1 <= topk <= MAX_TOPK:
         raise ValueError(f"need 1 <= topk <= {MAX_TOPK}, got {topk}")
     splits = 1
     if 0 < ngroups < sms:
-        splits = max(1, min(-(-CTAS_PER_SM * sms // ngroups),
+        splits = max(1, min(-(-ctas_per_sm * sms // ngroups),
                             U // MIN_SLOTS, MAX_MERGE // topk))
     per = max(1, -(-U // splits))
     splits = max(1, -(-U // per))
@@ -90,7 +91,8 @@ def _fn():
 def ivf_scan_grouped(Qg: torch.Tensor, vecs: torch.Tensor,
                      pids: torch.Tensor, union_tiles: torch.Tensor,
                      qmask: torch.Tensor, *, block_rows: int, topk: int = 10,
-                     raw: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                     raw: bool = False, ctas_per_sm: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(ids, d2), each (ngroups·G, topk) in grouped order, computed by the
     CUDA kernels.
 
@@ -100,7 +102,8 @@ def ivf_scan_grouped(Qg: torch.Tensor, vecs: torch.Tensor,
     U) int32, nonzero where the query probed the slot — all contiguous on
     one CUDA device.  d2 as ``ivf_scan``'s (``raw=True``: the partials).
     1 <= G <= 8 and 1 <= topk <= 1024.  One or two device launches
-    (``split_plan``); the launch count adds one per call.
+    (``split_plan``, its ``ctas_per_sm`` from the autotune table unless
+    given); the launch count adds one per call.
     """
     if Qg.dim() != 2 or vecs.dim() != 2 or union_tiles.dim() != 2:
         raise ValueError("Qg, vecs and union_tiles must be 2-D")
@@ -128,7 +131,9 @@ def ivf_scan_grouped(Qg: torch.Tensor, vecs: torch.Tensor,
     out_d = torch.empty((nqg, topk), dtype=torch.float32, device=dev)
     if ngroups == 0:
         return out_i, out_d
-    plan = split_plan(ngroups, U, topk, _build.sm_count(dev.index))
+    cps = autotune.resolve("ivf_scan_grouped", autotune.BACKEND,
+                           {"q": nqg, "U": U, "topk": topk}, ctas_per_sm)
+    plan = split_plan(ngroups, U, topk, _build.sm_count(dev.index), cps)
     scratch = []
     if plan.splits > 1:
         scratch = [

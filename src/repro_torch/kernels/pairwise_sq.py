@@ -19,6 +19,10 @@ import torch
 
 from repro_torch.kernels import _build
 
+# autotune: exempt(pairwise_sq): one CTA a tile pair, tiles fixed at compile
+# time (f32 FMAs, bf16 mma.sync); the grid is the pair count: there is no
+# host-side plan to tune.
+
 TILE = 64                # output tile edge of the kernel (csrc/pairwise_sq.cu)
 INT_MAX = 2**31 - 1      # gridDim.x takes B * pair_count(nt) <= B * nt**2;
                          # d is a C int

@@ -20,6 +20,9 @@ import torch
 
 from repro_torch.kernels import _build
 
+# autotune: exempt(refine_merge): one CTA a row, its register sort sized at
+# compile time; the grid is the batch: there is no host-side plan to tune.
+
 MAX_L = 4096    # κ + C the kernel merges in shared memory, at most
 
 def _fn():

@@ -1,8 +1,10 @@
-"""Roofline bounds of the port's kernels on one H100 (counterpart of the
-kernel half of ``repro.launch.roofline``).
+"""Roofline bounds of the port on H100s (counterpart of
+``repro.launch.roofline``): the kernels' bounds and the three-term
+roofline of a rank's step.
 
-  compute = operations / peak rate of their type
-  memory  = bytes / HBM rate
+  compute    = operations / peak rate of their type
+  memory     = bytes / HBM rate
+  collective = wire bytes / link rate
 
 A kernel's bound is the larger of the two: the least time the card could
 take for the call's work.  ``KERNEL_INVENTORY`` holds, for each of the
@@ -14,8 +16,12 @@ output written once.  ``chip_smoke.py`` prints every kernel's bound from
 here, and ``launch/obs_report.py`` joins measured ``kernels`` records
 against it.
 
-The reference's HLO and collective parsing is XLA's and is not ported; the
-collective term waits for the sharded topologies.
+The collective term takes the wire bytes a rank moves, as
+``core.comm.collective_counter`` counts them from the calls it records
+(the reference parses them out of compiled HLO, which torch has not), over
+one GPU's link rate: NVLink within a node of eight, one NDR InfiniBand
+port between nodes (``link_rate``).  ``launch/dryrun_cluster.py`` fills
+all three terms for the paper's sharded workloads.
 """
 from __future__ import annotations
 
@@ -27,6 +33,12 @@ FP32_FLOPS = 67e12       # outside the tensor cores
 TF32_FLOPS = 495e12      # dense tensor-core rate
 TF32X3_FLOPS = TF32_FLOPS / 3   # f32-accurate products as three TF32 ones
 BF16_FLOPS = 989e12      # dense tensor-core rate, f32 accumulation
+# links of one H100 SXM GPU: NVLink 4 within a node of 8 (NVIDIA data
+# sheet: 900 GB/s both ways together, so 450 GB/s each way), and between
+# nodes one 400 Gb/s NDR InfiniBand port a GPU (50 GB/s each way)
+NVLINK_BYTES_PER_S = 450e9
+NDR_BYTES_PER_S = 50e9
+GPUS_PER_NODE = 8
 
 
 def _fp32(**_) -> float:
@@ -107,14 +119,30 @@ KERNEL_INVENTORY: Dict[str, Dict[str, Any]] = {
 }
 
 
-def roofline_terms(flops: float, hbm_bytes: float,
-                   peak: float = FP32_FLOPS) -> Dict[str, Any]:
-    """The compute and memory terms in seconds and which one binds
-    ("memory" on a tie)."""
+def link_rate(ranks: int) -> float:
+    """Bytes/s each way of one GPU's links in a group of ``ranks``: NVLink
+    when the group fits one node, else the NDR port."""
+    return NVLINK_BYTES_PER_S if ranks <= GPUS_PER_NODE else NDR_BYTES_PER_S
+
+
+def roofline_terms(flops: float, hbm_bytes: float, coll_bytes: float = 0.0,
+                   *, peak: float = FP32_FLOPS,
+                   hbm: float = HBM_BYTES_PER_S,
+                   link: float = NVLINK_BYTES_PER_S) -> Dict[str, Any]:
+    """The compute, memory and collective terms in seconds, which one binds
+    ("memory" on a tie with compute; "collective" only when it is the
+    largest) and the compute term's share of the largest
+    (``roofline_fraction``)."""
     t_c = flops / peak
-    t_m = hbm_bytes / HBM_BYTES_PER_S
-    return {"compute_s": t_c, "memory_s": t_m,
-            "bottleneck": "memory" if t_m >= t_c else "compute"}
+    t_m = hbm_bytes / hbm
+    t_x = coll_bytes / link
+    dom = "memory" if t_m >= t_c else "compute"
+    if t_x > max(t_c, t_m):
+        dom = "collective"
+    top = max(t_c, t_m, t_x)
+    return {"compute_s": t_c, "memory_s": t_m, "collective_s": t_x,
+            "bottleneck": dom,
+            "roofline_fraction": t_c / top if top > 0 else 0.0}
 
 
 def kernel_terms(name: str, peak: Optional[float] = None,
@@ -125,8 +153,8 @@ def kernel_terms(name: str, peak: Optional[float] = None,
     inv = KERNEL_INVENTORY[name]
     flops = inv["flops"](**shape)
     nbytes = inv["hbm_bytes"](**shape)
-    terms = roofline_terms(flops, nbytes,
-                           inv["peak"](**shape) if peak is None else peak)
+    terms = roofline_terms(
+        flops, nbytes, peak=inv["peak"](**shape) if peak is None else peak)
     terms.update(flops=flops, hbm_bytes=nbytes,
                  bound_s=max(terms["compute_s"], terms["memory_s"]))
     return terms

@@ -25,7 +25,7 @@ is: counters nest, and only the innermost one counts a read.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Iterator, List
+from typing import Any, Iterator, List, Set
 
 import torch
 
@@ -64,11 +64,23 @@ def _to_host(tree: Any) -> Any:
     return tree
 
 
+def _storages(tree: Any) -> List[int]:
+    """Storage ids of every tensor of a (nested) tuple, list or dict."""
+    if isinstance(tree, torch.Tensor):
+        return [tree.untyped_storage()._cdata]
+    if isinstance(tree, (tuple, list)):
+        return [s for v in tree for s in _storages(v)]
+    if isinstance(tree, dict):
+        return [s for v in tree.values() for s in _storages(v)]
+    return []
+
+
 class SyncCounter:
     """Counts explicit host syncs performed through it (see module doc)."""
 
     def __init__(self) -> None:
         self.syncs = 0
+        self.host: Set[int] = set()   # storages of the reads' host copies
 
     def get(self, tree: Any) -> Any:
         """The tree's tensors copied to the CPU with sync-debug mode lifted
@@ -76,6 +88,7 @@ class SyncCounter:
         with _debug_mode(0):
             out = _to_host(tree)
         self.syncs += 1
+        self.host.update(_storages(out))
         return out
 
     def block(self, tree: Any = None) -> Any:
@@ -103,6 +116,13 @@ def sync_counter() -> Iterator[SyncCounter]:
             yield sc
     finally:
         _active.remove(sc)
+
+
+def host_storages() -> Set[int]:
+    """Storages of the host copies the active counters' reads returned (a
+    conversion of one of them to a Python number reads the host, not the
+    device: the contract audit tells such reads from stray ones)."""
+    return set().union(*(sc.host for sc in _active))
 
 
 def read(tree: Any) -> Any:

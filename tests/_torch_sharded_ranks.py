@@ -73,6 +73,30 @@ IVF_PATHS = (("f32", None, None), ("f32", 4, None), ("int8", None, 0),
              ("pq", None, 0), ("int8", None, None), ("pq", None, None))
 
 
+def _fsum_owned(comm) -> torch.Tensor:
+    """(R,) bool on every rank: whether each rank's ``fsum_owned`` of its
+    (R·k_loc, d) block equals ``fsum(x)[rank·k_loc:(rank+1)·k_loc]`` bit for
+    bit (values from numpy, different on every rank)."""
+    R, r, k_loc = comm.size, comm.rank, 5
+    x = torch.from_numpy(np.random.default_rng(10 + r).standard_normal(
+        (R * k_loc, 7)).astype(np.float32) * 10.0 ** r)
+    ok = torch.equal(comm.fsum_owned(x, k_loc),
+                     comm.fsum(x)[r * k_loc:(r + 1) * k_loc])
+    return comm.all_gather(torch.tensor([ok]))
+
+
+def _dense_sync_bytes(X, G, st):
+    """A dense group run under ``collective_counter``: the dense sync's
+    summary, the steps it took and the number of all-to-alls."""
+    from repro_torch.core.comm import collective_counter
+    from repro_torch.core.distributed import ShardedEngine
+    eng = ShardedEngine(None, engine_cfg(False, False, "bkm"), kind="graph")
+    with collective_counter() as cc:
+        res = eng.run(X, G, st.assign, st.D, st.cnt, epoch_words=WORDS)
+    steps = res.epochs * (X.shape[0] // eng.shards // 24)
+    return cc.summary("dense_sync"), steps, cc.counts().get("all-to-all", 0)
+
+
 def _case_main(rank: int, world: int) -> Dict:
     from repro_torch.core import graph_build as tgb
     from repro_torch.core.distributed import (ShardedEngine, ShardedIvf,
@@ -91,7 +115,9 @@ def _case_main(rank: int, world: int) -> Dict:
     eng = ShardedEngine(None, engine_cfg(True, False, "bkm"))
     out["epoch"] = eng.epoch(X, G, st.assign, st.D, st.cnt, WORDS[0])
     out["distortion"] = eng.distortion(X, st.assign, st.D, st.cnt)
+    out["dense_sync"] = _dense_sync_bytes(X, G, st)
     comm = Comm()
+    out["fsum_owned"] = _fsum_owned(comm)
     B = X.shape[0] // world
     rows = torch.arange(rank * B, (rank + 1) * B)
     salts = [[7, 8], [9, 10], [11, 12], [13, 14]]
@@ -119,6 +145,7 @@ def _ivf(ShardedIvf) -> Dict:
 
 
 def _case_pad(rank: int, world: int) -> Dict:
+    from repro_torch.core.comm import Comm
     from repro_torch.core.distributed import ShardedEngine, ShardedIvf
     from repro_torch.core.engine import init_state
     X, a, G = engine_inputs(N + 1)
@@ -128,6 +155,7 @@ def _case_pad(rank: int, world: int) -> Dict:
         eng = ShardedEngine(None, engine_cfg(sparse, bf16, mode), kind=kind)
         out[("run", kind)] = eng.run(X, G, st.assign, st.D, st.cnt,
                                      epoch_words=WORDS)
+    out["fsum_owned"] = _fsum_owned(Comm())
     out.update(_ivf(ShardedIvf))
     return out
 

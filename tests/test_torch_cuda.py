@@ -1300,3 +1300,18 @@ def test_nccl_group_of_one_on_card(dev, tmp_path):
         assert torch.equal(ids, ivf.search(index, Q, nprobe=8)[0])
     finally:
         close_group()
+
+
+def test_tuned_wrappers_equal_across_their_sweep(dev):
+    """Every tuned wrapper (the probe, the three scans) gives
+    ``torch.equal`` outputs for each knob of its sweep grid: the split plan
+    decides nothing in the result."""
+    from repro_torch.kernels import autotune
+    cases = autotune.sweep_cases(dev, n=200_000, k=4_096, nq=2_000)
+    assert {c[0] for c in cases} == set(autotune.SWEEP_TILES)
+    for kernel, shape, _, call in cases:
+        want = call(autotune.DEFAULT_TILE[kernel])
+        for knob in autotune.SWEEP_TILES[kernel]:
+            got = call(knob)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), (
+                kernel, shape, knob)

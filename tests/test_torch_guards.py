@@ -52,6 +52,33 @@ def test_port_imports_neither_jax_nor_reference(path):
         assert top not in ("jax", "jaxlib", "repro"), (path, mod)
 
 
+NEW_MODULES = ("repro_torch.configs", "repro_torch.configs.gkmeans_paper",
+               "repro_torch.analysis", "repro_torch.analysis.astlint",
+               "repro_torch.analysis.baseline",
+               "repro_torch.analysis.contracts",
+               "repro_torch.analysis.__main__",
+               "repro_torch.kernels.autotune",
+               "repro_torch.launch.dryrun_cluster", "repro_torch.core.comm")
+
+
+def test_new_modules_import_without_jax():
+    """The analysis, autotune, configs and dry-run modules import in a
+    fresh interpreter without loading jax or the reference package."""
+    import subprocess
+    import sys
+    code = ("import importlib, sys\n"
+            f"for m in {NEW_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(__import__("os").environ,
+               PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_gk_means_without_device_raises_when_no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     X = np.zeros((64, 4), np.float32)

@@ -467,7 +467,7 @@ def test_inventory_covers_every_kernel():
     assert set(roofline.KERNEL_INVENTORY) == set(_build.KERNELS)
     for inv in roofline.KERNEL_INVENTORY.values():
         assert {"desc", "flops", "hbm_bytes", "peak"} <= set(inv)
-    t = roofline.roofline_terms(67e12, 0.0, roofline.FP32_FLOPS)
+    t = roofline.roofline_terms(67e12, 0.0, peak=roofline.FP32_FLOPS)
     assert t["bottleneck"] == "compute" and t["compute_s"] == 1.0
     assert roofline.roofline_terms(0.0, 1.0)["bottleneck"] == "memory"
 

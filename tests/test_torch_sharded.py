@@ -460,6 +460,34 @@ def test_group_padding_equals_emulation(pad_case):
     _check_ivf(pad_case, 3)
 
 
+@pytest.mark.parametrize("case", ["main_case", "pad_case"])
+def test_fsum_owned_equals_fsum_block(request, case):
+    """``Comm.fsum_owned`` on 4 and on 3 gloo ranks: every rank's block of
+    the rank-ordered sum equals ``fsum(x)`` sliced to its rows, bit for
+    bit."""
+    ok = request.getfixturevalue(case)["fsum_owned"]
+    assert ok.shape == ({"main_case": 4, "pad_case": 3}[case],)
+    assert bool(ok.all())
+
+
+def test_group_dense_sync_receives_one_copy_of_the_deltas(main_case):
+    """A dense group run on 4 gloo ranks under ``collective_counter``: per
+    step the dense sync moves at most k·d·4 + k·4 bytes (one all-to-all of
+    the (k, d) deltas and the (k,) count psum); gathering every rank's
+    deltas, as before, moved (R−1)·k·d·4."""
+    summ, steps, a2a = main_case["dense_sync"]
+    k, d = ranks.K, ranks.D
+    assert steps == 15 and a2a == steps
+    assert summ["all-to-all"]["count"] == steps
+    assert summ["all-reduce"]["count"] == steps
+    assert summ["all-gather"]["count"] == 0
+    per_step = summ["total_wire_bytes"] / steps
+    assert per_step <= k * d * 4 + k * 4
+    assert per_step == pytest.approx(
+        k * d * 4 * 3 / 4 + 2 * k * 4 * 3 / 4)
+    assert per_step < 3 * k * d * 4
+
+
 def test_cluster_large_launcher_group_of_one(tmp_path):
     """``launch/cluster_large.py`` without torchrun (a gloo group of one on
     the CPU): every row assigned, the distortion falls, one host sync an
