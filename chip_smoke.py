@@ -186,13 +186,31 @@ plain PyTorch version, or when any phase fails.  Phases:
    ``RecordingComm`` on the card: ``torch.cuda.max_memory_allocated``
    within 10% of the dry run's argument + temporary bytes of the same
    cell, and the same recorded wire bytes;
-11. one JSON line of the sharded topology, one of the baselines (each
+11. the dense LM serving path (``launch/serve.py::serve`` over
+   ``models/model.py``; plain PyTorch, none of the eight kernels may
+   launch) at Qwen2-72B's published widths (d_model 8,192, 64 query and 8
+   KV heads of 128, d_ff 29,568, vocab 152,064, QKV bias, rope_base 1e6),
+   depth cut from 80 layers to 8: (a) ``serve`` at batch 4, prompt 1,024,
+   32 greedy tokens — prefill and decode seconds, each decode step's
+   CUDA-event ms beside its bytes bound (every weight but the embedding
+   table once, at the data sheet's 3.35 TB/s), tokens a second, peak
+   memory, host syncs inside ``decode_step`` (each under
+   ``sync_counter``: must be 0); (d) the same run again: equal tokens;
+   (b) the prompt plus 8 teacher-forced steps against one prefill of the
+   longer sequence, within the reference test's limits (max|Δ| /
+   max(max|want|, 1) < 0.15, top-1 >= 0.5), then a trace of 8 decode
+   steps and one layer's prefill attention timed beside
+   ``F.scaled_dot_product_attention`` (a yardstick); (c) a 2-layer copy of
+   the same parameters at batch 2, prompt 64, prefill and 4 teacher-forced
+   steps on the card and on the CPU: logits within 0.03 of max|want|,
+   top-1 equal but at near-ties; any failed check raises;
+12. one JSON line of the sharded topology, one of the baselines (each
    path's seconds, quality and launches), one of clustered-KV decode, one
    of phase 10 (``{"dryrun": ...}``), one of the kernels (with each
    kernel's launches on the baselines' paths, its numbers at their shapes,
    its launches in phase 9 and its ``autotune`` field: the table's knob,
    its entries' shapes and knobs and phase 10's times, or "exempt" with
-   the reason), the card's
+   the reason), one of phase 11 (``{"lm_serve": ...}``), the card's
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Every bound comes from ``launch/roofline.py``'s inventory and every
@@ -203,6 +221,7 @@ It imports nothing of JAX or of the JAX package ``repro``.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -3198,6 +3217,223 @@ def analysis_phase(smi):
         cells=brief, real_body=real, card=smi)
 
 
+LM = dict(arch="qwen2-72b", n_layers=8, batch=4, prompt_len=1024, gen=32,
+          extra=8)                      # (a), (b), (d): depth cut 80 -> 8
+LM_CPU = dict(n_layers=2, batch=2, prompt_len=64, steps=4)   # (c)
+# (b) decode against prefill: the reference's own limits (tests/
+# test_serve.py): max|Δ| / max(max|want|, 1) < 0.15, top-1 agreement >= 0.5
+LM_DECODE_TOL, LM_DECODE_TOP1 = 0.15, 0.5
+# (c) card against CPU, logits max|Δ| / max|want| <= 0.03: the CPU-test aim
+# against the JAX package (tests/test_torch_lm.py); cuBLAS and oneDNN sum
+# the bf16 products in other orders, so activations move by a bf16 ulp.
+# Top-1 agrees row for row, but where the CPU's logits at the two argmaxes
+# lie within that tolerance of each other (a near-tie, counted).
+LM_CPU_TOL = 0.03
+HBM_TBS = 3.35          # H100 SXM data sheet, TB/s
+BF16_TFLOPS = 989.0     # H100 SXM data sheet, dense bf16
+
+
+def lm_bounds(cfg, batch, prompt_len, gen):
+    """(decode step bytes bound ms, prefill operations bound ms) from the
+    model's own parameter inventory (built on ``meta``): a step reads
+    every weight but the embedding table once (B of its rows), the valid
+    cache positions (mean over the run's steps) and writes one position;
+    prefill does two operations per weight and token (``lm_head`` for the
+    last position only) and the causal attention's two products."""
+    import torch
+    from repro_torch.models import Model
+    meta = Model(cfg, device="meta")
+    w = sum(p.numel() * p.element_size()
+            for n, p in meta.named_parameters() if n != "embed")
+    D, L_ = cfg.d_model, cfg.n_layers
+    kv_row = 2 * L_ * batch * cfg.n_kv_heads * cfg.head_dim * 2
+    mean_len = prompt_len + gen / 2
+    step_bytes = w + batch * D * 2 + kv_row * (mean_len + 1) \
+        + batch * cfg.vocab_padded * 4
+    dense = sum(p.numel() for n, p in meta.named_parameters()
+                if n.startswith("layers.") and p.dtype == torch.bfloat16)
+    T = batch * prompt_len
+    ops = 2 * dense * T + 2 * D * cfg.vocab_padded * batch \
+        + 2 * 2 * batch * cfg.n_heads * cfg.head_dim * prompt_len ** 2 / 2 \
+        * L_
+    return (step_bytes / (HBM_TBS * 1e12) * 1e3,
+            ops / (BF16_TFLOPS * 1e12) * 1e3, step_bytes)
+
+
+def lm_card_vs_cpu():
+    """(c): a 2-layer full-width copy of the same parameters (the card's
+    generator draws the first two layers' weights first), prefill then
+    teacher-forced decode steps on the card and on the CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.model import init_params
+    c = LM_CPU
+    cfg = get_config(LM["arch"]).scaled(n_layers=c["n_layers"])
+    card = init_params(cfg, torch.Generator(DEV).manual_seed(SEED), DEV)
+    cpu = Model(cfg, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    n, steps = c["prompt_len"], c["steps"]
+    toks = torch.randint(0, cfg.vocab, (c["batch"], n + steps),
+                         generator=torch.Generator().manual_seed(SEED + 2),
+                         dtype=torch.int32)
+    out, secs = {}, {}
+    for name, m in (("card", card), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        logits, cache = m.prefill({"tokens": toks[:, :n].to(m.device)},
+                                  n + steps)
+        seq = [logits[:, :cfg.vocab].cpu()]
+        for i in range(steps):
+            logits, cache = m.decode_step(
+                toks[:, n + i: n + i + 1].to(m.device), cache)
+            seq.append(logits[:, :cfg.vocab].cpu())
+        secs[name] = time.perf_counter() - t0
+        out[name] = seq
+    rels, ties, agree = [], 0, 0
+    for got, want in zip(out["card"], out["cpu"]):
+        if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+            raise RuntimeError("lm_serve (c): non-finite logits")
+        scale = float(want.abs().max())
+        rels.append(float((got - want).abs().max()) / scale)
+        for row in range(want.shape[0]):
+            a, b = int(got[row].argmax()), int(want[row].argmax())
+            if a == b:
+                agree += 1
+            elif float(want[row, b] - want[row, a]) <= LM_CPU_TOL * scale:
+                ties += 1
+            else:
+                raise RuntimeError(f"lm_serve (c): top-1 {a} on the card, "
+                                   f"{b} on the CPU (row {row})")
+    res = dict(layers=c["n_layers"], batch=c["batch"], prompt_len=n,
+               decode_steps=steps, max_rel_err=max(rels), rel_errs=rels,
+               top1_agree=agree, top1_near_ties=ties, seconds=secs)
+    log(f"lm_serve (c) card vs CPU: {json.dumps(res)}")
+    if max(rels) > LM_CPU_TOL:
+        raise RuntimeError(f"lm_serve (c): card vs CPU {max(rels):.4g} > "
+                           f"{LM_CPU_TOL}")
+    return res
+
+
+def lm_serve_phase():
+    """Phase 11: the dense LM serving path (``launch.serve.serve``) at
+    Qwen2-72B's published widths, depth cut to 8 layers: (a) batch 4,
+    prompt 1,024, 32 greedy tokens; (d) the same run again, equal tokens;
+    (b) prompt + 8 teacher-forced steps against one prefill of the longer
+    sequence; (c) a 2-layer copy on the card against the CPU.  Raises on
+    any failed check.  None of the eight kernels may launch."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import attention as attn
+    from repro_torch.models.model import init_params
+    c = LM
+    cfg = get_config(c["arch"]).scaled(n_layers=c["n_layers"])
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    runs = []
+    for _ in range(2):                     # (a), then (d)
+        t0 = time.perf_counter()
+        toks, stats = serve(cfg, batch=c["batch"], prompt_len=c["prompt_len"],
+                            gen=c["gen"], seed=SEED, device=DEV)
+        stats["wall_s"] = time.perf_counter() - t0
+        runs.append((toks.cpu(), stats))
+    peak = torch.cuda.max_memory_allocated()
+    launched = {k: n for k, n in _build.launch_counts.items() if n}
+    toks, st = runs[0]
+    bound_step, bound_prefill, step_bytes = lm_bounds(
+        cfg, c["batch"], c["prompt_len"], c["gen"])
+    serve_out = dict(
+        arch=c["arch"], layers=c["n_layers"], published_layers=80,
+        batch=c["batch"], prompt_len=c["prompt_len"], gen=c["gen"],
+        prefill_s=st["prefill_s"], decode_s=st["decode_s"],
+        tok_per_s=st["tok_per_s"], decode_step_ms=st["decode_step_ms"],
+        decode_step_ms_median=statistics.median(st["decode_step_ms"]),
+        decode_step_ms_min=min(st["decode_step_ms"]),
+        decode_step_bound_ms=bound_step, decode_step_bytes=step_bytes,
+        prefill_bound_ms=bound_prefill,
+        decode_host_syncs=[s["decode_host_syncs"] for _, s in runs],
+        rerun=dict(prefill_s=runs[1][1]["prefill_s"],
+                   decode_s=runs[1][1]["decode_s"],
+                   tok_per_s=runs[1][1]["tok_per_s"],
+                   decode_step_ms_median=statistics.median(
+                       runs[1][1]["decode_step_ms"])),
+        wall_s=[s["wall_s"] for _, s in runs], max_memory_allocated=peak,
+        kernel_launches=launched)
+    log(f"lm_serve (a)/(d): {json.dumps(serve_out)}")
+    if any(s["decode_host_syncs"] for _, s in runs):
+        raise RuntimeError("lm_serve (a): host syncs inside decode_step")
+    if not torch.equal(runs[0][0], runs[1][0]):
+        raise RuntimeError("lm_serve (d): two greedy runs differ")
+    if toks.shape != (c["batch"], c["gen"]) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.vocab:
+        raise RuntimeError(f"lm_serve (a): tokens {tuple(toks.shape)} "
+                           "out of range")
+    if launched:
+        raise RuntimeError(f"lm_serve: kernels launched {launched}")
+    del runs, toks
+
+    # (b) decode matches prefill, at the same width and depth
+    model = init_params(cfg, torch.Generator(DEV).manual_seed(SEED), DEV)
+    n, extra = c["prompt_len"], c["extra"]
+    full = torch.randint(0, cfg.vocab, (c["batch"], n + extra),
+                         generator=torch.Generator(DEV).manual_seed(SEED + 1),
+                         dtype=torch.int32, device=DEV)
+    want, _ = model.prefill({"tokens": full}, n + extra)
+    logits, cache = model.prefill({"tokens": full[:, :n]}, n + extra)
+    for i in range(extra):
+        logits, cache = model.decode_step(full[:, n + i: n + i + 1], cache)
+    logits, want = logits[:, :cfg.vocab], want[:, :cfg.vocab]
+    if not (torch.isfinite(logits).all() and torch.isfinite(want).all()):
+        raise RuntimeError("lm_serve (b): non-finite logits")
+    rel = float((logits - want).abs().max() / max(float(want.abs().max()),
+                                                  1.0))
+    a, b = logits.argmax(-1), want.argmax(-1)
+    top1 = float((a == b).float().mean())
+    # where the argmaxes differ: the prefill's logit gap between the two
+    # tokens against the largest |Δ| (random weights leave near-ties)
+    gaps = [float(want[r, b[r]] - want[r, a[r]])
+            for r in range(a.shape[0]) if a[r] != b[r]]
+    decode = dict(prompt_len=n, steps=extra, max_rel_err=rel, top1=top1,
+                  max_abs_logit=float(want.abs().max()),
+                  max_abs_err=float((logits - want).abs().max()),
+                  flipped_row_gaps=gaps)
+    log(f"lm_serve (b) decode vs prefill: {json.dumps(decode)}")
+    if not (rel < LM_DECODE_TOL and top1 >= LM_DECODE_TOP1):
+        raise RuntimeError(f"lm_serve (b): decode vs prefill {rel:.4g}, "
+                           f"top-1 {top1}")
+    _, cache = model.prefill({"tokens": full[:, :n]}, n + extra)
+    profile_window("lm decode, 8 steps at full width", lambda: [
+        model.decode_step(full[:, n + i: n + i + 1], cache)
+        for i in range(extra)])
+    # yardstick, not on the path: one layer's prefill attention in the
+    # port's flash_attention and in F.scaled_dot_product_attention
+    g = torch.Generator(DEV).manual_seed(SEED + 3)
+    B, Hq, Hkv, hd = c["batch"], cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = (torch.randn((B, n, H, hd), generator=g, device=DEV,
+                           dtype=torch.bfloat16) for H in (Hq, Hkv, Hkv))
+    yard = dict(
+        flash_attention_ms=time_ms(lambda: attn.flash_attention(
+            q, k, v, kv_chunk=cfg.attn_chunk), [()], reps=5),
+        sdpa_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True), [()], reps=5))
+    log(f"lm_serve attention yardstick (B={B}, S={n}, Hq={Hq}, Hkv={Hkv}, "
+        f"hd={hd}, bf16): {json.dumps(yard)}")
+    del model, cache, logits, want, q, k, v
+    torch.cuda.empty_cache()
+
+    cpu = lm_card_vs_cpu()                 # (c)
+    out = dict(serve=serve_out, decode_vs_prefill=decode, card_vs_cpu=cpu,
+               attention_yardstick=yard,
+               seconds=time.perf_counter() - t_phase)
+    log(f"lm_serve phase: {out['seconds']:.1f} s")
+    return out
+
+
 def autotune_field(name, tuned):
     """A kernel entry's ``autotune`` field: the table's knob, its entries
     (shape and knob) and phase 10's times, or "exempt" with the reason from
@@ -3317,6 +3553,7 @@ def main() -> int:
     ok_an, analysis = analysis_phase(smi)
     if not ok_an:
         failures.append("analysis / autotune / dry run")
+    lm = lm_serve_phase()                  # raises on a failed check
 
     kernels = [
         dict(name="gather_score", route="cuda",
@@ -3554,6 +3791,7 @@ def main() -> int:
     print(json.dumps({"kv_cluster": kv_out}), flush=True)
     print(json.dumps({"dryrun": analysis}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"lm_serve": lm}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

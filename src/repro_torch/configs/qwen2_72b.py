@@ -1,0 +1,8 @@
+"""Qwen2-72B [arXiv:2407.10671; hf] — dense GQA with QKV bias."""
+from repro_torch.configs.base import ArchConfig, register
+
+CONFIG = register(ArchConfig(
+    name="qwen2-72b", family="dense",
+    n_layers=80, d_model=8192, n_heads=64, n_kv_heads=8,
+    d_ff=29568, vocab=152064, head_dim=128, qkv_bias=True,
+    rope_base=1e6, source="arXiv:2407.10671; hf"))

@@ -2,8 +2,9 @@
 
 The clustering system's counterpart of carrying weights across: one
 reference graph, one initial state, one set of epoch keys, one packed IVF
-index (or its per-shard re-pack) and one set of clustered-KV clusters can
-be fed to both packages, so their outputs compare like with like.
+index (or its per-shard re-pack), one set of clustered-KV clusters and one
+LM's weights and KV cache can be fed to both packages, so their outputs
+compare like with like.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from repro_torch.core.knn_graph import KnnGraph
 from repro_torch.core.kv_cluster import KVClusters
 from repro_torch.index.ivf import IvfIndex, ShardedLists
 from repro_torch.index.quantize import Int8Codec, PqCodec
+from repro_torch.models.model import Cache, Model
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -107,3 +109,54 @@ def sharded_lists(vecs, ids, starts, caps, owner, rows_loc: int, shards: int,
         _tensor(owner, np.int64, "cpu"), int(rows_loc), int(shards),
         None if codes is None else _tensor(codes, np.uint8, dev),
         None if vnorm is None else _tensor(vnorm, np.float32, dev))
+
+
+def _same_dtype(a, device) -> torch.Tensor:
+    """An owned copy of array ``a`` in its own dtype; numpy's bfloat16
+    (``ml_dtypes``, as JAX hands bf16 arrays over) crosses as its bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.array(a.view(np.uint16)))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def lm_params(params, cfg, device: DeviceLike = None) -> Model:
+    """A ``Model`` holding the reference's parameter pytree (nested dicts
+    of arrays, layers stacked on axis 0, e.g. ``jax.tree.map(np.asarray,
+    init_params(cfg, key))``), leaf for leaf and in its dtypes (bf16
+    matrices, float32 norms and biases), on ``device`` (default ``cuda``;
+    pass ``device="cpu"`` for the CPU)."""
+    model = Model(cfg, device)
+    dev = model.device
+    own = dict(model.named_parameters())
+
+    def load(name, a):
+        t = _same_dtype(a, dev)
+        if t.dtype != own[name].dtype or t.shape != own[name].shape:
+            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} against "
+                             f"{tuple(own[name].shape)} {own[name].dtype}")
+        own[name].copy_(t)
+
+    def walk(prefix, tree, layer=None):
+        for key, sub in tree.items():
+            if isinstance(sub, dict):
+                walk(f"{prefix}{key}.", sub, layer)
+            else:
+                load(prefix + key, sub if layer is None else sub[layer])
+
+    for key in ("embed", "lm_head"):
+        load(key, params[key])
+    walk("final_norm.", params["final_norm"])
+    for i in range(cfg.n_layers):
+        walk(f"layers.{i}.", params["layers"], i)
+    return model
+
+
+def lm_cache(cache, device: DeviceLike = None) -> Cache:
+    """The port's KV cache from the reference's (``k``, ``v`` of (L, B, S,
+    Hkv, hd) bf16 and a scalar ``len``), on ``device`` (default ``cuda``;
+    pass ``device="cpu"`` for the CPU); ``len`` becomes a host int."""
+    dev = resolve_device(device)
+    return {"k": _same_dtype(cache["k"], dev),
+            "v": _same_dtype(cache["v"], dev), "len": int(cache["len"])}

@@ -1,4 +1,7 @@
-"""Model layers of the port that the clustering system compares against."""
+"""Model layers of the port: the dense decoder family (``Model``,
+``build_model``) and the decode attention that clustered-KV decode is held
+against."""
 from repro_torch.models.attention import decode_attention
+from repro_torch.models.model import Model, build_model
 
-__all__ = ["decode_attention"]
+__all__ = ["Model", "build_model", "decode_attention"]

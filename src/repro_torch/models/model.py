@@ -1,0 +1,413 @@
+"""The dense decoder family of the model zoo (counterpart of
+``repro.models.model``).
+
+A GQA transformer: RoPE (partial for ChatGLM), optional QKV bias, SwiGLU
+or GELU MLP, RMS or layer norms, an untied ``lm_head`` and an optional
+padded vocabulary.  Entry points are the reference's serving ones:
+``Model.prefill`` (builds the KV cache, returns last-position logits) and
+``Model.decode_step`` (one token against the cache).
+
+What is PyTorch idiom here rather than a copy:
+- ``Model`` is an ``nn.Module`` on one device that holds its weights, in
+  the reference's layouts and dtypes (bf16 matrices, float32 norms and
+  biases); its layers are an ``nn.ModuleList`` of ``DenseBlock``s walked in
+  a loop, where the reference scans stacked leaves.  The reference's
+  ``_norm_params``/``_attn_params``/``_mlp_params``/``_dense_layer_params``
+  are the ``Norm``/``Attention``/``Mlp``/``DenseBlock`` constructors, and
+  ``init_params`` draws the weights from a ``torch.Generator``.
+- The cache is the reference's: k and v of (L, B, S, Hkv, hd) bf16 plus
+  ``len``, here a host int, so a decode step reads nothing back from the
+  device.  ``decode_step`` writes the new position into k and v in place
+  (the reference's server donates the cache to the step) and raises where
+  the reference's ``dynamic_update_slice`` would clamp a write past the
+  cache's end.
+- ``_shard_act`` (an XLA mesh constraint that is the identity on one
+  device) has no counterpart.
+
+Families outside this slice (moe, ssm, hybrid, audio, vlm) and training
+(``Model.loss``, ``lm_loss``) raise ``NotImplementedError`` naming their
+item of ``ROADMAP.md`` queue 1.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import layers as L
+
+PDT = torch.bfloat16  # param dtype
+Cache = Dict[str, Any]
+
+# families still to port: ROADMAP.md queue 1, item 5
+_LATER = {"moe": "5(b)", "ssm": "5(c)", "hybrid": "5(c)", "audio": "5(d)",
+          "vlm": "5(d)"}
+_TRAINING = "5(e)"
+
+
+def _check_family(cfg: ArchConfig) -> None:
+    if cfg.family in _LATER:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet: ROADMAP.md queue 1 "
+            f"item {_LATER[cfg.family]}")
+    if cfg.family != "dense":
+        raise ValueError(cfg.family)
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+# ===========================================================================
+# parameters (the reference's init helpers)
+# ===========================================================================
+
+class Norm(nn.Module):
+    """``_norm_params``: ``w`` (d,) float32, an offset from 1 for RMS norm;
+    layer norm also ``b``.  Zeros, as the reference initialises them."""
+
+    def __init__(self, cfg: ArchConfig, d: int, device: torch.device):
+        super().__init__()
+        self.w = _param(torch.zeros(d, dtype=torch.float32, device=device))
+        if cfg.norm_type == "layer":
+            self.b = _param(torch.zeros(d, dtype=torch.float32,
+                                        device=device))
+
+
+class Attention(nn.Module):
+    """``_attn_params``: wq (D, Hq, hd), wk/wv (D, Hkv, hd), wo (Hq, hd, D)
+    bf16; with ``qkv_bias`` also bq (Hq, hd), bk/bv (Hkv, hd) float32."""
+
+    def __init__(self, cfg: ArchConfig, device: torch.device):
+        super().__init__()
+        D, Hq, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, \
+            cfg.head_dim
+        z = dict(dtype=PDT, device=device)
+        self.wq = _param(torch.zeros((D, Hq, hd), **z))
+        self.wk = _param(torch.zeros((D, Hkv, hd), **z))
+        self.wv = _param(torch.zeros((D, Hkv, hd), **z))
+        self.wo = _param(torch.zeros((Hq, hd, D), **z))
+        self.qkv_bias = cfg.qkv_bias
+        if cfg.qkv_bias:
+            f = dict(dtype=torch.float32, device=device)
+            self.bq = _param(torch.zeros((Hq, hd), **f))
+            self.bk = _param(torch.zeros((Hkv, hd), **f))
+            self.bv = _param(torch.zeros((Hkv, hd), **f))
+
+    def init(self, g: torch.Generator, cfg: ArchConfig) -> None:
+        D, Hq, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, \
+            cfg.head_dim
+        self.wq.copy_(L.dense_init(g, D, (Hq, hd), dtype=PDT))
+        self.wk.copy_(L.dense_init(g, D, (Hkv, hd), dtype=PDT))
+        self.wv.copy_(L.dense_init(g, D, (Hkv, hd), dtype=PDT))
+        self.wo.copy_(L.dense_init(g, Hq * hd, (D,), dtype=PDT)
+                      .reshape(Hq, hd, D))
+
+
+class Mlp(nn.Module):
+    """``_mlp_params``: SwiGLU w_gate/w_up (D, F) and w_down (F, D) bf16;
+    GELU w_in (D, F), w_out (F, D) bf16 and b_in (F,), b_out (D,)
+    float32."""
+
+    def __init__(self, cfg: ArchConfig, device: torch.device):
+        super().__init__()
+        D, Fd = cfg.d_model, cfg.d_ff
+        self.act = cfg.mlp_act
+        z = dict(dtype=PDT, device=device)
+        if self.act == "gelu":
+            self.w_in = _param(torch.zeros((D, Fd), **z))
+            self.b_in = _param(torch.zeros(Fd, dtype=torch.float32,
+                                           device=device))
+            self.w_out = _param(torch.zeros((Fd, D), **z))
+            self.b_out = _param(torch.zeros(D, dtype=torch.float32,
+                                            device=device))
+        else:
+            self.w_gate = _param(torch.zeros((D, Fd), **z))
+            self.w_up = _param(torch.zeros((D, Fd), **z))
+            self.w_down = _param(torch.zeros((Fd, D), **z))
+
+    def init(self, g: torch.Generator) -> None:
+        D, Fd = (self.w_in if self.act == "gelu" else self.w_gate).shape
+        if self.act == "gelu":
+            self.w_in.copy_(L.dense_init(g, D, (Fd,), dtype=PDT))
+            self.w_out.copy_(L.dense_init(g, Fd, (D,), dtype=PDT))
+        else:
+            self.w_gate.copy_(L.dense_init(g, D, (Fd,), dtype=PDT))
+            self.w_up.copy_(L.dense_init(g, D, (Fd,), dtype=PDT))
+            self.w_down.copy_(L.dense_init(g, Fd, (D,), dtype=PDT))
+
+
+class DenseBlock(nn.Module):
+    """``_dense_layer_params`` (dense family): ln1, attn, ln2, mlp."""
+
+    def __init__(self, cfg: ArchConfig, device: torch.device):
+        super().__init__()
+        self.ln1 = Norm(cfg, cfg.d_model, device)
+        self.attn = Attention(cfg, device)
+        self.ln2 = Norm(cfg, cfg.d_model, device)
+        self.mlp = Mlp(cfg, device)
+
+
+# ===========================================================================
+# blocks — sequence (prefill) path
+# ===========================================================================
+
+def _apply_norm(p: Norm, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    if cfg.norm_type == "layer":
+        return L.layer_norm(x, 1.0 + p.w, p.b, cfg.norm_eps)
+    return L.rms_norm(x, p.w, cfg.norm_eps)
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk", x, w)``: one matmul over the flattened
+    heads."""
+    return (x @ w.flatten(1)).unflatten(-1, w.shape[1:])
+
+
+def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """``einsum("bshk,hkd->bsd", o, wo)``."""
+    return o.flatten(2) @ wo.flatten(0, 1)
+
+
+def _qkv(p: Attention, h: torch.Tensor, cfg: ArchConfig,
+         positions: torch.Tensor):
+    """q, k, v (B, S, H, hd) of normed h: projections, bias (cast to the
+    activations' dtype first), RoPE — shared by ``_attn_seq`` and
+    ``_kv_decode``, which spell it out twice in the reference."""
+    q, k, v = _proj(h, p.wq), _proj(h, p.wk), _proj(h, p.wv)
+    if p.qkv_bias:
+        q = q + p.bq.to(q.dtype)
+        k = k + p.bk.to(k.dtype)
+        v = v + p.bv.to(v.dtype)
+    if cfg.pos_embedding == "rope":
+        q = L.apply_rope(q, positions, base=cfg.rope_base,
+                         fraction=cfg.rope_fraction)
+        k = L.apply_rope(k, positions, base=cfg.rope_base,
+                         fraction=cfg.rope_fraction)
+    return q, k, v
+
+
+def _attn_seq(p: Attention, x: torch.Tensor, cfg: ArchConfig,
+              positions: torch.Tensor, *, causal: bool = True,
+              window: int = 0):
+    """x: (B, S, D) -> (out, (k, v))."""
+    q, k, v = _qkv(p, x, cfg, positions)
+    o = attn.flash_attention(q, k, v, causal=causal, window=window,
+                             kv_chunk=cfg.attn_chunk,
+                             causal_skip=cfg.causal_skip)
+    return _out_proj(o, p.wo), (k, v)
+
+
+def _mlp_apply(mp: Mlp, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    if cfg.mlp_act == "gelu":
+        return L.gelu_mlp(x, mp.w_in, mp.b_in, mp.w_out, mp.b_out)
+    return L.swiglu(x, mp.w_gate, mp.w_up, mp.w_down)
+
+
+def _ffn_seq(lp: DenseBlock, x: torch.Tensor,
+             cfg: ArchConfig) -> torch.Tensor:
+    """The dense branch: the MLP.  The MoE branch and its auxiliary loss
+    come with the MoE family (ROADMAP.md queue 1 item 5(b))."""
+    return _mlp_apply(lp.mlp, x, cfg)
+
+
+def _dense_block_seq(lp: DenseBlock, x: torch.Tensor, cfg: ArchConfig,
+                     positions: torch.Tensor, *, causal: bool = True,
+                     window: int = 0):
+    """Pre-norm attention and FFN residuals -> (x, (k, v))."""
+    h, kv = _attn_seq(lp.attn, _apply_norm(lp.ln1, x, cfg), cfg, positions,
+                      causal=causal, window=window)
+    x = x + h
+    return x + _ffn_seq(lp, _apply_norm(lp.ln2, x, cfg), cfg), kv
+
+
+# ===========================================================================
+# backbone
+# ===========================================================================
+
+def _embed_inputs(model: "Model", cfg: ArchConfig,
+                  batch: Dict[str, torch.Tensor]):
+    """(x (B, S, D), loss mask None) from ``batch["tokens"]`` (B, S)."""
+    emb = F.embedding(batch["tokens"], model.embed)
+    if cfg.pos_embedding == "sinusoidal":
+        emb = emb + L.sinusoidal_pos(emb.shape[1], cfg.d_model,
+                                     device=emb.device).to(PDT)
+    return emb, None
+
+
+def _backbone_seq(model: "Model", cfg: ArchConfig, x: torch.Tensor,
+                  positions: torch.Tensor, *, collect_kv: bool = False):
+    """Runs the layers.  Returns (hidden, (k, v) stacked (L, B, S, Hkv, hd)
+    or None)."""
+    ks, vs = [], []
+    for lp in model.layers:
+        x, (k, v) = _dense_block_seq(lp, x, cfg, positions)
+        if collect_kv:
+            ks.append(k)
+            vs.append(v)
+    return x, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
+
+
+def _logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B, D) @ w (D, V) -> float32 (B, V): bf16 products summed in
+    float32 and not rounded back, as the reference's
+    ``preferred_element_type=float32``.  On the card that is one cuBLAS call
+    (``torch.mm``'s ``out_dtype``); the CPU has no such call, so there the
+    inputs are upcast."""
+    if x.is_cuda:
+        return torch.mm(x, w, out_dtype=torch.float32)
+    return x.float() @ w.float()
+
+
+def lm_loss(*args, **kwargs):
+    """Chunked-vocab cross entropy: training, not ported yet."""
+    raise NotImplementedError(
+        "lm_loss belongs to training, not ported yet: ROADMAP.md queue 1 "
+        f"item {_TRAINING}")
+
+
+# ===========================================================================
+# public API
+# ===========================================================================
+
+class Model(nn.Module):
+    """A dense decoder's weights on one device and its serving steps.
+
+    ``Model(cfg, device)`` holds zeros (the reference's init for norms and
+    biases); ``init(generator)`` draws the matrices, ``interop.lm_params``
+    loads the reference's.  ``device=None`` means the card and raises
+    where there is none.
+    """
+
+    def __init__(self, cfg: ArchConfig, device: DeviceLike = None):
+        super().__init__()
+        _check_family(cfg)
+        dev = resolve_device(device)
+        self.cfg = cfg
+        Vp, D = cfg.vocab_padded, cfg.d_model
+        self.embed = _param(torch.zeros((Vp, D), dtype=PDT, device=dev))
+        self.lm_head = _param(torch.zeros((D, Vp), dtype=PDT, device=dev))
+        self.final_norm = Norm(cfg, D, dev)
+        self.layers = nn.ModuleList(DenseBlock(cfg, dev)
+                                    for _ in range(cfg.n_layers))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def init(self, generator: torch.Generator) -> "Model":
+        """Draws the embedding, ``lm_head`` and every layer's matrices from
+        ``generator`` (on this model's device), in that order, with the
+        reference's distributions; norms and biases stay zero."""
+        if generator.device.type != self.device.type:
+            raise ValueError(f"generator on {generator.device}, model on "
+                             f"{self.device}")
+        cfg = self.cfg
+        self.embed.copy_(L.embed_init(generator, cfg.vocab_padded,
+                                      cfg.d_model))
+        self.lm_head.copy_(L.dense_init(generator, cfg.d_model,
+                                        (cfg.vocab_padded,), dtype=PDT))
+        for lp in self.layers:
+            lp.attn.init(generator, cfg)
+            lp.mlp.init(generator)
+        return self
+
+    # ----- training -----
+    def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        raise NotImplementedError(
+            "Model.loss belongs to training, not ported yet: ROADMAP.md "
+            f"queue 1 item {_TRAINING}")
+
+    # ----- serving -----
+    def _mask_vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        """Padded-vocab columns (at and above ``cfg.vocab``) read -1e30."""
+        V = logits.shape[-1]
+        if V <= self.cfg.vocab:
+            return logits
+        keep = torch.arange(V, device=logits.device) < self.cfg.vocab
+        return torch.where(keep, logits, -1e30)
+
+    @torch.no_grad()
+    def prefill(self, batch: Dict[str, torch.Tensor],
+                cache_len: int) -> Tuple[torch.Tensor, Cache]:
+        """Process the full prompt ``batch["tokens"]`` (B, S); returns (last
+        logits (B, V) float32, cache of ``cache_len`` positions)."""
+        cfg = self.cfg
+        x, _ = _embed_inputs(self, cfg, batch)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, (k, v) = _backbone_seq(self, cfg, x, positions, collect_kv=True)
+        cache = {"k": _grow(k, cache_len), "v": _grow(v, cache_len),
+                 "len": x.shape[1]}
+        x = _apply_norm(self.final_norm, x, cfg)
+        return self._mask_vocab(_logits(x[:, -1, :], self.lm_head)), cache
+
+    def init_cache(self, batch_size: int, cache_len: int) -> Cache:
+        """Zero-initialised cache; k and v are separate tensors, since the
+        port's decode writes into them."""
+        cfg = self.cfg
+        kv = torch.zeros((cfg.n_layers, batch_size, cache_len,
+                          cfg.n_kv_heads, cfg.head_dim), dtype=PDT,
+                         device=self.device)
+        return {"k": kv, "v": kv.clone(), "len": 0}
+
+    @torch.no_grad()
+    def decode_step(self, tokens: torch.Tensor,
+                    cache: Cache) -> Tuple[torch.Tensor, Cache]:
+        """tokens: (B, 1) -> (logits (B, V) float32, cache advanced by one
+        position).  Reads nothing back from the device."""
+        cfg = self.cfg
+        pos = cache["len"]
+        x = F.embedding(tokens, self.embed)
+        if cfg.pos_embedding == "sinusoidal":
+            table = L.sinusoidal_pos(cache_size_of(cache, cfg), cfg.d_model,
+                                     device=x.device)
+            x = x + table[pos][None, None, :].to(PDT)
+        x, cache = self._kv_decode(x, cache, pos)
+        x = _apply_norm(self.final_norm, x, cfg)
+        return self._mask_vocab(_logits(x[:, 0], self.lm_head)), cache
+
+    def _kv_decode(self, x: torch.Tensor, cache: Cache, pos: int):
+        cfg = self.cfg
+        posv = torch.arange(pos, pos + 1, device=x.device)
+        for lp, kc, vc in zip(self.layers, cache["k"], cache["v"]):
+            q, k, v = _qkv(lp.attn, _apply_norm(lp.ln1, x, cfg), cfg, posv)
+            kc[:, pos] = k[:, 0]
+            vc[:, pos] = v[:, 0]
+            o = attn.decode_attention(q, kc, vc, pos + 1)
+            x = x + _out_proj(o, lp.attn.wo)
+            x = x + _ffn_seq(lp, _apply_norm(lp.ln2, x, cfg), cfg)
+        return x, {"k": cache["k"], "v": cache["v"], "len": pos + 1}
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator,
+                device: DeviceLike = None) -> Model:
+    """A ``Model`` on ``device`` (default the card) with its weights drawn
+    from ``generator``, which must live on that device."""
+    return Model(cfg, device).init(generator)
+
+
+def _grow(kv: torch.Tensor, cache_len: int) -> torch.Tensor:
+    """Pad prefill kv (L, B, S, H, hd) out to the full cache length."""
+    L_, B, S, H, hd = kv.shape
+    if S >= cache_len:
+        return kv[:, :, :cache_len]
+    pad = torch.zeros((L_, B, cache_len - S, H, hd), dtype=kv.dtype,
+                      device=kv.device)
+    return torch.cat([kv, pad], dim=2)
+
+
+def cache_size_of(cache: Cache, cfg: ArchConfig) -> int:
+    if "k" in cache:
+        return cache["k"].shape[2]
+    return 8192
+
+
+def build_model(cfg: ArchConfig, device: DeviceLike = None) -> Model:
+    """A ``Model`` of zeros on ``device`` (default the card); raises
+    ``NotImplementedError`` for a family outside this slice."""
+    return Model(cfg, device)

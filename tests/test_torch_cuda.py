@@ -1315,3 +1315,37 @@ def test_tuned_wrappers_equal_across_their_sweep(dev):
             got = call(knob)
             assert all(torch.equal(a, b) for a, b in zip(got, want)), (
                 kernel, shape, knob)
+
+
+def test_lm_serving_on_card_matches_cpu(dev):
+    """The dense LM path at the SMOKE preset on the card: greedy ``serve``
+    deterministic with 0 host syncs in its decode steps, and a prefill plus
+    two decode steps within 0.03·max|want| of the CPU's on the same
+    parameters (cuBLAS and the CPU sum bf16 products in other orders)."""
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch.train import scaled_config
+    from repro_torch.models import Model
+    from repro_torch.models.model import init_params
+    cfg = scaled_config("qwen2-72b", "smoke").scaled(attn_chunk=16)
+    t1, st = tserve.serve(cfg, batch=2, prompt_len=32, gen=6, device=dev)
+    t2, _ = tserve.serve(cfg, batch=2, prompt_len=32, gen=6, device=dev)
+    assert torch.equal(t1, t2) and st["decode_host_syncs"] == 0
+    assert len(st["decode_step_ms"]) == 5
+    card = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    cpu = Model(cfg, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    toks = torch.randint(0, cfg.vocab, (2, 34),
+                         generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    outs = []
+    for m in (card, cpu):
+        logits, cache = m.prefill({"tokens": toks[:, :32].to(m.device)}, 34)
+        seq = [logits.cpu()]
+        for i in range(2):
+            logits, cache = m.decode_step(
+                toks[:, 32 + i: 33 + i].to(m.device), cache)
+            seq.append(logits.cpu())
+        outs.append(seq)
+    for got, want in zip(*outs):
+        assert float((got - want).abs().max()) <= 0.03 * float(
+            want.abs().max())

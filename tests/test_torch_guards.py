@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import ast
 import contextlib
+import re
 from pathlib import Path
 
 import numpy as np
@@ -58,12 +59,19 @@ NEW_MODULES = ("repro_torch.configs", "repro_torch.configs.gkmeans_paper",
                "repro_torch.analysis.contracts",
                "repro_torch.analysis.__main__",
                "repro_torch.kernels.autotune",
-               "repro_torch.launch.dryrun_cluster", "repro_torch.core.comm")
+               "repro_torch.launch.dryrun_cluster", "repro_torch.core.comm",
+               "repro_torch.configs.base", "repro_torch.configs.qwen2_72b",
+               "repro_torch.configs.chatglm3_6b", "repro_torch.models",
+               "repro_torch.models.layers", "repro_torch.models.attention",
+               "repro_torch.models.model", "repro_torch.train",
+               "repro_torch.train.serve_step", "repro_torch.launch.train",
+               "repro_torch.launch.serve", "repro_torch.interop")
 
 
 def test_new_modules_import_without_jax():
-    """The analysis, autotune, configs and dry-run modules import in a
-    fresh interpreter without loading jax or the reference package."""
+    """The analysis, autotune, configs, dry-run and LM serving modules
+    import in a fresh interpreter without loading jax or the reference
+    package."""
     import subprocess
     import sys
     code = ("import importlib, sys\n"
@@ -86,6 +94,70 @@ def test_gk_means_without_device_raises_when_no_cuda(monkeypatch):
         gk_means(X, 4, kappa=4, xi=8, tau=1, iters=1)
     with pytest.raises(RuntimeError, match="CUDA is unavailable"):
         gk_means(X, 4, kappa=4, xi=8, tau=1, iters=1, device="cuda")
+
+
+def test_lm_serving_without_device_raises_when_no_cuda(monkeypatch):
+    """``serve``, the ``Model`` constructor and the LM interop default to
+    the card and raise without one; they never fall back to the CPU."""
+    from repro_torch import interop
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch.train import scaled_config
+    from repro_torch.models import Model, build_model
+    from repro_torch.models.model import init_params
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = scaled_config("qwen2-72b", "smoke")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tserve.serve(cfg, batch=1, prompt_len=4, gen=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tserve.main(["--batch", "1", "--prompt-len", "4", "--gen", "2"])
+    for make in (lambda: Model(cfg), lambda: build_model(cfg),
+                 lambda: init_params(cfg, torch.Generator())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    with pytest.raises(RuntimeError, match="CUDA is unavailable"):
+        Model(cfg, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        interop.lm_cache({"k": np.zeros((1, 1, 2, 1, 2), np.float32),
+                          "v": np.zeros((1, 1, 2, 1, 2), np.float32),
+                          "len": 1})
+    model = Model(cfg, device="cpu")
+    assert model.device.type == "cpu"
+    assert float(model.layers[0].attn.wq.abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "grok-1-314b",
+                                  "mamba2-2.7b", "recurrentgemma-9b",
+                                  "whisper-base", "internvl2-2b"])
+def test_lm_out_of_slice_families_raise(arch):
+    """The families after the dense one raise ``NotImplementedError``
+    naming their ROADMAP.md item, from every LM entry point, before any
+    allocation."""
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch.train import scaled_config
+    from repro_torch.models import Model, build_model
+    from repro_torch.models.model import init_params
+    cfg = scaled_config(arch, "smoke")
+    item = {"moe": "5(b)", "ssm": "5(c)", "hybrid": "5(c)", "audio": "5(d)",
+            "vlm": "5(d)"}[cfg.family]
+    calls = (lambda: build_model(cfg, "cpu"), lambda: Model(cfg, "cpu"),
+             lambda: init_params(cfg, torch.Generator(), "cpu"),
+             lambda: tserve.serve(cfg, batch=1, prompt_len=4, gen=2,
+                                  device="cpu"))
+    for call in calls:
+        with pytest.raises(NotImplementedError,
+                           match=re.escape(f"item {item}")):
+            call()
+
+
+def test_lm_training_raises():
+    from repro_torch.launch.train import scaled_config
+    from repro_torch.models import build_model
+    from repro_torch.models.model import lm_loss
+    model = build_model(scaled_config("llama3-405b", "smoke"), "cpu")
+    with pytest.raises(NotImplementedError, match=r"item 5\(e\)"):
+        model.loss({"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    with pytest.raises(NotImplementedError, match=r"item 5\(e\)"):
+        lm_loss(None, model.cfg, None, None)
 
 
 def _gs_args():
