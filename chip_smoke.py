@@ -64,8 +64,9 @@ plain PyTorch version, or when any phase fails.  Phases:
    sync other than its counted reads raises) and each kernel's launches —
    every count is zeroed just before this run and read just after; the
    graph's recall must lie within 0.02 of the same build's (same draws)
-   through the plain versions, on the same rows (that build also records
-   its per-round telemetry for phase 7); then,
+   through the plain versions, on the same rows (that build refines
+   ``REF_CHUNK`` rows a call, and also records its per-round telemetry
+   for phase 7); then,
    outside the counted run, torch.profiler traces of one engine epoch and
    a two-round graph build at that shape (device-busy time, idle share,
    top kernels);
@@ -204,13 +205,41 @@ plain PyTorch version, or when any phase fails.  Phases:
    the same parameters at batch 2, prompt 64, prefill and 4 teacher-forced
    steps on the card and on the CPU: logits within 0.03 of max|want|,
    top-1 equal but at near-ties; any failed check raises;
-12. one JSON line of the sharded topology, one of the baselines (each
+12. MoE serving (``models/moe.py`` through the same entry points; plain
+   PyTorch, none of the eight kernels may launch) at Qwen1.5-MoE-A2.7B's
+   published widths and all 24 layers (d_model 2,048, 16 heads of 128, 60
+   experts top-4 of d_ff 1,408, 4 shared experts, vocab 151,936; 28.6 GB
+   of bf16): (a) ``serve`` at batch 4, prompt 1,024, 32 greedy tokens —
+   the same figures as phase 11, the step's bytes bound reading every
+   expert (as the reference's dispatch does) and, beside it, the bytes
+   the steps route to; (d) the same run again: equal tokens; (b) the
+   prompt plus 8 teacher-forced steps against one prefill of the longer
+   sequence at capacity factor 64 (two prefill lengths drop different
+   pairs at the configured 1.25; the reference after each step is
+   ``prefill`` of the prompt and the forced tokens), per step and row:
+   each layer's MoE input up to the first layer where the token's experts
+   differ (a router near-tie flipped by the two paths' bf16 sums; its
+   margins are printed), the logits where no layer differs or the first
+   difference is not a near-tie, within the reference test's limits, and
+   at least a quarter of the (layer, pair) MoE inputs checked; every
+   decode layer's MoE output against its experts run token by token in
+   float32; the steps' distinct experts a layer counted; then a trace of
+   8 steps; (c) a 2-layer copy at batch 2, prompt 64, at the configured
+   capacity factor on the card and the CPU, in bf16 and in float32, each
+   within phase 11's limits (the tokens routed differently printed with
+   their margins; in float32 none may be); (e)
+   Grok-1's widths (d_model 6,144, 48/8 heads, 8 experts top-2 of d_ff
+   32,768, vocab 131,072) at 2 of 64 layers, batch 2, prompt 256, 8
+   greedy tokens twice: equal tokens, 0 syncs, finite logits; any failed
+   check raises;
+13. one JSON line of the sharded topology, one of the baselines (each
    path's seconds, quality and launches), one of clustered-KV decode, one
    of phase 10 (``{"dryrun": ...}``), one of the kernels (with each
    kernel's launches on the baselines' paths, its numbers at their shapes,
    its launches in phase 9 and its ``autotune`` field: the table's knob,
    its entries' shapes and knobs and phase 10's times, or "exempt" with
-   the reason), one of phase 11 (``{"lm_serve": ...}``), the card's
+   the reason), one of phase 11 (``{"lm_serve": ...}``), one of phase 12
+   (``{"lm_moe": ...}``), the card's
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Every bound comes from ``launch/roofline.py``'s inventory and every
@@ -220,6 +249,7 @@ It imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -242,6 +272,11 @@ def _shape(c):
 SIFT_SMALL = _shape(_paper.SIFT_SMALL)   # Table 1's CPU-scaled analogue
 SIFT1M = _shape(_paper.SIFT1M)           # Table 1
 ITERS = 20
+# rows per refine call of phase 4's plain-version build: the plain merge
+# is ~700 small ops per call, so at the build's default 1,024 rows the
+# launches dominate (199.5-279.0 s for 10 rounds on the H100); the rows of
+# a call are independent, and a 32,768-row call gathers ~2.3 GB
+REF_CHUNK = 32768
 BATCH = 1024
 COMPONENTS = 256        # mixture components of the synthetic data
 # gather_score vs plain: |got - want| <= SCORE_RTOL * ref.score_scale, per
@@ -422,7 +457,7 @@ def l2_rate(nbytes=16 << 20, copies=50, reps=20):
     return 2 * nbytes / (ms * 1e-3)
 
 
-def device_launches(fn, reps=10, tries=4):
+def device_launches(fn, reps=10, tries=8):
     """(device activities per call of ``fn``, their names) from a
     torch.profiler trace of ``reps`` calls; a trace that lost records (see
     kernel_device_us) is taken again, and (None, names) is returned when
@@ -751,14 +786,15 @@ def main_path(X):
     # the per-round telemetry phase 7 holds the kernels' build against
     t0 = time.perf_counter()
     g_ref, d_ref = build_knn_graph(
-        X, c["kappa"], xi=c["xi"], tau=c["tau"],
+        X, c["kappa"], xi=c["xi"], tau=c["tau"], chunk=REF_CHUNK,
         generator=torch.Generator().manual_seed(SEED), force="ref",
         device=DEV, telemetry=True, return_diagnostics=True)
     ref_tel = obs_tel.to_dict(d_ref.telemetry)
     rec_ref = recall_on(g_ref.ids, truth, c["kappa"])
-    log(f"plain-version graph build (force='ref'): recall@{c['kappa']} "
-        f"{rec_ref:.4f} on the same rows, diff {abs(rec - rec_ref):.4f} "
-        f"(limit {RECALL_TOL}), {time.perf_counter() - t0:.1f} s")
+    log(f"plain-version graph build (force='ref', {REF_CHUNK} rows a "
+        f"refine call): recall@{c['kappa']} {rec_ref:.4f} on the same rows, "
+        f"diff {abs(rec - rec_ref):.4f} (limit {RECALL_TOL}), "
+        f"{time.perf_counter() - t0:.1f} s")
     log(f"peak device memory {peak / 2**30:.3f} GiB "
         f"(torch.cuda.max_memory_allocated)")
     log(f"plain-version build telemetry per round: {json.dumps(ref_tel)}")
@@ -3229,19 +3265,35 @@ LM_DECODE_TOL, LM_DECODE_TOP1 = 0.15, 0.5
 # Top-1 agrees row for row, but where the CPU's logits at the two argmaxes
 # lie within that tolerance of each other (a near-tie, counted).
 LM_CPU_TOL = 0.03
+# phase 12 (b): a token whose experts differ between decode and prefill in
+# some layer is a router near-tie when the smaller of its two K-th/(K+1)-th
+# probability margins there is at most MOE_TIE, a quarter of the uniform
+# router probability 1/60 (measured first flips: 1e-5 to 1.3e-3, PR 26);
+# the MoE inputs must be checked in at least MOE_MIN_CELLS of the (layer,
+# pair) cells (measured 0.47, PR 26); each decode MoE output lies within
+# MOE_LAYER_TOL of max|want| of its experts run token by token in float32
+# (bf16 products and SiLU rounded op for op against float32)
+MOE_TIE = 0.25 / 60
+MOE_MIN_CELLS = 0.25
+MOE_LAYER_TOL = 0.03
 HBM_TBS = 3.35          # H100 SXM data sheet, TB/s
 BF16_TFLOPS = 989.0     # H100 SXM data sheet, dense bf16
 
 
 def lm_bounds(cfg, batch, prompt_len, gen):
-    """(decode step bytes bound ms, prefill operations bound ms) from the
-    model's own parameter inventory (built on ``meta``): a step reads
-    every weight but the embedding table once (B of its rows), the valid
+    """(decode step bytes bound ms, prefill operations bound ms, step
+    bytes) from the model's own parameter inventory (built on ``meta``): a
+    step reads every weight but the embedding table once (B of its rows;
+    for MoE every expert, as the reference's dispatch does), the valid
     cache positions (mean over the run's steps) and writes one position;
-    prefill does two operations per weight and token (``lm_head`` for the
-    last position only) and the causal attention's two products."""
+    prefill does two operations per weight and token of the attention,
+    MLP and shared-expert matrices (``lm_head`` for the last position
+    only), the causal attention's two products and, per MoE layer, the
+    dispatch's expert products over all E·C slots (2·3·E·C·D·F) and the
+    router's (2·T·D·E, counted at the bf16 rate)."""
     import torch
     from repro_torch.models import Model
+    from repro_torch.models.moe import capacity
     meta = Model(cfg, device="meta")
     w = sum(p.numel() * p.element_size()
             for n, p in meta.named_parameters() if n != "embed")
@@ -3251,13 +3303,113 @@ def lm_bounds(cfg, batch, prompt_len, gen):
     step_bytes = w + batch * D * 2 + kv_row * (mean_len + 1) \
         + batch * cfg.vocab_padded * 4
     dense = sum(p.numel() for n, p in meta.named_parameters()
-                if n.startswith("layers.") and p.dtype == torch.bfloat16)
+                if n.startswith("layers.") and p.dtype == torch.bfloat16
+                and ".moe.we_" not in n)
     T = batch * prompt_len
     ops = 2 * dense * T + 2 * D * cfg.vocab_padded * batch \
         + 2 * 2 * batch * cfg.n_heads * cfg.head_dim * prompt_len ** 2 / 2 \
         * L_
+    if cfg.family == "moe":
+        E, K, Fe = cfg.n_experts, cfg.experts_per_token, cfg.moe_d_ff
+        C = capacity(T, E, K, cfg.moe_capacity_factor)
+        ops += L_ * (2 * 3 * E * C * D * Fe + 2 * T * D * E)
     return (step_bytes / (HBM_TBS * 1e12) * 1e3,
             ops / (BF16_TFLOPS * 1e12) * 1e3, step_bytes)
+
+
+@contextlib.contextmanager
+def routing_log():
+    """While open, every ``moe.route`` call (``moe_ffn`` looks it up at
+    call time, so these are the routes the layer used) records its input
+    (T, D), the expert ids (T, K) and gates (T, K) it returns and the
+    margin between each token's K-th and (K+1)-th router probabilities;
+    each ``moe.moe_ffn`` call adds its output (T, D) and its expert
+    weights to its route's record."""
+    from repro_torch.models import moe
+    calls, route, ffn = [], moe.route, moe.moe_ffn
+
+    def logged_route(xt, router, top_k):
+        probs, gate, idx = route(xt, router, top_k)
+        top = probs.topk(top_k + 1, dim=-1).values
+        calls.append(dict(x=xt, idx=idx, gate=gate,
+                          margin=top[:, top_k - 1] - top[:, top_k]))
+        return probs, gate, idx
+
+    def logged_ffn(x, w_gate, w_up, w_down, router, **kw):
+        y, aux = ffn(x, w_gate, w_up, w_down, router, **kw)
+        calls[-1].update(y=y.reshape(-1, y.shape[-1]),
+                         w=(w_gate, w_up, w_down))
+        return y, aux
+    moe.route, moe.moe_ffn = logged_route, logged_ffn
+    try:
+        yield calls
+    finally:
+        moe.route, moe.moe_ffn = route, ffn
+
+
+def moe_by_token(x, idx, gate, w):
+    """The routed experts' output token by token in float32, straight from
+    the expert weights (no dispatch buffer, no capacity, ``torch.sigmoid``
+    for SiLU): ``Σ_k gate[t, k] · W_down[e](silu(x W_gate[e]) · x
+    W_up[e])`` with ``e = idx[t, k]``; x (T, D) -> (T, D)."""
+    import torch
+    wg, wu, wd = (a[idx].float() for a in w)      # (T, K, D|F, F|D)
+    xf = x.float()[:, None, None, :]
+    g, u = (xf @ wg).squeeze(2), (xf @ wu).squeeze(2)
+    o = ((g * torch.sigmoid(g) * u)[:, :, None, :] @ wd).squeeze(2)
+    return (o * gate.float()[..., None]).sum(1)
+
+
+def _card_and_cpu(card, cpu, toks, n, steps, vocab):
+    """Prefill then teacher-forced decode steps on both copies, each under
+    ``routing_log``: ({"card"|"cpu": logits per call}, seconds, {"card"|
+    "cpu": each ``moe_ffn`` call's sorted expert ids and margins}, none
+    for a dense model)."""
+    import torch
+    out, secs, routes = {}, {}, {}
+    for name, m in (("card", card), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        with routing_log() as calls:
+            logits, cache = m.prefill({"tokens": toks[:, :n].to(m.device)},
+                                      n + steps)
+            seq = [logits[:, :vocab].cpu()]
+            for i in range(steps):
+                logits, cache = m.decode_step(
+                    toks[:, n + i: n + i + 1].to(m.device), cache)
+                seq.append(logits[:, :vocab].cpu())
+        secs[name] = time.perf_counter() - t0
+        out[name] = seq
+        routes[name] = [dict(idx=r["idx"].sort(-1).values.cpu(),
+                             margin=r["margin"].cpu()) for r in calls]
+    return out, secs, routes
+
+
+def _compare(out, routes, label):
+    """(max |Δ|/max|want| per call, top-1 agreeing rows, near-tie rows,
+    missed rows, tokens routed differently: (call, token, card margin,
+    CPU margin)).  Top-1 agrees row for row but where the CPU's logits at
+    the two argmaxes lie within ``LM_CPU_TOL`` of each other (a near-tie,
+    counted)."""
+    import torch
+    rels, ties, agree, missed, flips = [], 0, 0, [], []
+    for j, (a, b) in enumerate(zip(routes["card"], routes["cpu"])):
+        for t in (a["idx"] != b["idx"]).any(-1).nonzero().flatten().tolist():
+            flips.append((j, t, float(a["margin"][t]),
+                          float(b["margin"][t])))
+    for got, want in zip(out["card"], out["cpu"]):
+        if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+            raise RuntimeError(f"{label}: non-finite logits")
+        scale = float(want.abs().max())
+        rels.append(float((got - want).abs().max()) / scale)
+        for row in range(want.shape[0]):
+            a, b = int(got[row].argmax()), int(want[row].argmax())
+            if a == b:
+                agree += 1
+            elif float(want[row, b] - want[row, a]) <= LM_CPU_TOL * scale:
+                ties += 1
+            else:
+                missed.append((row, a, b))
+    return rels, agree, ties, missed, flips
 
 
 def lm_card_vs_cpu():
@@ -3277,33 +3429,12 @@ def lm_card_vs_cpu():
     toks = torch.randint(0, cfg.vocab, (c["batch"], n + steps),
                          generator=torch.Generator().manual_seed(SEED + 2),
                          dtype=torch.int32)
-    out, secs = {}, {}
-    for name, m in (("card", card), ("cpu", cpu)):
-        t0 = time.perf_counter()
-        logits, cache = m.prefill({"tokens": toks[:, :n].to(m.device)},
-                                  n + steps)
-        seq = [logits[:, :cfg.vocab].cpu()]
-        for i in range(steps):
-            logits, cache = m.decode_step(
-                toks[:, n + i: n + i + 1].to(m.device), cache)
-            seq.append(logits[:, :cfg.vocab].cpu())
-        secs[name] = time.perf_counter() - t0
-        out[name] = seq
-    rels, ties, agree = [], 0, 0
-    for got, want in zip(out["card"], out["cpu"]):
-        if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
-            raise RuntimeError("lm_serve (c): non-finite logits")
-        scale = float(want.abs().max())
-        rels.append(float((got - want).abs().max()) / scale)
-        for row in range(want.shape[0]):
-            a, b = int(got[row].argmax()), int(want[row].argmax())
-            if a == b:
-                agree += 1
-            elif float(want[row, b] - want[row, a]) <= LM_CPU_TOL * scale:
-                ties += 1
-            else:
-                raise RuntimeError(f"lm_serve (c): top-1 {a} on the card, "
-                                   f"{b} on the CPU (row {row})")
+    out, secs, routes = _card_and_cpu(card, cpu, toks, n, steps, cfg.vocab)
+    rels, agree, ties, missed, _ = _compare(out, routes, "lm_serve (c)")
+    if missed:
+        row, a, b = missed[0]
+        raise RuntimeError(f"lm_serve (c): top-1 {a} on the card, {b} on "
+                           f"the CPU (row {row})")
     res = dict(layers=c["n_layers"], batch=c["batch"], prompt_len=n,
                decode_steps=steps, max_rel_err=max(rels), rel_errs=rels,
                top1_agree=agree, top1_near_ties=ties, seconds=secs)
@@ -3434,6 +3565,307 @@ def lm_serve_phase():
     return out
 
 
+# --------------------------------------------------------------- phase 12
+# MoE serving: Qwen1.5-MoE-A2.7B at all 24 layers and the published
+# widths, then Grok-1's widths at 2 of 64 layers.
+
+MOE = dict(arch="qwen2-moe-a2.7b", batch=4, prompt_len=1024, gen=32,
+           extra=8, decode_cf=64.0)    # (a), (b), (d): nothing cut
+MOE_CPU = dict(n_layers=2, batch=2, prompt_len=64, steps=4)   # (c)
+GROK = dict(arch="grok-1-314b", n_layers=2, published_layers=64, batch=2,
+            prompt_len=256, gen=8)     # (e): depth cut 64 -> 2
+
+
+def moe_weight_bytes(cfg):
+    """(bytes of one routed expert of one layer, bytes of every weight but
+    the embedding and the routed experts)."""
+    from repro_torch.models import Model
+    meta = Model(cfg, device="meta")
+    per_expert = 3 * cfg.d_model * cfg.moe_d_ff * 2
+    rest = sum(p.numel() * p.element_size()
+               for n, p in meta.named_parameters()
+               if n != "embed" and ".moe.we_" not in n)
+    return per_expert, rest
+
+
+def moe_card_vs_cpu(cfg):
+    """(c): a 2-layer full-width copy at the configured capacity factor,
+    prefill then teacher-forced decode steps on the card and on the CPU,
+    first in bf16, as served, then both copies in float32.  Each is held
+    to phase 11's limits (logits within ``LM_CPU_TOL`` of max|want|, top-1
+    equal but at near-ties); the tokens routed differently are printed
+    with their router margins (at bf16 near-ties flip between cuBLAS's and
+    the CPU's sums), and the limit stays; in float32 every token must also
+    be routed alike."""
+    import torch
+    from repro_torch.models import Model
+    from repro_torch.models.model import init_params
+    c = MOE_CPU
+    cfg = cfg.scaled(n_layers=c["n_layers"])
+    card = init_params(cfg, torch.Generator(DEV).manual_seed(SEED), DEV)
+    cpu = Model(cfg, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    n, steps = c["prompt_len"], c["steps"]
+    toks = torch.randint(0, cfg.vocab, (c["batch"], n + steps),
+                         generator=torch.Generator().manual_seed(SEED + 2),
+                         dtype=torch.int32)
+    res = dict(layers=c["n_layers"], batch=c["batch"], prompt_len=n,
+               decode_steps=steps, capacity_factor=cfg.moe_capacity_factor)
+    for dtype in ("bf16", "f32"):
+        if dtype == "f32":
+            card.float(), cpu.float()
+        out, secs, routes = _card_and_cpu(card, cpu, toks, n, steps,
+                                          cfg.vocab)
+        rels, agree, ties, missed, flips = _compare(out, routes,
+                                                    "lm_moe (c)")
+        res[dtype] = dict(max_rel_err=max(rels), rel_errs=rels,
+                          top1_agree=agree, top1_near_ties=ties,
+                          top1_missed=missed, routing_calls=len(
+                              routes["card"]), routing_flips=flips,
+                          seconds=secs)
+    log(f"lm_moe (c) card vs CPU: {json.dumps(res)}")
+    for dtype in ("bf16", "f32"):
+        r = res[dtype]
+        if r["top1_missed"] or r["max_rel_err"] > LM_CPU_TOL or (
+                dtype == "f32" and r["routing_flips"]):
+            raise RuntimeError(
+                f"lm_moe (c): {dtype} card vs CPU {r['max_rel_err']:.4g} "
+                f"(limit {LM_CPU_TOL}), top-1 missed {r['top1_missed']}, "
+                f"tokens routed differently (call, token, card margin, CPU "
+                f"margin) {r['routing_flips']}")
+    return res
+
+
+def grok_phase():
+    """(e): Grok-1's widths at 2 of 64 layers: ``serve`` twice (equal
+    tokens, 0 host syncs), then one prefill and decode step with finite
+    logits."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import init_params
+    c = GROK
+    cfg = get_config(c["arch"]).scaled(n_layers=c["n_layers"])
+    torch.cuda.reset_peak_memory_stats()
+    runs = [serve(cfg, batch=c["batch"], prompt_len=c["prompt_len"],
+                  gen=c["gen"], seed=SEED, device=DEV) for _ in range(2)]
+    model = init_params(cfg, torch.Generator(DEV).manual_seed(SEED), DEV)
+    toks = runs[0][0]
+    prompt = torch.randint(0, cfg.vocab, (c["batch"], c["prompt_len"]),
+                           generator=torch.Generator(DEV).manual_seed(SEED),
+                           dtype=torch.int32, device=DEV)
+    logits, cache = model.prefill({"tokens": prompt}, c["prompt_len"] + 1)
+    step, _ = model.decode_step(toks[:, :1], cache)
+    finite = bool(torch.isfinite(logits).all() and torch.isfinite(step).all())
+    peak = torch.cuda.max_memory_allocated()
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    del model, cache
+    st = runs[0][1]
+    bound_step, bound_prefill, step_bytes = lm_bounds(
+        cfg, c["batch"], c["prompt_len"], c["gen"])
+    res = dict(arch=c["arch"], layers=c["n_layers"],
+               published_layers=c["published_layers"], batch=c["batch"],
+               prompt_len=c["prompt_len"], gen=c["gen"],
+               weight_bytes=weights, prefill_s=st["prefill_s"],
+               tok_per_s=st["tok_per_s"],
+               decode_step_ms=st["decode_step_ms"],
+               decode_step_ms_median=statistics.median(st["decode_step_ms"]),
+               decode_step_bound_ms=bound_step, decode_step_bytes=step_bytes,
+               prefill_bound_ms=bound_prefill,
+               rerun_decode_step_ms_median=statistics.median(
+                   runs[1][1]["decode_step_ms"]),
+               decode_host_syncs=[r[1]["decode_host_syncs"] for r in runs],
+               tokens_equal=bool(torch.equal(runs[0][0], runs[1][0])),
+               finite_logits=finite, max_memory_allocated=peak)
+    log(f"lm_moe (e) Grok-1 widths: {json.dumps(res)}")
+    if any(res["decode_host_syncs"]) or not res["tokens_equal"] \
+            or not finite:
+        raise RuntimeError(f"lm_moe (e): syncs {res['decode_host_syncs']}, "
+                           f"equal {res['tokens_equal']}, finite {finite}")
+    return res
+
+
+def lm_moe_phase():
+    """Phase 12: MoE serving (``launch.serve.serve``) at Qwen1.5-MoE-A2.7B's
+    published widths and all 24 layers: (a) batch 4, prompt 1,024, 32
+    greedy tokens; (d) the same run again, equal tokens; (b) prompt + 8
+    teacher-forced steps against one prefill of the longer sequence at
+    capacity factor 64, with the experts the steps route to; (c) a 2-layer
+    copy on the card against the CPU; (e) Grok-1's widths at 2 layers.
+    Raises on any failed check.  None of the eight kernels may launch."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import init_params
+    c = MOE
+    cfg = get_config(c["arch"])
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    runs = []
+    for _ in range(2):                     # (a), then (d)
+        t0 = time.perf_counter()
+        toks, stats = serve(cfg, batch=c["batch"], prompt_len=c["prompt_len"],
+                            gen=c["gen"], seed=SEED, device=DEV)
+        stats["wall_s"] = time.perf_counter() - t0
+        runs.append((toks.cpu(), stats))
+    peak = torch.cuda.max_memory_allocated()
+    toks, st = runs[0]
+    bound_step, bound_prefill, step_bytes = lm_bounds(
+        cfg, c["batch"], c["prompt_len"], c["gen"])
+    per_expert, rest = moe_weight_bytes(cfg)
+    cap = min(cfg.n_experts, c["batch"] * cfg.experts_per_token)
+    serve_out = dict(
+        arch=c["arch"], layers=cfg.n_layers, batch=c["batch"],
+        prompt_len=c["prompt_len"], gen=c["gen"],
+        prefill_s=st["prefill_s"], decode_s=st["decode_s"],
+        tok_per_s=st["tok_per_s"], decode_step_ms=st["decode_step_ms"],
+        decode_step_ms_median=statistics.median(st["decode_step_ms"]),
+        decode_step_ms_min=min(st["decode_step_ms"]),
+        decode_step_bound_ms=bound_step, decode_step_bytes=step_bytes,
+        routed_bytes_cap=rest + cfg.n_layers * cap * per_expert,
+        prefill_bound_ms=bound_prefill,
+        decode_host_syncs=[s["decode_host_syncs"] for _, s in runs],
+        rerun=dict(prefill_s=runs[1][1]["prefill_s"],
+                   decode_s=runs[1][1]["decode_s"],
+                   tok_per_s=runs[1][1]["tok_per_s"],
+                   decode_step_ms_median=statistics.median(
+                       runs[1][1]["decode_step_ms"])),
+        wall_s=[s["wall_s"] for _, s in runs], max_memory_allocated=peak)
+    log(f"lm_moe (a)/(d): {json.dumps(serve_out)}")
+    if any(s["decode_host_syncs"] for _, s in runs):
+        raise RuntimeError("lm_moe (a): host syncs inside decode_step")
+    if not torch.equal(runs[0][0], runs[1][0]):
+        raise RuntimeError("lm_moe (d): two greedy runs differ")
+    if toks.shape != (c["batch"], c["gen"]) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.vocab:
+        raise RuntimeError(f"lm_moe (a): tokens {tuple(toks.shape)} "
+                           "out of range")
+    if peak > torch.cuda.get_device_properties(DEV).total_memory:
+        raise RuntimeError(f"lm_moe (a): peak {peak} bytes")
+    del runs, toks
+
+    # (b) decode matches prefill at capacity factor 64, all 24 layers.
+    # After step i the reference is ``prefill`` of the prompt and the i + 1
+    # forced tokens.  Per step and row: each layer's MoE input against that
+    # prefill's at the same position, up to and including the first layer
+    # where the token's experts differ (a router near-tie flipped by the
+    # two paths' bf16 sums: from there on the token's activations part);
+    # the logits where no layer differs, or where the first difference is
+    # not a near-tie (``MOE_TIE``); every decode layer's MoE output against
+    # its experts token by token (``moe_by_token``).  The steps' routing
+    # gives the bytes a step routes to.
+    cfg64 = cfg.scaled(moe_capacity_factor=c["decode_cf"])
+    model = init_params(cfg64, torch.Generator(DEV).manual_seed(SEED), DEV)
+    n, extra, L_, B = c["prompt_len"], c["extra"], cfg.n_layers, c["batch"]
+    full = torch.randint(0, cfg.vocab, (B, n + extra),
+                         generator=torch.Generator(DEV).manual_seed(SEED + 1),
+                         dtype=torch.int32, device=DEV)
+    wants, pre = [], []
+    for i in range(extra):
+        S = n + i + 1
+        with routing_log() as calls:
+            logits, _ = model.prefill({"tokens": full[:, :S]}, S)
+        wants.append(logits[:, :cfg.vocab])
+        # the last position of each row, layer by layer
+        pre.append([{k: r[k].reshape(B, S, *r[k].shape[1:])[:, -1].clone()
+                     for k in ("x", "idx", "margin")} for r in calls])
+        del calls
+    _, cache = model.prefill({"tokens": full[:, :n]}, n + extra)
+    steps = []
+    with routing_log() as dcalls:
+        for i in range(extra):
+            logits, cache = model.decode_step(full[:, n + i: n + i + 1],
+                                              cache)
+            steps.append(logits[:, :cfg.vocab])
+    distinct = [int(torch.zeros(cfg.n_experts, device=DEV).index_fill_(
+        0, r["idx"].flatten(), 1.0).sum()) for r in dcalls]
+    routed = rest + sum(distinct) / extra * per_expert
+
+    def rel_err(got, want):                # the reference test's measure
+        return float((got.float() - want.float()).abs().max()) / max(
+            float(want.float().abs().max()), 1.0)
+    layer_errs = []                        # decode MoE vs token by token
+    for r in dcalls:
+        want = moe_by_token(r["x"], r["idx"], r["gate"], r["w"])
+        layer_errs.append(float((r["y"].float() - want).abs().max())
+                          / float(want.abs().max()))
+    pairs, flips, act, cells = [], [], [0.0] * L_, 0
+    for i, (got, want) in enumerate(zip(steps, wants)):
+        if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+            raise RuntimeError("lm_moe (b): non-finite logits")
+        for r in range(B):
+            first = None
+            for layer in range(L_):
+                d, p_ = dcalls[i * L_ + layer], pre[i][layer]
+                act[layer] = max(act[layer], rel_err(d["x"][r], p_["x"][r]))
+                cells += 1
+                if not torch.equal(d["idx"][r].sort().values,
+                                   p_["idx"][r].sort().values):
+                    dm, pm = float(d["margin"][r]), float(p_["margin"][r])
+                    first = dict(step=i, row=r, layer=layer,
+                                 decode_margin=dm, prefill_margin=pm,
+                                 near_tie=min(dm, pm) <= MOE_TIE)
+                    flips.append(first)
+                    break
+            pairs.append(dict(held=first is None or not first["near_tie"],
+                              rel=rel_err(got[r], want[r]),
+                              top1=int(got[r].argmax()) == int(
+                                  want[r].argmax())))
+    del pre, dcalls, wants
+    held = [p for p in pairs if p["held"]]
+    rel = max((p["rel"] for p in held), default=0.0)
+    top1 = (sum(p["top1"] for p in held) / len(held)) if held else None
+    min_cells = int(MOE_MIN_CELLS * len(pairs) * L_)
+    decode = dict(
+        prompt_len=n, steps=extra, capacity_factor=c["decode_cf"],
+        pairs=len(pairs), pairs_routed_alike=len(pairs) - len(flips),
+        pairs_logits_held=len(held), max_rel_err=rel, top1=top1,
+        moe_input_cells=cells, moe_input_cells_min=min_cells,
+        moe_input_max_rel_err=max(act), moe_input_max_rel_err_by_layer=act,
+        near_tie_margin=MOE_TIE, first_flips=flips,
+        moe_output_vs_by_token=dict(max_rel_err=max(layer_errs),
+                                    calls=len(layer_errs),
+                                    limit=MOE_LAYER_TOL),
+        all_pairs=dict(max_rel_err=max(p["rel"] for p in pairs),
+                       top1=sum(p["top1"] for p in pairs) / len(pairs)),
+        distinct_experts_per_layer_step=dict(
+            mean=sum(distinct) / len(distinct), min=min(distinct),
+            max=max(distinct), cap=cap),
+        routed_bytes=routed)
+    log(f"lm_moe (b) decode vs prefill: {json.dumps(decode)}")
+    if not (max(act) < LM_DECODE_TOL and rel < LM_DECODE_TOL
+            and (top1 is None or top1 >= LM_DECODE_TOP1)
+            and cells >= min_cells and max(layer_errs) <= MOE_LAYER_TOL):
+        raise RuntimeError(
+            f"lm_moe (b): decode vs prefill: MoE inputs {max(act):.4g} over "
+            f"{cells} (layer, pair) cells (at least {min_cells}), logits "
+            f"{rel:.4g}, top-1 {top1} over {len(held)} of {len(pairs)} "
+            f"pairs, MoE outputs vs token by token {max(layer_errs):.4g} "
+            f"(limit {MOE_LAYER_TOL})")
+    serve_out["routed_bytes"] = routed
+    _, cache = model.prefill({"tokens": full[:, :n]}, n + extra)
+    profile_window(f"lm moe decode, {extra} steps, {cfg.n_layers} layers",
+                   lambda: [model.decode_step(full[:, n + i: n + i + 1],
+                                              cache) for i in range(extra)])
+    del model, cache, logits, steps
+    torch.cuda.empty_cache()
+
+    cpu = moe_card_vs_cpu(cfg)             # (c)
+    torch.cuda.empty_cache()
+    grok = grok_phase()                    # (e)
+    launched = {k: n for k, n in _build.launch_counts.items() if n}
+    if launched:
+        raise RuntimeError(f"lm_moe: kernels launched {launched}")
+    out = dict(serve=serve_out, decode_vs_prefill=decode, card_vs_cpu=cpu,
+               grok=grok, kernel_launches=launched,
+               seconds=time.perf_counter() - t_phase)
+    log(f"lm_moe phase: {out['seconds']:.1f} s")
+    return out
+
+
 def autotune_field(name, tuned):
     """A kernel entry's ``autotune`` field: the table's knob, its entries
     (shape and knob) and phase 10's times, or "exempt" with the reason from
@@ -3482,6 +3914,9 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
+    def elapsed(after):
+        log(f"elapsed {time.perf_counter() - t_all:.1f} s after {after}")
+
     failures = []
     c = SIFT1M
     X = sift_like(c["n"], c["d"], COMPONENTS,
@@ -3506,16 +3941,19 @@ def main() -> int:
     pw = check_pairwise_sq(X)
     if not pw["ok"]:
         failures.append("pairwise_sq vs plain")
+    elapsed("the kernel checks (phase 2)")
     ok_small, X_small, r_small = parity_small()
     if not ok_small:
         failures.append("SIFT_SMALL parity")
     if not ivf_parity_small(X_small, r_small):
         failures.append("SIFT_SMALL IVF parity")
     del X_small, r_small
+    elapsed("SIFT_SMALL parity (phase 3)")
     ok_main, launches, res, ref_tel = main_path(X)
     if not ok_main:
         failures.append("main path")
     profile_main_path(X, res)
+    elapsed("the main path (phase 4)")
     ok_serve, serve_launches, index, Q, X_all, gt = serve_path(X, res)
     if not ok_serve:
         failures.append("serving path")
@@ -3536,24 +3974,32 @@ def main() -> int:
     profile_serving(runs["pq"]["index"], Q, "codec pq nsub=8", codec="pq")
     profile_serving(runs["int8"]["index"], Q, "codec int8", codec="int8")
     profile_serving(index, Q, "qgroup=8", qgroup=8)
+    elapsed("serving (phase 5)")
     ok_base, base = baselines_phase(X, res, Q)
     if not ok_base:
         failures.append("baselines")
+    elapsed("baselines (phase 6)")
     ok_obs, _ = obs_phase(X, res, ref_tel, index, Q,
                           kernel_entries(gs, rm, ca, sc, cc, pw))
     if not ok_obs:
         failures.append("obs layer")
+    elapsed("obs (phase 7)")
     ok_sh, sharded = sharded_phase(X, res, index, runs, Q, gt)
     if not ok_sh:
         failures.append("sharded topology")
     del X
+    elapsed("sharded (phase 9)")
     ok_kv, kv_out = kv_cluster_phase()
     if not ok_kv:
         failures.append("clustered-KV decode")
+    elapsed("clustered-KV decode (phase 8)")
     ok_an, analysis = analysis_phase(smi)
     if not ok_an:
         failures.append("analysis / autotune / dry run")
+    elapsed("analysis (phase 10)")
     lm = lm_serve_phase()                  # raises on a failed check
+    moe_out = lm_moe_phase()               # raises on a failed check
+    elapsed("LM serving (phases 11-12)")
 
     kernels = [
         dict(name="gather_score", route="cuda",
@@ -3792,6 +4238,7 @@ def main() -> int:
     print(json.dumps({"dryrun": analysis}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"lm_serve": lm}), flush=True)
+    print(json.dumps({"lm_moe": moe_out}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

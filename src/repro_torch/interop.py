@@ -125,31 +125,47 @@ def lm_params(params, cfg, device: DeviceLike = None) -> Model:
     """A ``Model`` holding the reference's parameter pytree (nested dicts
     of arrays, layers stacked on axis 0, e.g. ``jax.tree.map(np.asarray,
     init_params(cfg, key))``), leaf for leaf and in its dtypes (bf16
-    matrices, float32 norms and biases), on ``device`` (default ``cuda``;
-    pass ``device="cpu"`` for the CPU)."""
+    matrices, float32 norms and biases; an MoE layer's ``moe`` subtree
+    with its router, experts and ``shared`` MLP), on ``device`` (default
+    ``cuda``; pass ``device="cpu"`` for the CPU).
+
+    Raises ``ValueError`` unless the tree and the model hold the same
+    leaves: a leaf the model lacks, a parameter the tree lacks, a stacked
+    leaf with another layer count than ``cfg.n_layers``, or another shape
+    or dtype."""
     model = Model(cfg, device)
     dev = model.device
     own = dict(model.named_parameters())
+    loaded = set()
 
     def load(name, a):
+        if name not in own:
+            raise ValueError(f"{name}: in the tree, not in the model")
         t = _same_dtype(a, dev)
         if t.dtype != own[name].dtype or t.shape != own[name].shape:
             raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} against "
                              f"{tuple(own[name].shape)} {own[name].dtype}")
         own[name].copy_(t)
+        loaded.add(name)
 
     def walk(prefix, tree, layer=None):
         for key, sub in tree.items():
             if isinstance(sub, dict):
                 walk(f"{prefix}{key}.", sub, layer)
+            elif layer is None:
+                load(prefix + key, sub)
+            elif np.shape(sub)[0] != cfg.n_layers:
+                raise ValueError(f"{prefix}{key}: {np.shape(sub)[0]} layers "
+                                 f"stacked, the config has {cfg.n_layers}")
             else:
-                load(prefix + key, sub if layer is None else sub[layer])
+                load(prefix + key, sub[layer])
 
-    for key in ("embed", "lm_head"):
-        load(key, params[key])
-    walk("final_norm.", params["final_norm"])
+    walk("", {k: v for k, v in params.items() if k != "layers"})
     for i in range(cfg.n_layers):
         walk(f"layers.{i}.", params["layers"], i)
+    missing = sorted(set(own) - loaded)
+    if missing:
+        raise ValueError(f"not in the tree: {', '.join(missing)}")
     return model
 
 

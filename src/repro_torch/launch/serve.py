@@ -8,7 +8,8 @@ host sync inside it raises on the card; on the card the stats also hold
 each step's device milliseconds (CUDA events on the stream between
 steps).
 
-Usage:
+Usage (any dense or MoE arch, e.g. ``qwen2-moe-a2.7b``, ``grok-1-314b``;
+``--preset full`` for the published widths):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-72b \\
       --preset smoke --batch 2 --prompt-len 32 --gen 8 --device cpu
 """

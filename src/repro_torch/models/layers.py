@@ -57,15 +57,18 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out.to(x.dtype)
 
 
+def silu(g: torch.Tensor) -> torch.Tensor:
+    """The reference's ``jax.nn.silu``: ``g * sigmoid(g)`` with its sigmoid
+    ``1 / (1 + exp(-g))``, each op rounded to g's dtype (a fused
+    ``torch.sigmoid`` rounds once and moves small outputs by hundreds of
+    bf16 ulps after the down projection's cancellation)."""
+    return g * (1.0 / (1.0 + torch.exp(-g)))
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    """SwiGLU MLP: ``down(silu(x@gate) * (x@up))``.  SiLU is the
-    reference's ``g * sigmoid(g)`` with its sigmoid ``1 / (1 + exp(-g))``,
-    each op rounded to x's dtype (a fused ``torch.sigmoid`` rounds once
-    and moves small outputs by hundreds of bf16 ulps after the down
-    projection's cancellation)."""
-    g = x @ w_gate
-    g = g * (1.0 / (1.0 + torch.exp(-g)))
+    """SwiGLU MLP: ``down(silu(x@gate) * (x@up))``."""
+    g = silu(x @ w_gate)
     u = x @ w_up
     return (g * u).to(x.dtype) @ w_down
 

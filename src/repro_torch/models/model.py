@@ -1,9 +1,13 @@
-"""The dense decoder family of the model zoo (counterpart of
+"""The dense and MoE decoder families of the model zoo (counterpart of
 ``repro.models.model``).
 
 A GQA transformer: RoPE (partial for ChatGLM), optional QKV bias, SwiGLU
 or GELU MLP, RMS or layer norms, an untied ``lm_head`` and an optional
-padded vocabulary.  Entry points are the reference's serving ones:
+padded vocabulary.  The MoE family replaces each layer's MLP by the
+capacity-dispatched top-k experts of ``models/moe.py`` plus, where the
+config has them, shared experts (one SwiGLU MLP of ``n_shared_experts ·
+moe_d_ff``); decode (S == 1) runs at capacity factor ``n_experts``, so it
+never drops a token.  Entry points are the reference's serving ones:
 ``Model.prefill`` (builds the KV cache, returns last-position logits) and
 ``Model.decode_step`` (one token against the cache).
 
@@ -12,8 +16,9 @@ What is PyTorch idiom here rather than a copy:
   the reference's layouts and dtypes (bf16 matrices, float32 norms and
   biases); its layers are an ``nn.ModuleList`` of ``DenseBlock``s walked in
   a loop, where the reference scans stacked leaves.  The reference's
-  ``_norm_params``/``_attn_params``/``_mlp_params``/``_dense_layer_params``
-  are the ``Norm``/``Attention``/``Mlp``/``DenseBlock`` constructors, and
+  ``_norm_params``/``_attn_params``/``_mlp_params``/``_moe_params``/
+  ``_dense_layer_params`` are the ``Norm``/``Attention``/``Mlp``/
+  ``MoeFfn``/``DenseBlock`` constructors, with the reference's names, and
   ``init_params`` draws the weights from a ``torch.Generator``.
 - The cache is the reference's: k and v of (L, B, S, Hkv, hd) bf16 plus
   ``len``, here a host int, so a decode step reads nothing back from the
@@ -24,13 +29,15 @@ What is PyTorch idiom here rather than a copy:
 - ``_shard_act`` (an XLA mesh constraint that is the identity on one
   device) has no counterpart.
 
-Families outside this slice (moe, ssm, hybrid, audio, vlm) and training
+The backbone carries the MoE layers' auxiliary loss summed over layers,
+as the reference's does; serving drops it (training will read it).
+Families outside the port so far (ssm, hybrid, audio, vlm) and training
 (``Model.loss``, ``lm_loss``) raise ``NotImplementedError`` naming their
 item of ``ROADMAP.md`` queue 1.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,13 +47,13 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 
 PDT = torch.bfloat16  # param dtype
 Cache = Dict[str, Any]
 
 # families still to port: ROADMAP.md queue 1, item 5
-_LATER = {"moe": "5(b)", "ssm": "5(c)", "hybrid": "5(c)", "audio": "5(d)",
-          "vlm": "5(d)"}
+_LATER = {"ssm": "5(c)", "hybrid": "5(c)", "audio": "5(d)", "vlm": "5(d)"}
 _TRAINING = "5(e)"
 
 
@@ -55,7 +62,7 @@ def _check_family(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: ROADMAP.md queue 1 "
             f"item {_LATER[cfg.family]}")
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise ValueError(cfg.family)
 
 
@@ -112,11 +119,13 @@ class Attention(nn.Module):
 class Mlp(nn.Module):
     """``_mlp_params``: SwiGLU w_gate/w_up (D, F) and w_down (F, D) bf16;
     GELU w_in (D, F), w_out (F, D) bf16 and b_in (F,), b_out (D,)
-    float32."""
+    float32.  F is ``d_ff`` where given (the shared experts'), else
+    ``cfg.d_ff``."""
 
-    def __init__(self, cfg: ArchConfig, device: torch.device):
+    def __init__(self, cfg: ArchConfig, device: torch.device,
+                 d_ff: Optional[int] = None):
         super().__init__()
-        D, Fd = cfg.d_model, cfg.d_ff
+        D, Fd = cfg.d_model, d_ff or cfg.d_ff
         self.act = cfg.mlp_act
         z = dict(dtype=PDT, device=device)
         if self.act == "gelu":
@@ -142,15 +151,52 @@ class Mlp(nn.Module):
             self.w_down.copy_(L.dense_init(g, Fd, (D,), dtype=PDT))
 
 
+class MoeFfn(nn.Module):
+    """``_moe_params``: router (D, E) float32, we_gate/we_up (E, D, F) and
+    we_down (E, F, D) bf16 (F = ``moe_d_ff``); with ``n_shared_experts``
+    also ``shared``, a SwiGLU ``Mlp`` of width ``n_shared_experts · F``."""
+
+    def __init__(self, cfg: ArchConfig, device: torch.device):
+        super().__init__()
+        D, E, Fe = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+        self.router = _param(torch.zeros((D, E), dtype=torch.float32,
+                                         device=device))
+        z = dict(dtype=PDT, device=device)
+        self.we_gate = _param(torch.zeros((E, D, Fe), **z))
+        self.we_up = _param(torch.zeros((E, D, Fe), **z))
+        self.we_down = _param(torch.zeros((E, Fe, D), **z))
+        self.shared = (Mlp(cfg, device, cfg.n_shared_experts * Fe)
+                       if cfg.n_shared_experts else None)
+
+    def init(self, g: torch.Generator) -> None:
+        """The reference's draws: standard normals times ``D^-1/2`` (router
+        in float32; gate and up) or ``F^-1/2`` (down), cast to bf16."""
+        E, D, Fe = self.we_gate.shape
+
+        def normal(shape, scale):
+            return torch.randn(shape, generator=g, dtype=torch.float32,
+                               device=g.device).mul_(scale)
+        self.router.copy_(normal((D, E), D ** -0.5))
+        self.we_gate.copy_(normal((E, D, Fe), D ** -0.5).to(PDT))
+        self.we_up.copy_(normal((E, D, Fe), D ** -0.5).to(PDT))
+        self.we_down.copy_(normal((E, Fe, D), Fe ** -0.5).to(PDT))
+        if self.shared is not None:
+            self.shared.init(g)
+
+
 class DenseBlock(nn.Module):
-    """``_dense_layer_params`` (dense family): ln1, attn, ln2, mlp."""
+    """``_dense_layer_params``: ln1, attn, ln2, and ``mlp`` (dense family)
+    or ``moe`` (MoE family)."""
 
     def __init__(self, cfg: ArchConfig, device: torch.device):
         super().__init__()
         self.ln1 = Norm(cfg, cfg.d_model, device)
         self.attn = Attention(cfg, device)
         self.ln2 = Norm(cfg, cfg.d_model, device)
-        self.mlp = Mlp(cfg, device)
+        if cfg.family == "moe":
+            self.moe = MoeFfn(cfg, device)
+        else:
+            self.mlp = Mlp(cfg, device)
 
 
 # ===========================================================================
@@ -209,21 +255,32 @@ def _mlp_apply(mp: Mlp, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return L.swiglu(x, mp.w_gate, mp.w_up, mp.w_down)
 
 
-def _ffn_seq(lp: DenseBlock, x: torch.Tensor,
-             cfg: ArchConfig) -> torch.Tensor:
-    """The dense branch: the MLP.  The MoE branch and its auxiliary loss
-    come with the MoE family (ROADMAP.md queue 1 item 5(b))."""
-    return _mlp_apply(lp.mlp, x, cfg)
+def _ffn_seq(lp: DenseBlock, x: torch.Tensor, cfg: ArchConfig):
+    """(FFN output, aux loss): the MLP and 0.0, or the MoE layer (capacity
+    factor ``n_experts`` when S == 1, so decode never drops) plus the
+    shared experts, added in x's dtype, and its aux loss."""
+    if cfg.family == "moe":
+        m = lp.moe
+        factor = (float(cfg.n_experts) if x.shape[1] == 1
+                  else cfg.moe_capacity_factor)
+        y, aux = moe_lib.moe_ffn(x, m.we_gate, m.we_up, m.we_down, m.router,
+                                 top_k=cfg.experts_per_token,
+                                 capacity_factor=factor)
+        if m.shared is not None:
+            y = y + _mlp_apply(m.shared, x, cfg)
+        return y, aux
+    return _mlp_apply(lp.mlp, x, cfg), 0.0
 
 
 def _dense_block_seq(lp: DenseBlock, x: torch.Tensor, cfg: ArchConfig,
                      positions: torch.Tensor, *, causal: bool = True,
                      window: int = 0):
-    """Pre-norm attention and FFN residuals -> (x, (k, v))."""
+    """Pre-norm attention and FFN residuals -> (x, (k, v), aux)."""
     h, kv = _attn_seq(lp.attn, _apply_norm(lp.ln1, x, cfg), cfg, positions,
                       causal=causal, window=window)
     x = x + h
-    return x + _ffn_seq(lp, _apply_norm(lp.ln2, x, cfg), cfg), kv
+    f, aux = _ffn_seq(lp, _apply_norm(lp.ln2, x, cfg), cfg)
+    return x + f, kv, aux
 
 
 # ===========================================================================
@@ -243,14 +300,17 @@ def _embed_inputs(model: "Model", cfg: ArchConfig,
 def _backbone_seq(model: "Model", cfg: ArchConfig, x: torch.Tensor,
                   positions: torch.Tensor, *, collect_kv: bool = False):
     """Runs the layers.  Returns (hidden, (k, v) stacked (L, B, S, Hkv, hd)
-    or None)."""
+    or None, the layers' aux losses summed, float32 ())."""
     ks, vs = [], []
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in model.layers:
-        x, (k, v) = _dense_block_seq(lp, x, cfg, positions)
+        x, (k, v), a = _dense_block_seq(lp, x, cfg, positions)
+        aux_total = aux_total + a
         if collect_kv:
             ks.append(k)
             vs.append(v)
-    return x, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
+    kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
+    return x, kvs, aux_total
 
 
 def _logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -276,7 +336,8 @@ def lm_loss(*args, **kwargs):
 # ===========================================================================
 
 class Model(nn.Module):
-    """A dense decoder's weights on one device and its serving steps.
+    """A dense or MoE decoder's weights on one device and its serving
+    steps.
 
     ``Model(cfg, device)`` holds zeros (the reference's init for norms and
     biases); ``init(generator)`` draws the matrices, ``interop.lm_params``
@@ -314,7 +375,7 @@ class Model(nn.Module):
                                         (cfg.vocab_padded,), dtype=PDT))
         for lp in self.layers:
             lp.attn.init(generator, cfg)
-            lp.mlp.init(generator)
+            (lp.moe if cfg.family == "moe" else lp.mlp).init(generator)
         return self
 
     # ----- training -----
@@ -340,7 +401,8 @@ class Model(nn.Module):
         cfg = self.cfg
         x, _ = _embed_inputs(self, cfg, batch)
         positions = torch.arange(x.shape[1], device=x.device)
-        x, (k, v) = _backbone_seq(self, cfg, x, positions, collect_kv=True)
+        x, (k, v), _ = _backbone_seq(self, cfg, x, positions,
+                                     collect_kv=True)
         cache = {"k": _grow(k, cache_len), "v": _grow(v, cache_len),
                  "len": x.shape[1]}
         x = _apply_norm(self.final_norm, x, cfg)
@@ -380,7 +442,8 @@ class Model(nn.Module):
             vc[:, pos] = v[:, 0]
             o = attn.decode_attention(q, kc, vc, pos + 1)
             x = x + _out_proj(o, lp.attn.wo)
-            x = x + _ffn_seq(lp, _apply_norm(lp.ln2, x, cfg), cfg)
+            f, _ = _ffn_seq(lp, _apply_norm(lp.ln2, x, cfg), cfg)
+            x = x + f
         return x, {"k": cache["k"], "v": cache["v"], "len": pos + 1}
 
 
@@ -409,5 +472,5 @@ def cache_size_of(cache: Cache, cfg: ArchConfig) -> int:
 
 def build_model(cfg: ArchConfig, device: DeviceLike = None) -> Model:
     """A ``Model`` of zeros on ``device`` (default the card); raises
-    ``NotImplementedError`` for a family outside this slice."""
+    ``NotImplementedError`` for a family not ported yet."""
     return Model(cfg, device)

@@ -1349,3 +1349,53 @@ def test_lm_serving_on_card_matches_cpu(dev):
     for got, want in zip(*outs):
         assert float((got - want).abs().max()) <= 0.03 * float(
             want.abs().max())
+
+
+def test_moe_decode_step_on_card(dev):
+    """The MoE family at the SMOKE preset on the card: a decode step (both
+    MoE archs) with 0 host syncs under ``sync_counter`` (CUDA sync-debug
+    mode "error") and finite logits, equal on a rerun; ``moe_ffn`` in
+    float32 on the card against the CPU on the same inputs (expert ids,
+    ranks and slots equal, outputs within 1e-5·max|want|, aux within
+    1e-6); and the lower expert winning a tie on the card."""
+    from repro_torch.launch.train import scaled_config
+    from repro_torch.models import moe
+    from repro_torch.models.model import init_params
+    from repro_torch.obs.syncs import sync_counter
+    for arch in ("qwen2-moe-a2.7b", "grok-1-314b"):
+        cfg = scaled_config(arch, "smoke").scaled(attn_chunk=16)
+        model = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+        toks = torch.randint(0, cfg.vocab, (2, 17), dtype=torch.int32,
+                             generator=torch.Generator().manual_seed(1)
+                             ).to(dev)
+        outs = []
+        for _ in range(2):
+            _, cache = model.prefill({"tokens": toks[:, :16]}, 17)
+            with sync_counter() as sc:
+                logits, cache = model.decode_step(toks[:, 16:], cache)
+            assert sc.syncs == 0 and bool(torch.isfinite(logits).all())
+            outs.append(logits)
+        assert torch.equal(outs[0], outs[1])
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(1, 256, 64, generator=g)
+    router = torch.randn(64, 8, generator=g) / 8
+    ws = [torch.randn(s, generator=g) / s[1] ** 0.5
+          for s in ((8, 64, 96), (8, 64, 96), (8, 96, 64))]
+    want, want_aux = moe.moe_ffn(x, *ws, router, top_k=2,
+                                 capacity_factor=0.5)
+    got, got_aux = moe.moe_ffn(x.to(dev), *(w.to(dev) for w in ws),
+                               router.to(dev), top_k=2, capacity_factor=0.5)
+    C = moe.capacity(256, 8, 2, 0.5)
+    for xx, rr in ((x, router), (x.to(dev), router.to(dev))):
+        _, _, idx = moe.route(xx[0], rr, 2)
+        outs.append((idx.cpu(), *(t.cpu() for t in moe.slots(
+            idx, moe.expert_counts(idx, 8), C))))
+    for a, b in zip(outs[-2], outs[-1]):
+        assert torch.equal(a, b)
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+    assert abs(float(got_aux) - float(want_aux)) <= 1e-6
+    tie = torch.zeros(64, 8, device=dev)
+    tie[:, [2, 5, 6]] = 1.0                 # three equal, dominant columns
+    _, _, idx = moe.route(x[0].abs().to(dev), tie, 2)
+    assert (idx.cpu() == torch.tensor([2, 5])).all()

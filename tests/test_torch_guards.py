@@ -63,7 +63,8 @@ NEW_MODULES = ("repro_torch.configs", "repro_torch.configs.gkmeans_paper",
                "repro_torch.configs.base", "repro_torch.configs.qwen2_72b",
                "repro_torch.configs.chatglm3_6b", "repro_torch.models",
                "repro_torch.models.layers", "repro_torch.models.attention",
-               "repro_torch.models.model", "repro_torch.train",
+               "repro_torch.models.model", "repro_torch.models.moe",
+               "repro_torch.train",
                "repro_torch.train.serve_step", "repro_torch.launch.train",
                "repro_torch.launch.serve", "repro_torch.interop")
 
@@ -125,19 +126,37 @@ def test_lm_serving_without_device_raises_when_no_cuda(monkeypatch):
     assert float(model.layers[0].attn.wq.abs().sum()) == 0.0
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "grok-1-314b",
-                                  "mamba2-2.7b", "recurrentgemma-9b",
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "grok-1-314b"])
+def test_lm_moe_entry_points_build_and_serve(arch):
+    """The MoE family (ported after the dense one) builds and serves on
+    the CPU from every LM entry point that the later families refuse."""
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch.train import scaled_config
+    from repro_torch.models import Model, build_model
+    from repro_torch.models.model import init_params
+    cfg = scaled_config(arch, "smoke").scaled(n_layers=1)
+    for model in (build_model(cfg, "cpu"), Model(cfg, "cpu")):
+        assert model.layers[0].moe.we_gate.shape == (
+            cfg.n_experts, cfg.d_model, cfg.moe_d_ff)
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert float(model.layers[0].moe.we_down.float().abs().sum()) > 0
+    toks, stats = tserve.serve(cfg, batch=1, prompt_len=4, gen=2,
+                               device="cpu")
+    assert toks.shape == (1, 2) and stats["decode_host_syncs"] == 0
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-9b",
                                   "whisper-base", "internvl2-2b"])
 def test_lm_out_of_slice_families_raise(arch):
-    """The families after the dense one raise ``NotImplementedError``
-    naming their ROADMAP.md item, from every LM entry point, before any
-    allocation."""
+    """The families after the dense and MoE ones raise
+    ``NotImplementedError`` naming their ROADMAP.md item, from every LM
+    entry point, before any allocation."""
     from repro_torch.launch import serve as tserve
     from repro_torch.launch.train import scaled_config
     from repro_torch.models import Model, build_model
     from repro_torch.models.model import init_params
     cfg = scaled_config(arch, "smoke")
-    item = {"moe": "5(b)", "ssm": "5(c)", "hybrid": "5(c)", "audio": "5(d)",
+    item = {"ssm": "5(c)", "hybrid": "5(c)", "audio": "5(d)",
             "vlm": "5(d)"}[cfg.family]
     calls = (lambda: build_model(cfg, "cpu"), lambda: Model(cfg, "cpu"),
              lambda: init_params(cfg, torch.Generator(), "cpu"),
