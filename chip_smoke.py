@@ -1917,7 +1917,9 @@ def profile_window(label, fn):
     with its share of the busy time.
     Informational: prints "not measured" where the trace shows no device
     activity.  A trace may lose its first records (see kernel_device_us),
-    so a kernel's count can come up short; its time per launch holds."""
+    so a kernel's count can come up short; its time per launch holds.
+    Returns {"wall_s", "busy_s", "idle", "activities", "by_name": {name:
+    (us, count)}}, or None where the trace holds no device activity."""
     events, wall = _device_events(fn)
     spans, by_name = [], {}
     for ev in events:
@@ -1929,7 +1931,7 @@ def profile_window(label, fn):
     if not spans:
         log(f"profile[{label}]: wall {wall:.3f} s; device time not measured "
             "(the trace holds no device activity)")
-        return
+        return None
     spans.sort()
     busy, cur_a, cur_b = 0.0, spans[0][0], spans[0][1]
     for a, b in spans[1:]:
@@ -1946,6 +1948,8 @@ def profile_window(label, fn):
     for n, (t, c) in top:
         log(f"  {t / 1e3:10.2f} ms  {c:7d}x  {t / 1e6 / busy:6.3f} of busy"
             f"  {n}")
+    return dict(wall_s=wall, busy_s=busy, idle=1 - busy / wall,
+                activities=len(spans), by_name=by_name)
 
 
 def profile_main_path(X, r):
@@ -3278,6 +3282,7 @@ MOE_MIN_CELLS = 0.25
 MOE_LAYER_TOL = 0.03
 HBM_TBS = 3.35          # H100 SXM data sheet, TB/s
 BF16_TFLOPS = 989.0     # H100 SXM data sheet, dense bf16
+FP32_TFLOPS = 67.0      # H100 SXM data sheet, FP32 outside the tensor cores
 
 
 def lm_bounds(cfg, batch, prompt_len, gen):
@@ -3290,7 +3295,10 @@ def lm_bounds(cfg, batch, prompt_len, gen):
     MLP and shared-expert matrices (``lm_head`` for the last position
     only), the causal attention's two products and, per MoE layer, the
     dispatch's expert products over all E·C slots (2·3·E·C·D·F) and the
-    router's (2·T·D·E, counted at the bf16 rate)."""
+    router's (2·T·D·E, counted at the bf16 rate).  An ssm step also reads
+    and writes each layer's SSD state and conv tail (``ssm_cache_bytes``,
+    its ``n_kv_heads`` are 0), and its prefill adds the SSD scan's float32
+    products (``ssd_ops``) at the FP32 rate, as TF32 is off."""
     import torch
     from repro_torch.models import Model
     from repro_torch.models.moe import capacity
@@ -3313,8 +3321,32 @@ def lm_bounds(cfg, batch, prompt_len, gen):
         E, K, Fe = cfg.n_experts, cfg.experts_per_token, cfg.moe_d_ff
         C = capacity(T, E, K, cfg.moe_capacity_factor)
         ops += L_ * (2 * 3 * E * C * D * Fe + 2 * T * D * E)
+    f32_ops = 0
+    if cfg.family == "ssm":
+        step_bytes += 2 * ssm_cache_bytes(cfg, batch)
+        f32_ops = ssd_ops(cfg, batch, prompt_len)
     return (step_bytes / (HBM_TBS * 1e12) * 1e3,
-            ops / (BF16_TFLOPS * 1e12) * 1e3, step_bytes)
+            (ops / BF16_TFLOPS + f32_ops / FP32_TFLOPS) / 1e12 * 1e3,
+            step_bytes)
+
+
+def ssm_cache_bytes(cfg, batch):
+    """Bytes of a Mamba-2 cache: each layer's float32 SSD state (B, H, P,
+    N) and bf16 conv tail (B, W-1, d_inner), whatever the prompt."""
+    return cfg.n_layers * batch * (
+        cfg.ssm_heads * cfg.ssm_head_dim * cfg.ssm_state * 4
+        + (cfg.conv_width - 1) * cfg.d_inner * 2)
+
+
+def ssd_ops(cfg, batch, prompt_len):
+    """The float32 products of ``ssm.ssd_chunked`` over a prompt, every
+    layer: per (padded) chunk of Q the scores C·Bᵀ (2·Q²·N), the diagonal
+    term (2·H·Q²·P), the chunk states and the off-diagonal term (2·H·Q·P·N
+    each)."""
+    Q = min(cfg.ssd_chunk, prompt_len)
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    per_chunk = 2 * Q * Q * N + 2 * H * Q * Q * P + 2 * 2 * H * Q * P * N
+    return per_chunk * -(-prompt_len // Q) * batch * cfg.n_layers
 
 
 @contextlib.contextmanager
@@ -3866,6 +3898,338 @@ def lm_moe_phase():
     return out
 
 
+# --------------------------------------------------------------- phase 13
+# Mamba-2 serving: Mamba2-2.7B at its published widths and all 64 layers.
+
+SSM = dict(arch="mamba2-2.7b", batch=4, prompt_len=1024, gen=32,
+           extra=8)                     # (a), (b), (d): nothing cut
+SSM_CPU = dict(n_layers=2, batch=2, prompt_len=200, steps=4)   # (c): pads
+SSM_LONG = dict(batch=1, gen=8)         # (e), at SHAPES["prefill_32k"]'s S
+# (b) in float32, layer by layer: each layer's decode outputs, final SSD
+# state and conv tail within SSM_F32_TOL of max|want| (the chunked scan
+# against the stepwise recurrence on the same inputs, float32, TF32 off)
+SSM_F32_TOL = 1e-3
+# the cuBLAS/CUTLASS matmul kernels of a trace, by name
+MATMUL_MARKERS = ("gemm", "gemv", "nvjet", "cutlass", "xmma")
+
+
+def ssm_card_vs_cpu(cfg):
+    """(c): a 2-layer full-width copy at batch 2, prompt 200 (chunk 128:
+    the padding path) and 4 teacher-forced steps on the card and on the
+    CPU, in bf16 as served and then both copies in float32, each held to
+    phase 11's limits (logits within ``LM_CPU_TOL`` of max|want|, top-1
+    equal but at near-ties)."""
+    import torch
+    from repro_torch.models import Model
+    from repro_torch.models.model import init_params
+    c = SSM_CPU
+    cfg = cfg.scaled(n_layers=c["n_layers"])
+    card = init_params(cfg, torch.Generator(DEV).manual_seed(SEED), DEV)
+    cpu = Model(cfg, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    n, steps = c["prompt_len"], c["steps"]
+    toks = torch.randint(0, cfg.vocab, (c["batch"], n + steps),
+                         generator=torch.Generator().manual_seed(SEED + 2),
+                         dtype=torch.int32)
+    res = dict(layers=c["n_layers"], batch=c["batch"], prompt_len=n,
+               decode_steps=steps, chunk=cfg.ssd_chunk)
+    for dtype in ("bf16", "f32"):
+        if dtype == "f32":
+            card.float(), cpu.float()
+        out, secs, routes = _card_and_cpu(card, cpu, toks, n, steps,
+                                          cfg.vocab)
+        rels, agree, ties, missed, _ = _compare(out, routes, "lm_ssm (c)")
+        res[dtype] = dict(max_rel_err=max(rels), rel_errs=rels,
+                          top1_agree=agree, top1_near_ties=ties,
+                          top1_missed=missed, seconds=secs)
+    log(f"lm_ssm (c) card vs CPU: {json.dumps(res)}")
+    for dtype in ("bf16", "f32"):
+        r = res[dtype]
+        if r["top1_missed"] or r["max_rel_err"] > LM_CPU_TOL:
+            raise RuntimeError(
+                f"lm_ssm (c): {dtype} card vs CPU {r['max_rel_err']:.4g} "
+                f"(limit {LM_CPU_TOL}), top-1 missed {r['top1_missed']}")
+    return res
+
+
+@contextlib.contextmanager
+def ssm_layer_log():
+    """While open, every ``model._mamba_block_seq`` call (``Model.prefill``
+    looks it up at call time) records the layer, its input x and its
+    output hidden state."""
+    from repro_torch.models import model as model_lib
+    calls, real = [], model_lib._mamba_block_seq
+
+    def logged(lp, x, cfg):
+        out = real(lp, x, cfg)
+        calls.append((lp, x, out[0]))
+        return out
+    model_lib._mamba_block_seq = logged
+    try:
+        yield calls
+    finally:
+        model_lib._mamba_block_seq = real
+
+
+def _rel(got, want):
+    """max|Δ| over max|want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def ssm_decode_vs_prefill(model, full, n, extra):
+    """(b) on ``model`` (bf16 or float32), against one prefill of the
+    longer sequence (``want``):
+
+    - end to end: the prompt's prefill and ``extra`` teacher-forced steps:
+      the logits (the reference test's measure, max|Δ| / max|want|, top-1)
+      and each layer's final SSD state and conv tail (max|Δ| over that
+      layer's max|want|);
+    - the same sequence prefilled at half the SSD chunk (the same
+      function summed in another order), on the same measures;
+    - layer by layer on ``want``'s own layer inputs: each layer's prefill
+      of the prompt then ``extra`` ``_mamba_block_step``s against that
+      layer's output at those positions, its final state and conv tail.
+    """
+    import torch
+    from repro_torch.models import model as model_lib
+    cfg, vocab = model.cfg, model.cfg.vocab
+    with ssm_layer_log() as calls:
+        want, wcache = model.prefill({"tokens": full}, n + extra)
+    logits, cache = model.prefill({"tokens": full[:, :n]}, n + extra)
+    for i in range(extra):
+        logits, cache = model.decode_step(full[:, n + i: n + i + 1], cache)
+    model.cfg = cfg.scaled(ssd_chunk=cfg.ssd_chunk // 2)
+    try:
+        half, hcache = model.prefill({"tokens": full}, n + extra)
+    finally:
+        model.cfg = cfg
+    logits, want, half = (t[:, :vocab] for t in (logits, want, half))
+    if not all(bool(torch.isfinite(t).all()) for t in (logits, want, half)):
+        raise RuntimeError("lm_ssm (b): non-finite logits")
+
+    def end_to_end(got, gcache):
+        err = float((got - want).abs().max())
+        a, b = got.argmax(-1), want.argmax(-1)
+        by = {key: [_rel(g, w) for g, w in zip(gcache[key], wcache[key])]
+              for key in ("state", "conv")}
+        return dict(
+            max_rel_err=err / max(float(want.abs().max()), 1.0),
+            rel_to_max=err / float(want.abs().max()),
+            top1=float((a == b).float().mean()), max_abs_err=err,
+            flipped_row_gaps=[float(want[r, b[r]] - want[r, a[r]])
+                              for r in range(a.shape[0]) if a[r] != b[r]],
+            state_rel_by_layer=by["state"], conv_rel_by_layer=by["conv"],
+            state_max_rel=max(by["state"]), conv_max_rel=max(by["conv"]))
+    layers = []
+    for i, (lp, x, y) in enumerate(calls):
+        _, (state, tail) = model_lib._mamba_block_seq(lp, x[:, :n], cfg)
+        outs = [model_lib._mamba_block_step(lp, x[:, n + j: n + j + 1],
+                                            state, tail, cfg)
+                for j in range(extra)]
+        layers.append(dict(out=_rel(torch.cat(outs, 1), y[:, n:]),
+                           state=_rel(state, wcache["state"][i]),
+                           conv=_rel(tail, wcache["conv"][i])))
+    del calls
+    worst = {key: max(r[key] for r in layers)
+             for key in ("out", "state", "conv")}
+    return dict(max_abs_logit=float(want.abs().max()), len=cache["len"],
+                end_to_end=end_to_end(logits, cache),
+                half_chunk_prefill=end_to_end(half, hcache),
+                by_layer=layers, by_layer_max=worst)
+
+
+def ssm_matmul_rate(prof, cfg, steps):
+    """The decode trace's matmul kernels (``MATMUL_MARKERS``): their device
+    ms a step, share of busy time and the TB/s at which they read the
+    projections and ``lm_head`` (bf16 weights, once a step)."""
+    if prof is None:
+        return None
+    us = sum(t for name, (t, _) in prof["by_name"].items()
+             if any(m in name for m in MATMUL_MARKERS))
+    w = cfg.n_layers * 2 * cfg.d_model * (
+        3 * cfg.d_inner + 2 * cfg.ssm_state + cfg.ssm_heads) \
+        + 2 * cfg.d_model * cfg.vocab_padded
+    return dict(ms_per_step=us / 1e3 / steps,
+                share_of_busy=us / 1e6 / prof["busy_s"],
+                weight_bytes=w,
+                tbs=w * steps / (us / 1e6) / 1e12 if us else None)
+
+
+def lm_ssm_phase():
+    """Phase 13: Mamba-2 serving (``launch.serve.serve``) at Mamba2-2.7B's
+    published widths and all 64 layers: (a) batch 4, prompt 1,024, 32
+    greedy tokens; (d) the same run again, equal tokens; (e) batch 1 at a
+    32,768-token prompt, 8 tokens; (b) prompt + 8 teacher-forced steps
+    against one prefill of the longer sequence, in bf16 and in a float32
+    copy of the same weights, end to end and layer by layer
+    (``ssm_decode_vs_prefill``); (c) a 2-layer copy on the card against
+    the CPU.  Raises on any failed check.  None of the eight kernels may
+    launch."""
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import init_params
+    c = SSM
+    cfg = get_config(c["arch"])
+    n_long = SHAPES["prefill_32k"].seq_len
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    runs = []
+    for _ in range(2):                     # (a), then (d)
+        t0 = time.perf_counter()
+        toks, stats = serve(cfg, batch=c["batch"], prompt_len=c["prompt_len"],
+                            gen=c["gen"], seed=SEED, device=DEV)
+        stats["wall_s"] = time.perf_counter() - t0
+        runs.append((toks.cpu(), stats))
+    peak = torch.cuda.max_memory_allocated()
+    toks, st = runs[0]
+    bound_step, bound_prefill, step_bytes = lm_bounds(
+        cfg, c["batch"], c["prompt_len"], c["gen"])
+    serve_out = dict(
+        arch=c["arch"], layers=cfg.n_layers, batch=c["batch"],
+        prompt_len=c["prompt_len"], gen=c["gen"],
+        prefill_s=st["prefill_s"], decode_s=st["decode_s"],
+        tok_per_s=st["tok_per_s"], decode_step_ms=st["decode_step_ms"],
+        decode_step_ms_median=statistics.median(st["decode_step_ms"]),
+        decode_step_ms_min=min(st["decode_step_ms"]),
+        decode_step_bound_ms=bound_step, decode_step_bytes=step_bytes,
+        cache_bytes=ssm_cache_bytes(cfg, c["batch"]),
+        prefill_bound_ms=bound_prefill,
+        prefill_ssd_f32_ops=ssd_ops(cfg, c["batch"], c["prompt_len"]),
+        decode_host_syncs=[s["decode_host_syncs"] for _, s in runs],
+        rerun=dict(prefill_s=runs[1][1]["prefill_s"],
+                   decode_s=runs[1][1]["decode_s"],
+                   tok_per_s=runs[1][1]["tok_per_s"],
+                   decode_step_ms_median=statistics.median(
+                       runs[1][1]["decode_step_ms"])),
+        wall_s=[s["wall_s"] for _, s in runs], max_memory_allocated=peak)
+    log(f"lm_ssm (a)/(d): {json.dumps(serve_out)}")
+    if any(s["decode_host_syncs"] for _, s in runs):
+        raise RuntimeError("lm_ssm (a): host syncs inside decode_step")
+    if not torch.equal(runs[0][0], runs[1][0]):
+        raise RuntimeError("lm_ssm (d): two greedy runs differ")
+    if toks.shape != (c["batch"], c["gen"]) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.vocab:
+        raise RuntimeError(f"lm_ssm (a): tokens {tuple(toks.shape)} "
+                           "out of range")
+    del runs, toks
+    torch.cuda.empty_cache()
+
+    # (e) long context: batch 1 at prefill_32k's length
+    e = SSM_LONG
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ltoks, lst = serve(cfg, batch=e["batch"], prompt_len=n_long, gen=e["gen"],
+                       seed=SEED, device=DEV)
+    lbound_step, lbound_prefill, lstep_bytes = lm_bounds(
+        cfg, e["batch"], n_long, e["gen"])
+    long_out = dict(
+        batch=e["batch"], prompt_len=n_long, gen=e["gen"],
+        prefill_s=lst["prefill_s"], prefill_bound_ms=lbound_prefill,
+        decode_step_ms=lst["decode_step_ms"],
+        decode_step_ms_median=statistics.median(lst["decode_step_ms"]),
+        decode_step_bound_ms=lbound_step, decode_step_bytes=lstep_bytes,
+        batch4_prompt1024_step_ms_median=serve_out["decode_step_ms_median"],
+        tok_per_s=lst["tok_per_s"], decode_host_syncs=lst["decode_host_syncs"],
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        wall_s=time.perf_counter() - t0)
+    del ltoks
+    torch.cuda.empty_cache()
+
+    # (b) decode matches prefill, full width and depth, bf16 then float32;
+    # between them the long prompt's logits and cache on the same weights
+    # and a trace of 8 decode steps
+    model = init_params(cfg, torch.Generator(DEV).manual_seed(SEED), DEV)
+    n, extra = c["prompt_len"], c["extra"]
+    full = torch.randint(0, cfg.vocab, (c["batch"], n + extra),
+                         generator=torch.Generator(DEV).manual_seed(SEED + 1),
+                         dtype=torch.int32, device=DEV)
+    decode = dict(prompt_len=n, steps=extra,
+                  bf16=ssm_decode_vs_prefill(model, full, n, extra))
+    log(f"lm_ssm (b) decode vs prefill, bf16: {json.dumps(decode['bf16'])}")
+    torch.cuda.empty_cache()
+
+    long = torch.randint(0, cfg.vocab, (e["batch"], n_long + 1),
+                         generator=torch.Generator(DEV).manual_seed(SEED + 4),
+                         dtype=torch.int32, device=DEV)
+    logits, lcache = model.prefill({"tokens": long[:, :n_long]}, n_long + 1)
+    step, lcache = model.decode_step(long[:, n_long:], lcache)
+    _, scache = model.prefill({"tokens": full[:1, :n]}, n + 1)
+    long_out["finite_logits"] = bool(torch.isfinite(logits).all()
+                                     and torch.isfinite(step).all())
+    long_out["cache_bytes"] = {
+        f"prompt_{k}": {key: cache[key].numel() * cache[key].element_size()
+                        for key in ("state", "conv")}
+        for k, cache in ((n_long, lcache), (n, scache))}
+    long_out["cache_same_size"] = all(
+        lcache[key].shape == scache[key].shape
+        and lcache[key].dtype == scache[key].dtype
+        for key in ("state", "conv"))
+    log(f"lm_ssm (e) long context: {json.dumps(long_out)}")
+    del logits, step, lcache, scache, long
+    if lst["decode_host_syncs"] or not long_out["finite_logits"] \
+            or not long_out["cache_same_size"]:
+        raise RuntimeError(
+            f"lm_ssm (e): syncs {lst['decode_host_syncs']}, finite "
+            f"{long_out['finite_logits']}, cache sizes "
+            f"{long_out['cache_bytes']}")
+
+    _, cache = model.prefill({"tokens": full[:, :n]}, n + extra)
+    prof = profile_window(
+        f"lm ssm decode, {extra} steps, {cfg.n_layers} layers",
+        lambda: [model.decode_step(full[:, n + i: n + i + 1], cache)
+                 for i in range(extra)])
+    trace = None if prof is None else dict(
+        wall_s=prof["wall_s"], busy_s=prof["busy_s"], idle=prof["idle"],
+        activities_per_step=prof["activities"] / extra,
+        busy_ms_per_step=prof["busy_s"] * 1e3 / extra,
+        matmuls=ssm_matmul_rate(prof, cfg, extra))
+    log(f"lm_ssm decode trace: {json.dumps(trace)}")
+    del cache
+    model.float()
+    decode["f32"] = ssm_decode_vs_prefill(model, full, n, extra)
+    decode["limits"] = dict(bf16_by_layer=LM_DECODE_TOL,
+                            f32_by_layer=SSM_F32_TOL,
+                            f32_end_to_end_logits=LM_DECODE_TOL,
+                            f32_end_to_end_top1=LM_DECODE_TOP1)
+    log(f"lm_ssm (b) decode vs prefill, float32: {json.dumps(decode['f32'])}")
+    del model, full
+    torch.cuda.empty_cache()
+    # Held: every layer's decode against the prefill on the same layer
+    # inputs (bf16 at the reference test's 0.15, float32 at SSM_F32_TOL),
+    # and the float32 logits end to end at the reference test's limits.
+    # Reported, not held: the end-to-end states and the bf16 logits.  The
+    # random-weight stack amplifies a rounding difference about 10^4 times
+    # over 64 layers, as the half-chunk prefill of the same sequence shows.
+    b16, f32 = decode["bf16"], decode["f32"]
+    f32e = f32["end_to_end"]
+    if not (max(b16["by_layer_max"].values()) < LM_DECODE_TOL
+            and max(f32["by_layer_max"].values()) <= SSM_F32_TOL
+            and f32e["max_rel_err"] < LM_DECODE_TOL
+            and f32e["top1"] >= LM_DECODE_TOP1):
+        raise RuntimeError(
+            f"lm_ssm (b): decode vs prefill by layer: bf16 "
+            f"{b16['by_layer_max']} (limit {LM_DECODE_TOL}), float32 "
+            f"{f32['by_layer_max']} (limit {SSM_F32_TOL}); float32 logits "
+            f"end to end {f32e['max_rel_err']:.4g}, top-1 {f32e['top1']}")
+
+    cpu = ssm_card_vs_cpu(cfg)             # (c)
+    torch.cuda.empty_cache()
+    launched = {k: n for k, n in _build.launch_counts.items() if n}
+    if launched:
+        raise RuntimeError(f"lm_ssm: kernels launched {launched}")
+    out = dict(serve=serve_out, long_context=long_out,
+               decode_vs_prefill=decode, card_vs_cpu=cpu, trace=trace,
+               kernel_launches=launched,
+               seconds=time.perf_counter() - t_phase)
+    log(f"lm_ssm phase: {out['seconds']:.1f} s")
+    return out
+
+
 def autotune_field(name, tuned):
     """A kernel entry's ``autotune`` field: the table's knob, its entries
     (shape and knob) and phase 10's times, or "exempt" with the reason from
@@ -4000,6 +4364,8 @@ def main() -> int:
     lm = lm_serve_phase()                  # raises on a failed check
     moe_out = lm_moe_phase()               # raises on a failed check
     elapsed("LM serving (phases 11-12)")
+    ssm_out = lm_ssm_phase()               # raises on a failed check
+    elapsed("Mamba-2 serving (phase 13)")
 
     kernels = [
         dict(name="gather_score", route="cuda",
@@ -4239,6 +4605,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"lm_serve": lm}), flush=True)
     print(json.dumps({"lm_moe": moe_out}), flush=True)
+    print(json.dumps({"lm_ssm": ssm_out}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

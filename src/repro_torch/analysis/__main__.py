@@ -1,9 +1,9 @@
 """CLI: ``python -m repro_torch.analysis {lint,audit} [...]``.
 
 ``lint`` checks the tree against ``baseline.json``; ``audit`` runs the
-contract audit in process (through a ``RecordingComm``) and, with
-``--gloo``, again in a spawned gloo group of four ranks on the CPU, which
-must count the same.
+contract audit in process (through a ``RecordingComm``) on the card, or
+with ``--device cpu`` on the CPU, and, with ``--gloo``, again in a spawned
+gloo group of four ranks on the CPU, which must count the same.
 """
 import sys
 

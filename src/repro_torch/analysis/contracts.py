@@ -28,12 +28,14 @@ run:
 The sharded entry points run in process through a ``RecordingComm`` (rank
 0 of 4, each collective recorded, nothing moved), and, with ``--gloo``, on
 a spawned gloo group of 4 CPU processes, whose counts must equal the
-in-process ones.  ``run_audit(device="cuda", comm=...)`` runs the same
-audit on the card over an NCCL group (``chip_smoke.py`` phase 10, a group
-of one, with CUDA sync-debug mode "error").  The result is written as a
-``repro.analysis.v1`` record through ``obs.emit``.
+in-process ones.  The audit runs on the card unless told otherwise
+(``device="cpu"``, ``--device cpu``), and raises where there is none;
+``run_audit(comm=...)`` runs it over an NCCL group (``chip_smoke.py``
+phase 10, a group of one, with CUDA sync-debug mode "error").  The result
+is written as a ``repro.analysis.v1`` record through ``obs.emit``.
 
-CLI: ``python -m repro_torch.analysis audit [--gloo] [--out PATH]``.
+CLI: ``python -m repro_torch.analysis audit [--device cpu] [--gloo]
+[--out PATH]``.
 """
 from __future__ import annotations
 
@@ -49,6 +51,8 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
+
+from repro_torch._device import DeviceLike, resolve_device
 
 # problem sizes: distinct so a leading dim identifies its role in the
 # replication report (n_loc = 96 at 4 ranks; d+1 = 17 stays distinct)
@@ -341,12 +345,13 @@ def _final_read(res) -> None:
     float(syncs.read(res.final))
 
 
-def contract_engine_run(device="cpu", comm=None) -> List[AuditResult]:
+def contract_engine_run(device: DeviceLike = None, comm=None
+                        ) -> List[AuditResult]:
     """``engine.run`` on one device, telemetry off and on: ITERS epochs
     (no early stop) and the final read, ``epochs + 1`` host syncs, no
     collective, no f64 or bf16."""
     from repro_torch.core import engine
-    X, G, a = _data(device)
+    X, G, a = _data(resolve_device(device))
     out = []
     for tel in (False, True):
         cfg = engine.EngineConfig(batch_size=BATCH, iters=ITERS,
@@ -364,12 +369,14 @@ def contract_engine_run(device="cpu", comm=None) -> List[AuditResult]:
     return out
 
 
-def contract_engine_sharded(device="cpu", comm=None) -> List[AuditResult]:
+def contract_engine_sharded(device: DeviceLike = None, comm=None
+                            ) -> List[AuditResult]:
     """``ShardedEngine.run``, dense and sparse with the bf16 payload:
     ``epochs + 1`` host syncs with the final read, the declared budgets,
     bf16 only on the sparse payload."""
     from repro_torch.core import engine
     from repro_torch.core.distributed import ShardedEngine
+    device = resolve_device(device)
     comm = comm if comm is not None else _recording(device)
     X, G, a = _data(device)
     st = engine.init_state(X, a, K)
@@ -394,11 +401,13 @@ def contract_engine_sharded(device="cpu", comm=None) -> List[AuditResult]:
     return out
 
 
-def contract_graph_build(device="cpu", comm=None) -> List[AuditResult]:
+def contract_graph_build(device: DeviceLike = None, comm=None
+                         ) -> List[AuditResult]:
     """``GraphBuilder`` over the group (partition source, guided): 0 host
     syncs and the declared budget."""
     from repro_torch.core.graph_build import (GraphBuildConfig, GraphBuilder,
                                               _plan)
+    device = resolve_device(device)
     comm = comm if comm is not None else _recording(device)
     X, _, _ = _data(device)
     cfg = GraphBuildConfig(kappa=KAPPA, tau=TAU, chunk=BATCH)
@@ -414,11 +423,13 @@ def contract_graph_build(device="cpu", comm=None) -> List[AuditResult]:
         roles=roles)]
 
 
-def contract_ivf_search(device="cpu", comm=None) -> List[AuditResult]:
+def contract_ivf_search(device: DeviceLike = None, comm=None
+                        ) -> List[AuditResult]:
     """``ShardedIvf.search``: 0 host syncs and one merge point a batch
     (the declared budget) on every path: f32 with telemetry off and on,
     int8 and PQ with the rerank tail."""
     from repro_torch.core.distributed import ShardedIvf
+    device = resolve_device(device)
     comm = comm if comm is not None else _recording(device)
     indexes, Qr = _index(device)
     roles = {N: "n", K: "k", Q: "q"}
@@ -450,10 +461,13 @@ def _recording(device):
     return RecordingComm(0, DEVICES, device)
 
 
-def run_audit(names: Optional[List[str]] = None, *, device="cpu",
-              comm=None) -> List[AuditResult]:
-    """The named contracts (all by default) on ``device``; the sharded
-    ones through ``comm``, or a ``RecordingComm`` of 4 ranks."""
+def run_audit(names: Optional[List[str]] = None, *,
+              device: DeviceLike = None, comm=None) -> List[AuditResult]:
+    """The named contracts (all by default) on ``device`` (default
+    ``cuda``, which raises where there is none; pass ``device="cpu"`` for
+    the CPU); the sharded ones through ``comm``, or a ``RecordingComm`` of
+    4 ranks."""
+    device = resolve_device(device)
     results: List[AuditResult] = []
     for name, fn in CONTRACTS.items():
         if names and name not in names:
@@ -477,7 +491,7 @@ def _gloo_rank(rank: int, world: int, store: str, result: str) -> None:
     from repro_torch.launch.mesh import close_group, init_group
     try:
         init_group("cpu", rank=rank, world_size=world, store_path=store)
-        res = run_audit(list(SHARDED), comm=Comm())
+        res = run_audit(list(SHARDED), device="cpu", comm=Comm())
         torch.save([(r.name, r.collectives, r.syncs, r.problems)
                     for r in res], f"{result}.{rank}")
     except BaseException:
@@ -602,8 +616,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--gloo", action="store_true",
                     help="also run the sharded contracts on 4 spawned gloo "
                          "ranks, which must count the same")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' for the CPU)")
     args = ap.parse_args(argv)
-    results = run_audit(args.contract)
+    results = run_audit(args.contract, device=args.device)
     extra: List[str] = []
     if args.gloo:
         try:

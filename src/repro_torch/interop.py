@@ -126,8 +126,9 @@ def lm_params(params, cfg, device: DeviceLike = None) -> Model:
     of arrays, layers stacked on axis 0, e.g. ``jax.tree.map(np.asarray,
     init_params(cfg, key))``), leaf for leaf and in its dtypes (bf16
     matrices, float32 norms and biases; an MoE layer's ``moe`` subtree
-    with its router, experts and ``shared`` MLP), on ``device`` (default
-    ``cuda``; pass ``device="cpu"`` for the CPU).
+    with its router, experts and ``shared`` MLP; a Mamba-2 layer's
+    projections, conv, ``A_log``, ``Dskip``, ``dt_bias`` and norms), on
+    ``device`` (default ``cuda``; pass ``device="cpu"`` for the CPU).
 
     Raises ``ValueError`` unless the tree and the model hold the same
     leaves: a leaf the model lacks, a parameter the tree lacks, a stacked
@@ -170,9 +171,12 @@ def lm_params(params, cfg, device: DeviceLike = None) -> Model:
 
 
 def lm_cache(cache, device: DeviceLike = None) -> Cache:
-    """The port's KV cache from the reference's (``k``, ``v`` of (L, B, S,
-    Hkv, hd) bf16 and a scalar ``len``), on ``device`` (default ``cuda``;
-    pass ``device="cpu"`` for the CPU); ``len`` becomes a host int."""
+    """The port's cache from the reference's, on ``device`` (default
+    ``cuda``; pass ``device="cpu"`` for the CPU): a KV cache (``k``, ``v``
+    of (L, B, S, Hkv, hd) bf16) or an SSM cache (``state`` (L, B, H, P, N)
+    float32, ``conv`` (L, B, W-1, d_inner) bf16), told apart by their keys,
+    each array in its own dtype; the scalar ``len`` becomes a host int."""
     dev = resolve_device(device)
-    return {"k": _same_dtype(cache["k"], dev),
-            "v": _same_dtype(cache["v"], dev), "len": int(cache["len"])}
+    keys = ("state", "conv") if "state" in cache else ("k", "v")
+    return {**{k: _same_dtype(cache[k], dev) for k in keys},
+            "len": int(cache["len"])}

@@ -8,10 +8,15 @@ host sync inside it raises on the card; on the card the stats also hold
 each step's device milliseconds (CUDA events on the stream between
 steps).
 
-Usage (any dense or MoE arch, e.g. ``qwen2-moe-a2.7b``, ``grok-1-314b``;
-``--preset full`` for the published widths):
+Usage (any dense, MoE or Mamba-2 arch, e.g. ``qwen2-moe-a2.7b``,
+``grok-1-314b``, ``mamba2-2.7b``; ``--preset full`` for the published
+widths):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-72b \\
       --preset smoke --batch 2 --prompt-len 32 --gen 8 --device cpu
+
+The cache is whatever the family's ``Model.prefill`` builds (KV of
+``prompt_len + gen`` positions, or Mamba-2's fixed-size SSD states and
+conv tails); each decode step advances it in place.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""The dense and MoE decoder families of the model zoo (counterpart of
-``repro.models.model``).
+"""The dense, MoE and Mamba-2 (ssm) families of the model zoo (counterpart
+of ``repro.models.model``).
 
 A GQA transformer: RoPE (partial for ChatGLM), optional QKV bias, SwiGLU
 or GELU MLP, RMS or layer norms, an untied ``lm_head`` and an optional
@@ -7,31 +7,38 @@ padded vocabulary.  The MoE family replaces each layer's MLP by the
 capacity-dispatched top-k experts of ``models/moe.py`` plus, where the
 config has them, shared experts (one SwiGLU MLP of ``n_shared_experts ·
 moe_d_ff``); decode (S == 1) runs at capacity factor ``n_experts``, so it
-never drops a token.  Entry points are the reference's serving ones:
-``Model.prefill`` (builds the KV cache, returns last-position logits) and
-``Model.decode_step`` (one token against the cache).
+never drops a token.  The ssm family is attention-free: each layer is a
+Mamba-2 block (``models/ssm.py``'s chunked SSD scan over a depthwise causal
+conv of x, gated by silu(z), out-normed).  Entry points are the reference's
+serving ones: ``Model.prefill`` (builds the cache, returns last-position
+logits) and ``Model.decode_step`` (one token against the cache).
 
 What is PyTorch idiom here rather than a copy:
 - ``Model`` is an ``nn.Module`` on one device that holds its weights, in
   the reference's layouts and dtypes (bf16 matrices, float32 norms and
-  biases); its layers are an ``nn.ModuleList`` of ``DenseBlock``s walked in
-  a loop, where the reference scans stacked leaves.  The reference's
-  ``_norm_params``/``_attn_params``/``_mlp_params``/``_moe_params``/
-  ``_dense_layer_params`` are the ``Norm``/``Attention``/``Mlp``/
-  ``MoeFfn``/``DenseBlock`` constructors, with the reference's names, and
-  ``init_params`` draws the weights from a ``torch.Generator``.
-- The cache is the reference's: k and v of (L, B, S, Hkv, hd) bf16 plus
-  ``len``, here a host int, so a decode step reads nothing back from the
-  device.  ``decode_step`` writes the new position into k and v in place
-  (the reference's server donates the cache to the step) and raises where
-  the reference's ``dynamic_update_slice`` would clamp a write past the
-  cache's end.
+  biases); its layers are an ``nn.ModuleList`` of ``DenseBlock``s or
+  ``MambaBlock``s walked in a loop, where the reference scans stacked
+  leaves.  The reference's ``_norm_params``/``_attn_params``/
+  ``_mlp_params``/``_moe_params``/``_dense_layer_params``/
+  ``_mamba_layer_params`` are the ``Norm``/``Attention``/``Mlp``/
+  ``MoeFfn``/``DenseBlock``/``MambaBlock`` constructors, with the
+  reference's names, and ``init_params`` draws the weights from a
+  ``torch.Generator``.  The SSD scan's chunk loop is a Python loop where
+  the reference has ``lax.scan``.
+- The cache is the reference's: k and v of (L, B, S, Hkv, hd) bf16, or for
+  ssm each layer's SSD ``state`` (L, B, H, P, N) float32 and ``conv`` tail
+  (L, B, W-1, d_inner) in the activations' dtype, plus ``len``, here a
+  host int, so a decode step reads nothing back from the device.
+  ``decode_step`` writes the new position (ssm: the new state and tail)
+  into the caller's cache in place (the reference's server donates the
+  cache to the step) and raises where the reference's
+  ``dynamic_update_slice`` would clamp a write past the cache's end.
 - ``_shard_act`` (an XLA mesh constraint that is the identity on one
   device) has no counterpart.
 
 The backbone carries the MoE layers' auxiliary loss summed over layers,
 as the reference's does; serving drops it (training will read it).
-Families outside the port so far (ssm, hybrid, audio, vlm) and training
+Families outside the port so far (hybrid, audio, vlm) and training
 (``Model.loss``, ``lm_loss``) raise ``NotImplementedError`` naming their
 item of ``ROADMAP.md`` queue 1.
 """
@@ -48,12 +55,13 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 
 PDT = torch.bfloat16  # param dtype
 Cache = Dict[str, Any]
 
 # families still to port: ROADMAP.md queue 1, item 5
-_LATER = {"ssm": "5(c)", "hybrid": "5(c)", "audio": "5(d)", "vlm": "5(d)"}
+_LATER = {"hybrid": "5(c)", "audio": "5(d)", "vlm": "5(d)"}
 _TRAINING = "5(e)"
 
 
@@ -62,7 +70,7 @@ def _check_family(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: ROADMAP.md queue 1 "
             f"item {_LATER[cfg.family]}")
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise ValueError(cfg.family)
 
 
@@ -199,6 +207,59 @@ class DenseBlock(nn.Module):
             self.mlp = Mlp(cfg, device)
 
 
+def _linspace(start: float, stop: float, num: int) -> torch.Tensor:
+    """``jnp.linspace(start, stop, num, dtype=float32)``'s arithmetic:
+    ``start·(1 − t) + stop·t`` at t = i / (num − 1), the last value
+    ``stop`` itself."""
+    if num == 1:
+        return torch.tensor([start], dtype=torch.float32)
+    t = torch.arange(num - 1, dtype=torch.float32) / (num - 1)
+    return torch.cat([start * (1 - t) + stop * t,
+                      torch.tensor([stop], dtype=torch.float32)])
+
+
+class MambaBlock(nn.Module):
+    """``_mamba_layer_params``: norm; wz, wx (D, d_inner), wB, wC (D, N),
+    wdt (D, H), conv_x (W, d_inner) and wo (d_inner, D) bf16; conv_b
+    (d_inner,), A_log, Dskip, dt_bias (H,) and out_norm (of d_inner)
+    float32.  The reference's constants are set here: A_log = log(linspace(1,
+    16, H)), Dskip = 1, dt_bias = −2; conv_b and the norms stay zero."""
+
+    def __init__(self, cfg: ArchConfig, device: torch.device):
+        super().__init__()
+        D, Di, N, H, W = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                          cfg.ssm_heads, cfg.conv_width)
+        z = dict(dtype=PDT, device=device)
+        f = dict(dtype=torch.float32, device=device)
+        self.norm = Norm(cfg, D, device)
+        self.wz = _param(torch.zeros((D, Di), **z))
+        self.wx = _param(torch.zeros((D, Di), **z))
+        self.wB = _param(torch.zeros((D, N), **z))
+        self.wC = _param(torch.zeros((D, N), **z))
+        self.wdt = _param(torch.zeros((D, H), **z))
+        self.conv_x = _param(torch.zeros((W, Di), **z))
+        self.conv_b = _param(torch.zeros(Di, **f))
+        self.A_log = _param(torch.log(_linspace(1.0, 16.0, H)).to(device))
+        self.Dskip = _param(torch.ones(H, **f))
+        self.dt_bias = _param(torch.full((H,), -2.0, **f))
+        self.out_norm = Norm(cfg, Di, device)
+        self.wo = _param(torch.zeros((Di, D), **z))
+
+    def init(self, g: torch.Generator, cfg: ArchConfig) -> None:
+        """The reference's draws, in its order: fan-in truncated normals
+        (wz, wx, wB, wC, wdt), conv_x standard normal · W^-½, then wo; each
+        drawn in float32 and cast to bf16."""
+        D, Di, N, H, W = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                          cfg.ssm_heads, cfg.conv_width)
+        for w, out in ((self.wz, Di), (self.wx, Di), (self.wB, N),
+                       (self.wC, N), (self.wdt, H)):
+            w.copy_(L.dense_init(g, D, (out,), dtype=PDT))
+        self.conv_x.copy_(torch.randn((W, Di), generator=g,
+                                      dtype=torch.float32, device=g.device)
+                          .mul_(1.0 / W ** 0.5).to(PDT))
+        self.wo.copy_(L.dense_init(g, Di, (D,), dtype=PDT))
+
+
 # ===========================================================================
 # blocks — sequence (prefill) path
 # ===========================================================================
@@ -283,6 +344,60 @@ def _dense_block_seq(lp: DenseBlock, x: torch.Tensor, cfg: ArchConfig,
     return x + f, kv, aux
 
 
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, i.e. ``logaddexp(x, 0)``: ``max(x, 0) +
+    log1p(exp(-|x|))`` (``F.softplus`` turns linear above its threshold)."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _mamba_in(lp: MambaBlock, x: torch.Tensor, cfg: ArchConfig):
+    """(z, x, B, C (B, S, ·) in x's dtype, dt (B, S, H) float32) of the
+    normed input: the five projections and ``softplus(x·wdt + dt_bias)``."""
+    h = _apply_norm(lp.norm, x, cfg)
+    dt = _softplus((h @ lp.wdt).float() + lp.dt_bias)
+    return h @ lp.wz, h @ lp.wx, h @ lp.wB, h @ lp.wC, dt
+
+
+def _mamba_out(lp: MambaBlock, x: torch.Tensor, y: torch.Tensor,
+               xh: torch.Tensor, z: torch.Tensor,
+               cfg: ArchConfig) -> torch.Tensor:
+    """The residual ``x + wo(out_norm((y + Dskip·xh) · silu(z)))``, y and
+    xh (..., H, P), rounded to x's dtype where the reference rounds."""
+    y = (y.float() + lp.Dskip[:, None] * xh.float()).to(x.dtype)
+    y = y.reshape(z.shape) * L.silu(z.float()).to(x.dtype)
+    y = L.rms_norm(y, lp.out_norm.w, cfg.norm_eps)
+    return x + y @ lp.wo
+
+
+def _mamba_block_seq(lp: MambaBlock, x: torch.Tensor, cfg: ArchConfig):
+    """x (B, S, D) -> (x, (final SSD state (B, H, P, N) float32, conv tail
+    (B, W-1, d_inner))): the reference's ``_mamba_block_seq`` and the layer
+    body of its ``_ssm_prefill`` in one."""
+    z, xr, Bm, Cm, dt = _mamba_in(lp, x, cfg)
+    xr, tail = ssm_lib.causal_conv1d(xr, lp.conv_x, lp.conv_b)
+    xr = L.silu(xr.float()).to(x.dtype)
+    Bsz, S, _ = x.shape
+    xh = xr.reshape(Bsz, S, cfg.ssm_heads, cfg.ssm_head_dim)
+    y, state = ssm_lib.ssd_chunked(xh, dt, -torch.exp(lp.A_log), Bm, Cm,
+                                   chunk=cfg.ssd_chunk)
+    return _mamba_out(lp, x, y, xh, z, cfg), (state, tail)
+
+
+def _mamba_block_step(lp: MambaBlock, x: torch.Tensor, state: torch.Tensor,
+                      tail: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """One token x (B, 1, D) through a layer; writes the layer's new SSD
+    state and conv tail into ``state`` and ``tail`` (cache views)."""
+    z, xr, Bm, Cm, dt = _mamba_in(lp, x, cfg)
+    xr, new_tail = ssm_lib.causal_conv1d(xr, lp.conv_x, lp.conv_b, tail)
+    xr = L.silu(xr.float()).to(x.dtype)
+    xh = xr.reshape(x.shape[0], cfg.ssm_heads, cfg.ssm_head_dim)
+    y, new = ssm_lib.ssd_decode_step(state, xh, dt[:, 0],
+                                     -torch.exp(lp.A_log), Bm[:, 0], Cm[:, 0])
+    state.copy_(new)
+    tail.copy_(new_tail)
+    return _mamba_out(lp, x, y, xh, z, cfg)
+
+
 # ===========================================================================
 # backbone
 # ===========================================================================
@@ -303,6 +418,10 @@ def _backbone_seq(model: "Model", cfg: ArchConfig, x: torch.Tensor,
     or None, the layers' aux losses summed, float32 ())."""
     ks, vs = [], []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "ssm":
+        for lp in model.layers:
+            x, _ = _mamba_block_seq(lp, x, cfg)
+        return x, None, aux_total
     for lp in model.layers:
         x, (k, v), a = _dense_block_seq(lp, x, cfg, positions)
         aux_total = aux_total + a
@@ -336,13 +455,13 @@ def lm_loss(*args, **kwargs):
 # ===========================================================================
 
 class Model(nn.Module):
-    """A dense or MoE decoder's weights on one device and its serving
-    steps.
+    """A dense, MoE or Mamba-2 decoder's weights on one device and its
+    serving steps.
 
     ``Model(cfg, device)`` holds zeros (the reference's init for norms and
-    biases); ``init(generator)`` draws the matrices, ``interop.lm_params``
-    loads the reference's.  ``device=None`` means the card and raises
-    where there is none.
+    biases) and the SSM layers' constants; ``init(generator)`` draws the
+    matrices, ``interop.lm_params`` loads the reference's.
+    ``device=None`` means the card and raises where there is none.
     """
 
     def __init__(self, cfg: ArchConfig, device: DeviceLike = None):
@@ -354,7 +473,8 @@ class Model(nn.Module):
         self.embed = _param(torch.zeros((Vp, D), dtype=PDT, device=dev))
         self.lm_head = _param(torch.zeros((D, Vp), dtype=PDT, device=dev))
         self.final_norm = Norm(cfg, D, dev)
-        self.layers = nn.ModuleList(DenseBlock(cfg, dev)
+        block = MambaBlock if cfg.family == "ssm" else DenseBlock
+        self.layers = nn.ModuleList(block(cfg, dev)
                                     for _ in range(cfg.n_layers))
 
     @property
@@ -364,7 +484,8 @@ class Model(nn.Module):
     def init(self, generator: torch.Generator) -> "Model":
         """Draws the embedding, ``lm_head`` and every layer's matrices from
         ``generator`` (on this model's device), in that order, with the
-        reference's distributions; norms and biases stay zero."""
+        reference's distributions; norms, biases and the SSM constants stay
+        as constructed."""
         if generator.device.type != self.device.type:
             raise ValueError(f"generator on {generator.device}, model on "
                              f"{self.device}")
@@ -374,8 +495,11 @@ class Model(nn.Module):
         self.lm_head.copy_(L.dense_init(generator, cfg.d_model,
                                         (cfg.vocab_padded,), dtype=PDT))
         for lp in self.layers:
-            lp.attn.init(generator, cfg)
-            (lp.moe if cfg.family == "moe" else lp.mlp).init(generator)
+            if cfg.family == "ssm":
+                lp.init(generator, cfg)
+            else:
+                lp.attn.init(generator, cfg)
+                (lp.moe if cfg.family == "moe" else lp.mlp).init(generator)
         return self
 
     # ----- training -----
@@ -397,21 +521,52 @@ class Model(nn.Module):
     def prefill(self, batch: Dict[str, torch.Tensor],
                 cache_len: int) -> Tuple[torch.Tensor, Cache]:
         """Process the full prompt ``batch["tokens"]`` (B, S); returns (last
-        logits (B, V) float32, cache of ``cache_len`` positions)."""
+        logits (B, V) float32, cache of ``cache_len`` positions; for ssm
+        each layer's final SSD state and conv tail, whatever
+        ``cache_len``)."""
         cfg = self.cfg
         x, _ = _embed_inputs(self, cfg, batch)
-        positions = torch.arange(x.shape[1], device=x.device)
-        x, (k, v), _ = _backbone_seq(self, cfg, x, positions,
-                                     collect_kv=True)
-        cache = {"k": _grow(k, cache_len), "v": _grow(v, cache_len),
-                 "len": x.shape[1]}
+        if cfg.family == "ssm":
+            x, cache = self._ssm_prefill(x)
+        else:
+            positions = torch.arange(x.shape[1], device=x.device)
+            x, (k, v), _ = _backbone_seq(self, cfg, x, positions,
+                                         collect_kv=True)
+            cache = {"k": _grow(k, cache_len), "v": _grow(v, cache_len),
+                     "len": x.shape[1]}
         x = _apply_norm(self.final_norm, x, cfg)
         return self._mask_vocab(_logits(x[:, -1, :], self.lm_head)), cache
 
+    def _ssm_prefill(self, x: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+        """The layers over the embedded prompt x (B, S, D), each layer's
+        final state and conv tail written into a new cache."""
+        cache = self._ssm_cache(x.shape[0], x.dtype)
+        for lp, st, tl in zip(self.layers, cache["state"], cache["conv"]):
+            x, (state, tail) = _mamba_block_seq(lp, x, self.cfg)
+            st.copy_(state)
+            tl.copy_(tail)
+        cache["len"] = x.shape[1]
+        return x, cache
+
+    def _ssm_cache(self, batch_size: int, dtype: torch.dtype) -> Cache:
+        cfg = self.cfg
+        L_, B = cfg.n_layers, batch_size
+        return {"state": torch.zeros((L_, B, cfg.ssm_heads, cfg.ssm_head_dim,
+                                      cfg.ssm_state), dtype=torch.float32,
+                                     device=self.device),
+                "conv": torch.zeros((L_, B, cfg.conv_width - 1,
+                                     cfg.d_inner), dtype=dtype,
+                                    device=self.device),
+                "len": 0}
+
     def init_cache(self, batch_size: int, cache_len: int) -> Cache:
         """Zero-initialised cache; k and v are separate tensors, since the
-        port's decode writes into them."""
+        port's decode writes into them.  For ssm: the SSD states (L, B, H,
+        P, N) float32 and conv tails (L, B, W-1, d_inner) bf16, whatever
+        ``cache_len``."""
         cfg = self.cfg
+        if cfg.family == "ssm":
+            return self._ssm_cache(batch_size, PDT)
         kv = torch.zeros((cfg.n_layers, batch_size, cache_len,
                           cfg.n_kv_heads, cfg.head_dim), dtype=PDT,
                          device=self.device)
@@ -429,7 +584,10 @@ class Model(nn.Module):
             table = L.sinusoidal_pos(cache_size_of(cache, cfg), cfg.d_model,
                                      device=x.device)
             x = x + table[pos][None, None, :].to(PDT)
-        x, cache = self._kv_decode(x, cache, pos)
+        if cfg.family == "ssm":
+            x, cache = self._ssm_decode(x, cache)
+        else:
+            x, cache = self._kv_decode(x, cache, pos)
         x = _apply_norm(self.final_norm, x, cfg)
         return self._mask_vocab(_logits(x[:, 0], self.lm_head)), cache
 
@@ -445,6 +603,12 @@ class Model(nn.Module):
             f, _ = _ffn_seq(lp, _apply_norm(lp.ln2, x, cfg), cfg)
             x = x + f
         return x, {"k": cache["k"], "v": cache["v"], "len": pos + 1}
+
+    def _ssm_decode(self, x: torch.Tensor, cache: Cache):
+        for lp, st, tl in zip(self.layers, cache["state"], cache["conv"]):
+            x = _mamba_block_step(lp, x, st, tl, self.cfg)
+        return x, {"state": cache["state"], "conv": cache["conv"],
+                   "len": cache["len"] + 1}
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,

@@ -258,7 +258,7 @@ def test_baseline_rejects_wrong_schema(tmp_path):
 
 @pytest.fixture(scope="module")
 def audit():
-    return contracts.run_audit()
+    return contracts.run_audit(device="cpu")
 
 
 def test_audit_in_process_passes(audit, tmp_path):
@@ -283,7 +283,7 @@ def test_audit_in_process_passes(audit, tmp_path):
 
 
 def _sharded_result(name):
-    res = contracts.run_audit(["engine_sharded"])
+    res = contracts.run_audit(["engine_sharded"], device="cpu")
     return {r.name: r for r in res}[name]
 
 
@@ -338,7 +338,8 @@ def test_audit_fails_on_a_stray_read_called_from_a_marked_line(
         hits.append(f.f_lineno)
         return planted.to_device(x, dev, real)
     monkeypatch.setattr(graph_build, "to_device", from_marked_lines)
-    res = {r.name: r for r in contracts.run_audit(["graph_build"])}
+    res = {r.name: r for r in contracts.run_audit(["graph_build"],
+                                                  device="cpu")}
     r = res["GraphBuilder.build[partition]"]
     assert hits, "the marked call was not reached"
     assert not r.ok and any("outside obs.syncs.read" in p and "planted.py"

@@ -1399,3 +1399,52 @@ def test_moe_decode_step_on_card(dev):
     tie[:, [2, 5, 6]] = 1.0                 # three equal, dominant columns
     _, _, idx = moe.route(x[0].abs().to(dev), tie, 2)
     assert (idx.cpu() == torch.tensor([2, 5])).all()
+
+
+def test_ssm_serving_on_card_matches_cpu(dev):
+    """The Mamba-2 family at the SMOKE preset on the card: greedy ``serve``
+    deterministic with 0 host syncs in its decode steps; a prefill (72
+    tokens at chunk 64: the padding path) plus two decode steps within
+    0.03·max|want| of the CPU's on the same parameters in bf16 (cuBLAS and
+    the CPU sum bf16 products in other orders), and within 1e-4·max|want|
+    in float32, logits and every layer's SSD state and conv tail (the
+    float32 products are full float32 on the card, not TF32)."""
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch.train import scaled_config
+    from repro_torch.models import Model
+    from repro_torch.models.model import init_params
+    from repro_torch.obs.syncs import sync_counter
+    cfg = scaled_config("mamba2-2.7b", "smoke")
+    t1, st = tserve.serve(cfg, batch=2, prompt_len=32, gen=6, device=dev)
+    t2, _ = tserve.serve(cfg, batch=2, prompt_len=32, gen=6, device=dev)
+    assert torch.equal(t1, t2) and st["decode_host_syncs"] == 0
+    assert len(st["decode_step_ms"]) == 5
+    card = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    cpu = Model(cfg, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    toks = torch.randint(0, cfg.vocab, (2, 74),
+                         generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    for tol in (0.03, 1e-4):
+        if tol < 0.03:
+            card.float(), cpu.float()
+        outs = []
+        for m in (card, cpu):
+            logits, cache = m.prefill({"tokens": toks[:, :72].to(m.device)},
+                                      74)
+            seq = [logits.cpu()]
+            for i in range(2):
+                tok = toks[:, 72 + i: 73 + i].to(m.device)
+                with sync_counter() as sc:
+                    logits, cache = m.decode_step(tok, cache)
+                assert sc.syncs == 0 and cache["len"] == 73 + i
+                seq.append(logits.cpu())
+            outs.append((seq, {k: cache[k].float().cpu()
+                               for k in ("state", "conv")}))
+        (got, gcache), (want, wcache) = outs
+        for g, w in zip(got, want):
+            assert float((g - w).abs().max()) <= tol * float(w.abs().max())
+        for key in ("state", "conv"):
+            for g, w in zip(gcache[key], wcache[key]):
+                assert float((g - w).abs().max()) <= tol * float(
+                    w.abs().max()), (key, tol)

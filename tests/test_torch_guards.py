@@ -64,6 +64,7 @@ NEW_MODULES = ("repro_torch.configs", "repro_torch.configs.gkmeans_paper",
                "repro_torch.configs.chatglm3_6b", "repro_torch.models",
                "repro_torch.models.layers", "repro_torch.models.attention",
                "repro_torch.models.model", "repro_torch.models.moe",
+               "repro_torch.models.ssm", "repro_torch.configs.mamba2_27b",
                "repro_torch.train",
                "repro_torch.train.serve_step", "repro_torch.launch.train",
                "repro_torch.launch.serve", "repro_torch.interop")
@@ -145,10 +146,34 @@ def test_lm_moe_entry_points_build_and_serve(arch):
     assert toks.shape == (1, 2) and stats["decode_host_syncs"] == 0
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-9b",
-                                  "whisper-base", "internvl2-2b"])
+def test_lm_ssm_entry_points_build_and_serve():
+    """The ssm family (ported after the dense and MoE ones) builds from
+    every LM entry point: Mamba2-2.7B at its full width and depth (on
+    ``meta``: 2.7 B parameters, the published count) and at the smoke
+    preset on the CPU, where it serves."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch.train import scaled_config
+    from repro_torch.models import Model, build_model
+    from repro_torch.models.model import MambaBlock, init_params
+    full = build_model(get_config("mamba2-2.7b"), "meta")
+    n = sum(p.numel() for p in full.parameters())
+    assert len(full.layers) == 64 and 2.6e9 < n < 2.9e9
+    assert full.layers[63].wx.shape == (2560, 5120)
+    cfg = scaled_config("mamba2-2.7b", "smoke").scaled(n_layers=1)
+    for model in (build_model(cfg, "cpu"), Model(cfg, "cpu")):
+        assert isinstance(model.layers[0], MambaBlock)
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert float(model.layers[0].wo.float().abs().sum()) > 0
+    toks, stats = tserve.serve(cfg, batch=1, prompt_len=4, gen=2,
+                               device="cpu")
+    assert toks.shape == (1, 2) and stats["decode_host_syncs"] == 0
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "whisper-base",
+                                  "internvl2-2b"])
 def test_lm_out_of_slice_families_raise(arch):
-    """The families after the dense and MoE ones raise
+    """The families after the dense, MoE and ssm ones raise
     ``NotImplementedError`` naming their ROADMAP.md item, from every LM
     entry point, before any allocation."""
     from repro_torch.launch import serve as tserve
@@ -156,8 +181,7 @@ def test_lm_out_of_slice_families_raise(arch):
     from repro_torch.models import Model, build_model
     from repro_torch.models.model import init_params
     cfg = scaled_config(arch, "smoke")
-    item = {"ssm": "5(c)", "hybrid": "5(c)", "audio": "5(d)",
-            "vlm": "5(d)"}[cfg.family]
+    item = {"hybrid": "5(c)", "audio": "5(d)", "vlm": "5(d)"}[cfg.family]
     calls = (lambda: build_model(cfg, "cpu"), lambda: Model(cfg, "cpu"),
              lambda: init_params(cfg, torch.Generator(), "cpu"),
              lambda: tserve.serve(cfg, batch=1, prompt_len=4, gen=2,
@@ -166,6 +190,28 @@ def test_lm_out_of_slice_families_raise(arch):
         with pytest.raises(NotImplementedError,
                            match=re.escape(f"item {item}")):
             call()
+
+
+def test_audit_without_device_raises_when_no_cuda(monkeypatch):
+    """The contract audit runs on the card by default: ``run_audit()`` and
+    ``python -m repro_torch.analysis audit`` without ``--device`` raise
+    where there is none, before any contract runs; ``device="cpu"`` is
+    accepted."""
+    from repro_torch.analysis import __main__ as cli
+    from repro_torch.analysis import contracts
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ran = []
+    monkeypatch.setattr(contracts, "CONTRACTS", {
+        "probe": lambda device, comm: ran.append(device) or []})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        contracts.run_audit()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["audit"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        contracts.contract_engine_run()
+    assert ran == []
+    assert contracts.run_audit(device="cpu") == []
+    assert ran == [torch.device("cpu")]
 
 
 def test_lm_training_raises():
