@@ -232,15 +232,41 @@ plain PyTorch version, or when any phase fails.  Phases:
    32,768, vocab 131,072) at 2 of 64 layers, batch 2, prompt 256, 8
    greedy tokens twice: equal tokens, 0 syncs, finite logits; any failed
    check raises;
-13. one JSON line of the sharded topology, one of the baselines (each
+13. Mamba-2 serving (``models/ssm.py``; plain PyTorch, none of the eight
+   kernels may launch) at Mamba2-2.7B's published widths and all 64
+   layers: ``serve`` at batch 4, prompt 1,024 (twice, equal tokens) and at
+   batch 1, prompt 32,768; decode against one prefill of the longer
+   sequence end to end and layer by layer (``ssm_decode_vs_prefill``), in
+   bf16 and in float32; a 2-layer copy on the card and the CPU;
+14. RecurrentGemma serving (``models/rglru.py``, the hybrid family; plain
+   PyTorch, none of the eight kernels may launch) at RecurrentGemma-9B's
+   published widths and all 38 layers (d_model and lru_width 4,096, 16
+   query heads of 256 and one KV head, d_ff 12,288, vocab 256,000,
+   pattern (rec, rec, attn), window 2,048, conv width 4; 20.9 GB of
+   bf16): (a) ``serve`` at batch 4, prompt 1,024, 32 greedy tokens, the
+   step's bytes bound reading every weight but the embedding, the valid
+   ring slots and the recurrent states; (d) the same run again: equal
+   tokens; (e) batch 1 at an 8,192-token prompt: prefill seconds, peak
+   memory, the step beside (a)'s, finite logits, 0 syncs, the cache the
+   size of the 1,024-token one; (b) a 2,040-token prompt and 16
+   teacher-forced steps across position 2,048 against one prefill of 2,056
+   tokens, in bf16 and in a float32 copy, each layer on the prefill's own
+   layer inputs (outputs, h, conv tails, rings: bf16 within 0.15, float32
+   within 1e-3 of max|want|) and the float32 logits end to end (0.15,
+   top-1 >= 0.5), with a trace of 8 batch-4 decode steps; (c) a 4-layer
+   copy (one group and a tail layer) with the window cut to 64, prompt 200
+   and 4 steps on the card and the CPU, in bf16 and float32, within phase
+   11's limits; any failed check raises;
+15. one JSON line of the sharded topology, one of the baselines (each
    path's seconds, quality and launches), one of clustered-KV decode, one
    of phase 10 (``{"dryrun": ...}``), one of the kernels (with each
    kernel's launches on the baselines' paths, its numbers at their shapes,
    its launches in phase 9 and its ``autotune`` field: the table's knob,
    its entries' shapes and knobs and phase 10's times, or "exempt" with
-   the reason), one of phase 11 (``{"lm_serve": ...}``), one of phase 12
-   (``{"lm_moe": ...}``), the card's
-   ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+   the reason), one each of phases 11–14 (``{"lm_serve": ...}``,
+   ``{"lm_moe": ...}``, ``{"lm_ssm": ...}``, ``{"lm_hybrid": ...}``), the
+   card's ``nvidia-smi`` line, and last ``{"ok": true, "device":
+   {...}}``.
 
 Every bound comes from ``launch/roofline.py``'s inventory and every
 CUDA-event time from ``obs.timing.device_span``.
@@ -3298,7 +3324,12 @@ def lm_bounds(cfg, batch, prompt_len, gen):
     router's (2·T·D·E, counted at the bf16 rate).  An ssm step also reads
     and writes each layer's SSD state and conv tail (``ssm_cache_bytes``,
     its ``n_kv_heads`` are 0), and its prefill adds the SSD scan's float32
-    products (``ssd_ops``) at the FP32 rate, as TF32 is off."""
+    products (``ssd_ops``) at the FP32 rate, as TF32 is off.  A hybrid
+    model's KV lives in its attention layers only, in rings of ``window``
+    slots (a step reads the valid ones, at most ``window``); its recurrent
+    layers' h and conv tails are read and written each step
+    (``hybrid_state_bytes``), and its prefill's attention takes
+    min(q + 1, window) keys a query."""
     import torch
     from repro_torch.models import Model
     from repro_torch.models.moe import capacity
@@ -3306,17 +3337,24 @@ def lm_bounds(cfg, batch, prompt_len, gen):
     w = sum(p.numel() * p.element_size()
             for n, p in meta.named_parameters() if n != "embed")
     D, L_ = cfg.d_model, cfg.n_layers
-    kv_row = 2 * L_ * batch * cfg.n_kv_heads * cfg.head_dim * 2
     mean_len = prompt_len + gen / 2
+    n_attn, keys = L_, prompt_len ** 2 / 2
+    if cfg.family == "hybrid":     # a step reads min(pos + 1, W) slots
+        W = cfg.window
+        n_attn = (L_ // len(cfg.block_pattern)) \
+            * cfg.block_pattern.count("attn")
+        mean_len = min(mean_len + 1, W)
+        keys = (min(prompt_len, W) * (min(prompt_len, W) + 1) / 2
+                + max(prompt_len - W, 0) * W)
+    kv_row = 2 * n_attn * batch * cfg.n_kv_heads * cfg.head_dim * 2
     step_bytes = w + batch * D * 2 + kv_row * (mean_len + 1) \
         + batch * cfg.vocab_padded * 4
     dense = sum(p.numel() for n, p in meta.named_parameters()
-                if n.startswith("layers.") and p.dtype == torch.bfloat16
-                and ".moe.we_" not in n)
+                if n.startswith(("layers.", "groups.", "tail."))
+                and p.dtype == torch.bfloat16 and ".moe.we_" not in n)
     T = batch * prompt_len
     ops = 2 * dense * T + 2 * D * cfg.vocab_padded * batch \
-        + 2 * 2 * batch * cfg.n_heads * cfg.head_dim * prompt_len ** 2 / 2 \
-        * L_
+        + 2 * 2 * batch * cfg.n_heads * cfg.head_dim * keys * n_attn
     if cfg.family == "moe":
         E, K, Fe = cfg.n_experts, cfg.experts_per_token, cfg.moe_d_ff
         C = capacity(T, E, K, cfg.moe_capacity_factor)
@@ -3325,6 +3363,8 @@ def lm_bounds(cfg, batch, prompt_len, gen):
     if cfg.family == "ssm":
         step_bytes += 2 * ssm_cache_bytes(cfg, batch)
         f32_ops = ssd_ops(cfg, batch, prompt_len)
+    if cfg.family == "hybrid":
+        step_bytes += 2 * hybrid_state_bytes(cfg, batch)
     return (step_bytes / (HBM_TBS * 1e12) * 1e3,
             (ops / BF16_TFLOPS + f32_ops / FP32_TFLOPS) / 1e12 * 1e3,
             step_bytes)
@@ -3336,6 +3376,24 @@ def ssm_cache_bytes(cfg, batch):
     return cfg.n_layers * batch * (
         cfg.ssm_heads * cfg.ssm_head_dim * cfg.ssm_state * 4
         + (cfg.conv_width - 1) * cfg.d_inner * 2)
+
+
+def hybrid_state_bytes(cfg, batch):
+    """Bytes of a hybrid cache's recurrent part: each recurrent layer's
+    float32 h (B, lru_width) and bf16 conv tail (B, W-1, lru_width)."""
+    n_rec = cfg.n_layers - (cfg.n_layers // len(cfg.block_pattern)) \
+        * cfg.block_pattern.count("attn")
+    return n_rec * batch * cfg.lru_width * (4 + (cfg.conv_width - 1) * 2)
+
+
+def cache_bytes(cache):
+    """Bytes of every tensor in a cache (nested dicts and tuples)."""
+    if isinstance(cache, dict):
+        return sum(cache_bytes(v) for v in cache.values())
+    if isinstance(cache, (tuple, list)):
+        return sum(cache_bytes(v) for v in cache)
+    return cache.numel() * cache.element_size() if hasattr(
+        cache, "numel") else 0
 
 
 def ssd_ops(cfg, batch, prompt_len):
@@ -4230,6 +4288,333 @@ def lm_ssm_phase():
     return out
 
 
+# --------------------------------------------------------------- phase 14
+# RecurrentGemma serving: RecurrentGemma-9B at its published widths and all
+# 38 layers (12 (rec, rec, attn) groups and a tail of two recurrent layers).
+
+HYB = dict(arch="recurrentgemma-9b", batch=4, prompt_len=1024, gen=32,
+           trace_steps=8)               # (a), (d): nothing cut
+HYB_WRAP = dict(batch=2, prompt_len=2040, extra=16)   # (b): crosses 2,048
+HYB_CPU = dict(n_layers=4, window=64, batch=2, prompt_len=200,
+               steps=4)                 # (c): one group and a tail layer
+HYB_LONG = dict(batch=1, prompt_len=8192, gen=8)      # (e): 4x the window
+
+
+@contextlib.contextmanager
+def hybrid_layer_log():
+    """While open, every ``model._rec_block_seq`` and
+    ``model._dense_block_seq`` call (``Model.prefill`` looks them up at call
+    time) records its block, input x and output (for a recurrent block also
+    its final h and conv tail, for an attention block its k and v)."""
+    from repro_torch.models import model as model_lib
+    calls = []
+    real_rec, real_dense = model_lib._rec_block_seq, model_lib._dense_block_seq
+
+    def rec(lp, x, cfg):
+        out = real_rec(lp, x, cfg)
+        calls.append(("rec", lp, x, out[0], out[1]))
+        return out
+
+    def dense(lp, x, cfg, positions, **kw):
+        out = real_dense(lp, x, cfg, positions, **kw)
+        calls.append(("attn", lp, x, out[0], out[1]))
+        return out
+    model_lib._rec_block_seq, model_lib._dense_block_seq = rec, dense
+    try:
+        yield calls
+    finally:
+        model_lib._rec_block_seq = real_rec
+        model_lib._dense_block_seq = real_dense
+
+
+def hybrid_decode_vs_prefill(model, full, n, extra):
+    """(b) on ``model`` (bf16 or float32): the prompt's prefill (n tokens)
+    and ``extra`` teacher-forced steps against one prefill of the longer
+    sequence (``want``), end to end (logits: max|Δ| / max(max|want|, 1),
+    top-1; every layer's h, conv tail and k/v ring: max|Δ| over that
+    layer's max|want|), and layer by layer on ``want``'s own layer inputs:
+    each layer's prefill of the prompt then ``extra`` decode steps against
+    that layer's output at those positions, its final h and conv tail or
+    its ring (``_ring_init`` of the long prefill's k and v)."""
+    import torch
+    from repro_torch.models import model as model_lib
+    cfg, vocab, W = model.cfg, model.cfg.vocab, model.cfg.window
+    with hybrid_layer_log() as calls:
+        want, wcache = model.prefill({"tokens": full}, n + extra)
+    logits, cache = model.prefill({"tokens": full[:, :n]}, n + extra)
+    for i in range(extra):
+        logits, cache = model.decode_step(full[:, n + i: n + i + 1], cache)
+    logits, want = logits[:, :vocab], want[:, :vocab]
+    if not (torch.isfinite(logits).all() and torch.isfinite(want).all()):
+        raise RuntimeError("lm_hybrid (b): non-finite logits")
+    err = float((logits - want).abs().max())
+    a, b = logits.argmax(-1), want.argmax(-1)
+    states = {}
+    for key, pair in list(cache["groups"].items()) + [("tail",
+                                                        cache["tail"])]:
+        wpair = wcache["tail"] if key == "tail" else wcache["groups"][key]
+        rec = key == "tail" or cfg.block_pattern[int(key[1:])] == "rec"
+        for part, g, w in zip(("h", "conv") if rec else ("k", "v"), pair,
+                              wpair):
+            states[f"{key}.{part}"] = [_rel(a, b) for a, b in zip(g, w)]
+    end_to_end = dict(
+        max_rel_err=err / max(float(want.abs().max()), 1.0),
+        rel_to_max=err / float(want.abs().max()), max_abs_err=err,
+        top1=float((a == b).float().mean()),
+        flipped_row_gaps=[float(want[r, b[r]] - want[r, a[r]])
+                          for r in range(a.shape[0]) if a[r] != b[r]],
+        state_max_rel={k: max(v) for k, v in states.items()})
+    positions = torch.arange(n, device=full.device)
+    layers = []
+    for kind, lp, x, y, st in calls:
+        if kind == "rec":
+            _, (h, tail) = model_lib._rec_block_seq(lp, x[:, :n], cfg)
+            outs = [model_lib._rec_block_step(lp, x[:, n + j: n + j + 1], h,
+                                              tail, cfg)
+                    for j in range(extra)]
+            got, wst = (h, tail), st
+        else:
+            _, (k, v), _ = model_lib._dense_block_seq(
+                lp, x[:, :n], cfg, positions, window=W)
+            kc, vc = (model_lib._ring_init(t, W) for t in (k, v))
+            outs = [model_lib._attn_block_step(lp, x[:, n + j: n + j + 1],
+                                               kc, vc, n + j, cfg)
+                    for j in range(extra)]
+            got, wst = (kc, vc), tuple(model_lib._ring_init(t, W)
+                                       for t in st)
+        layers.append(dict(kind=kind,
+                           out=_rel(torch.cat(outs, 1), y[:, n:]),
+                           state=[_rel(g, w) for g, w in zip(got, wst)]))
+    del calls
+    worst = dict(out=max(r["out"] for r in layers),
+                 state=max(max(r["state"]) for r in layers))
+    return dict(max_abs_logit=float(want.abs().max()), len=cache["len"],
+                end_to_end=end_to_end, by_layer=layers, by_layer_max=worst)
+
+
+def hybrid_card_vs_cpu(cfg):
+    """(c): a 4-layer copy at full width (one group and one tail layer, so
+    every branch runs), window cut to 64 so that prompt 200 plus 4 steps
+    wrap the ring, on the card and on the CPU, in bf16 as served and then
+    both copies in float32, each held to phase 11's limits (logits within
+    ``LM_CPU_TOL`` of max|want|, top-1 equal but at near-ties)."""
+    import torch
+    from repro_torch.models import Model
+    from repro_torch.models.model import init_params
+    c = HYB_CPU
+    cfg = cfg.scaled(n_layers=c["n_layers"], window=c["window"])
+    card = init_params(cfg, torch.Generator(DEV).manual_seed(SEED), DEV)
+    cpu = Model(cfg, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    n, steps = c["prompt_len"], c["steps"]
+    toks = torch.randint(0, cfg.vocab, (c["batch"], n + steps),
+                         generator=torch.Generator().manual_seed(SEED + 2),
+                         dtype=torch.int32)
+    res = dict(layers=c["n_layers"], window=c["window"], batch=c["batch"],
+               prompt_len=n, decode_steps=steps)
+    for dtype in ("bf16", "f32"):
+        if dtype == "f32":
+            card.float(), cpu.float()
+        out, secs, routes = _card_and_cpu(card, cpu, toks, n, steps,
+                                          cfg.vocab)
+        rels, agree, ties, missed, _ = _compare(out, routes,
+                                                "lm_hybrid (c)")
+        res[dtype] = dict(max_rel_err=max(rels), rel_errs=rels,
+                          top1_agree=agree, top1_near_ties=ties,
+                          top1_missed=missed, seconds=secs)
+    del card, cpu
+    log(f"lm_hybrid (c) card vs CPU: {json.dumps(res)}")
+    for dtype in ("bf16", "f32"):
+        r = res[dtype]
+        if r["top1_missed"] or r["max_rel_err"] > LM_CPU_TOL:
+            raise RuntimeError(
+                f"lm_hybrid (c): {dtype} card vs CPU {r['max_rel_err']:.4g} "
+                f"(limit {LM_CPU_TOL}), top-1 missed {r['top1_missed']}")
+    return res
+
+
+def lm_hybrid_phase():
+    """Phase 14: RecurrentGemma serving (``launch.serve.serve``) at
+    RecurrentGemma-9B's published widths and all 38 layers: (a) batch 4,
+    prompt 1,024, 32 greedy tokens; (d) the same run again, equal tokens;
+    (e) batch 1 at an 8,192-token prompt (4x the window), 8 tokens; (b) a
+    2,040-token prompt + 16 teacher-forced steps across position 2,048
+    against one prefill of the longer sequence, in bf16 and in a float32
+    copy of the same weights, end to end and layer by layer
+    (``hybrid_decode_vs_prefill``), with a trace of 8 batch-4 decode steps
+    between them; (c) a 4-layer copy on the card against the CPU.  Raises
+    on any failed check.  None of the eight kernels may launch."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import init_params
+    c, e, w = HYB, HYB_LONG, HYB_WRAP
+    cfg = get_config(c["arch"])
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    runs = []
+    for _ in range(2):                     # (a), then (d)
+        t0 = time.perf_counter()
+        toks, stats = serve(cfg, batch=c["batch"], prompt_len=c["prompt_len"],
+                            gen=c["gen"], seed=SEED, device=DEV)
+        stats["wall_s"] = time.perf_counter() - t0
+        runs.append((toks.cpu(), stats))
+    peak = torch.cuda.max_memory_allocated()
+    toks, st = runs[0]
+    bound_step, bound_prefill, step_bytes = lm_bounds(
+        cfg, c["batch"], c["prompt_len"], c["gen"])
+    serve_out = dict(
+        arch=c["arch"], layers=cfg.n_layers, batch=c["batch"],
+        prompt_len=c["prompt_len"], gen=c["gen"], window=cfg.window,
+        prefill_s=st["prefill_s"], decode_s=st["decode_s"],
+        tok_per_s=st["tok_per_s"], decode_step_ms=st["decode_step_ms"],
+        decode_step_ms_median=statistics.median(st["decode_step_ms"]),
+        decode_step_ms_min=min(st["decode_step_ms"]),
+        decode_step_bound_ms=bound_step, decode_step_bytes=step_bytes,
+        recurrent_state_bytes=hybrid_state_bytes(cfg, c["batch"]),
+        prefill_bound_ms=bound_prefill,
+        decode_host_syncs=[s["decode_host_syncs"] for _, s in runs],
+        rerun=dict(prefill_s=runs[1][1]["prefill_s"],
+                   decode_s=runs[1][1]["decode_s"],
+                   tok_per_s=runs[1][1]["tok_per_s"],
+                   decode_step_ms_median=statistics.median(
+                       runs[1][1]["decode_step_ms"])),
+        wall_s=[s["wall_s"] for _, s in runs], max_memory_allocated=peak)
+    log(f"lm_hybrid (a)/(d): {json.dumps(serve_out)}")
+    if any(s["decode_host_syncs"] for _, s in runs):
+        raise RuntimeError("lm_hybrid (a): host syncs inside decode_step")
+    if not torch.equal(runs[0][0], runs[1][0]):
+        raise RuntimeError("lm_hybrid (d): two greedy runs differ")
+    if toks.shape != (c["batch"], c["gen"]) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.vocab:
+        raise RuntimeError(f"lm_hybrid (a): tokens {tuple(toks.shape)} "
+                           "out of range")
+    del runs, toks
+    torch.cuda.empty_cache()
+
+    # (e) long context: batch 1 at 8,192 tokens
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ltoks, lst = serve(cfg, batch=e["batch"], prompt_len=e["prompt_len"],
+                       gen=e["gen"], seed=SEED, device=DEV)
+    lbound_step, lbound_prefill, lstep_bytes = lm_bounds(
+        cfg, e["batch"], e["prompt_len"], e["gen"])
+    long_out = dict(
+        batch=e["batch"], prompt_len=e["prompt_len"], gen=e["gen"],
+        prefill_s=lst["prefill_s"], prefill_bound_ms=lbound_prefill,
+        decode_step_ms=lst["decode_step_ms"],
+        decode_step_ms_median=statistics.median(lst["decode_step_ms"]),
+        decode_step_bound_ms=lbound_step, decode_step_bytes=lstep_bytes,
+        batch4_prompt1024_step_ms_median=serve_out["decode_step_ms_median"],
+        tok_per_s=lst["tok_per_s"], decode_host_syncs=lst["decode_host_syncs"],
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        wall_s=time.perf_counter() - t0)
+    del ltoks
+    torch.cuda.empty_cache()
+
+    # (b) decode matches prefill across the wrap, bf16 then float32;
+    # between them the long prompt's logits and cache on the same weights
+    # and a trace of batch-4 decode steps
+    model = init_params(cfg, torch.Generator(DEV).manual_seed(SEED), DEV)
+    n, extra = w["prompt_len"], w["extra"]
+    full = torch.randint(0, cfg.vocab, (w["batch"], n + extra),
+                         generator=torch.Generator(DEV).manual_seed(SEED + 1),
+                         dtype=torch.int32, device=DEV)
+    decode = dict(prompt_len=n, steps=extra, window=cfg.window,
+                  bf16=hybrid_decode_vs_prefill(model, full, n, extra))
+    log(f"lm_hybrid (b) decode vs prefill, bf16: "
+        f"{json.dumps(decode['bf16'])}")
+    torch.cuda.empty_cache()
+
+    long = torch.randint(0, cfg.vocab, (e["batch"], e["prompt_len"] + 1),
+                         generator=torch.Generator(DEV).manual_seed(SEED + 4),
+                         dtype=torch.int32, device=DEV)
+    logits, lcache = model.prefill({"tokens": long[:, :-1]}, 0)
+    step, lcache = model.decode_step(long[:, -1:], lcache)
+    _, scache = model.prefill({"tokens": long[:, :c["prompt_len"]]}, 0)
+    long_out["finite_logits"] = bool(torch.isfinite(logits).all()
+                                     and torch.isfinite(step).all())
+    long_out["cache_bytes"] = {f"prompt_{k}": cache_bytes(cache) for k, cache
+                               in ((e["prompt_len"], lcache),
+                                   (c["prompt_len"], scache))}
+    long_out["cache_same_size"] = (
+        cache_bytes(lcache) == cache_bytes(scache)
+        and all(a.shape == b.shape for a, b in zip(
+            (t for p in lcache["groups"].values() for t in p),
+            (t for p in scache["groups"].values() for t in p))))
+    log(f"lm_hybrid (e) long context: {json.dumps(long_out)}")
+    del logits, step, lcache, scache, long
+    if lst["decode_host_syncs"] or not long_out["finite_logits"] \
+            or not long_out["cache_same_size"]:
+        raise RuntimeError(
+            f"lm_hybrid (e): syncs {lst['decode_host_syncs']}, finite "
+            f"{long_out['finite_logits']}, cache bytes "
+            f"{long_out['cache_bytes']}")
+
+    ts = c["trace_steps"]
+    tt = torch.randint(0, cfg.vocab, (c["batch"], c["prompt_len"] + ts),
+                       generator=torch.Generator(DEV).manual_seed(SEED + 5),
+                       dtype=torch.int32, device=DEV)
+    _, cache = model.prefill({"tokens": tt[:, :c["prompt_len"]]}, 0)
+    prof = profile_window(
+        f"lm hybrid decode, {ts} steps, {cfg.n_layers} layers",
+        lambda: [model.decode_step(tt[:, c["prompt_len"] + i:
+                                      c["prompt_len"] + i + 1], cache)
+                 for i in range(ts)])
+    trace = None if prof is None else dict(
+        batch=c["batch"], steps=ts,
+        wall_s=prof["wall_s"], busy_s=prof["busy_s"], idle=prof["idle"],
+        activities_per_step=prof["activities"] / ts,
+        busy_ms_per_step=prof["busy_s"] * 1e3 / ts,
+        matmul_ms_per_step=sum(
+            t for name, (t, _) in prof["by_name"].items()
+            if any(m in name for m in MATMUL_MARKERS)) / 1e3 / ts)
+    log(f"lm_hybrid decode trace: {json.dumps(trace)}")
+    del cache, tt
+    torch.cuda.empty_cache()
+    model.float()
+    decode["f32"] = hybrid_decode_vs_prefill(model, full, n, extra)
+    decode["limits"] = dict(bf16_by_layer=LM_DECODE_TOL,
+                            f32_by_layer=SSM_F32_TOL,
+                            f32_end_to_end_logits=LM_DECODE_TOL,
+                            f32_end_to_end_top1=LM_DECODE_TOP1)
+    log(f"lm_hybrid (b) decode vs prefill, float32: "
+        f"{json.dumps(decode['f32'])}")
+    del model, full
+    torch.cuda.empty_cache()
+    # Held: every layer's decode against the prefill on the same layer
+    # inputs (bf16 at the reference test's 0.15, float32 at SSM_F32_TOL),
+    # and the float32 logits end to end at the reference test's limits.
+    # Reported, not held: the end-to-end states and the bf16 logits (a deep
+    # random-weight stack amplifies rounding, as phase 13 shows).
+    b16, f32 = decode["bf16"], decode["f32"]
+    f32e = f32["end_to_end"]
+    if not (max(b16["by_layer_max"].values()) < LM_DECODE_TOL
+            and max(f32["by_layer_max"].values()) <= SSM_F32_TOL
+            and f32e["max_rel_err"] < LM_DECODE_TOL
+            and f32e["top1"] >= LM_DECODE_TOP1):
+        raise RuntimeError(
+            f"lm_hybrid (b): decode vs prefill by layer: bf16 "
+            f"{b16['by_layer_max']} (limit {LM_DECODE_TOL}), float32 "
+            f"{f32['by_layer_max']} (limit {SSM_F32_TOL}); float32 logits "
+            f"end to end {f32e['max_rel_err']:.4g}, top-1 {f32e['top1']}")
+
+    cpu = hybrid_card_vs_cpu(cfg)          # (c)
+    torch.cuda.empty_cache()
+    launched = {k: n for k, n in _build.launch_counts.items() if n}
+    if launched:
+        raise RuntimeError(f"lm_hybrid: kernels launched {launched}")
+    out = dict(serve=serve_out, long_context=long_out,
+               decode_vs_prefill=decode, card_vs_cpu=cpu, trace=trace,
+               kernel_launches=launched,
+               seconds=time.perf_counter() - t_phase)
+    log(f"lm_hybrid phase: {out['seconds']:.1f} s")
+    return out
+
+
 def autotune_field(name, tuned):
     """A kernel entry's ``autotune`` field: the table's knob, its entries
     (shape and knob) and phase 10's times, or "exempt" with the reason from
@@ -4366,6 +4751,8 @@ def main() -> int:
     elapsed("LM serving (phases 11-12)")
     ssm_out = lm_ssm_phase()               # raises on a failed check
     elapsed("Mamba-2 serving (phase 13)")
+    hybrid_out = lm_hybrid_phase()         # raises on a failed check
+    elapsed("RecurrentGemma serving (phase 14)")
 
     kernels = [
         dict(name="gather_score", route="cuda",
@@ -4606,6 +4993,7 @@ def main() -> int:
     print(json.dumps({"lm_serve": lm}), flush=True)
     print(json.dumps({"lm_moe": moe_out}), flush=True)
     print(json.dumps({"lm_ssm": ssm_out}), flush=True)
+    print(json.dumps({"lm_hybrid": hybrid_out}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,7 @@ from repro_torch.core.knn_graph import KnnGraph
 from repro_torch.core.kv_cluster import KVClusters
 from repro_torch.index.ivf import IvfIndex, ShardedLists
 from repro_torch.index.quantize import Int8Codec, PqCodec
-from repro_torch.models.model import Cache, Model
+from repro_torch.models.model import Cache, Model, _hybrid_counts
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -127,13 +127,17 @@ def lm_params(params, cfg, device: DeviceLike = None) -> Model:
     init_params(cfg, key))``), leaf for leaf and in its dtypes (bf16
     matrices, float32 norms and biases; an MoE layer's ``moe`` subtree
     with its router, experts and ``shared`` MLP; a Mamba-2 layer's
-    projections, conv, ``A_log``, ``Dskip``, ``dt_bias`` and norms), on
-    ``device`` (default ``cuda``; pass ``device="cpu"`` for the CPU).
+    projections, conv, ``A_log``, ``Dskip``, ``dt_bias`` and norms; for
+    the hybrid family ``groups`` of ``b{i}_rec``/``b{i}_attn`` subtrees
+    stacked over the groups and ``tail``, the recurrent layers left over,
+    stacked over those), on ``device`` (default ``cuda``; pass
+    ``device="cpu"`` for the CPU).
 
     Raises ``ValueError`` unless the tree and the model hold the same
     leaves: a leaf the model lacks, a parameter the tree lacks, a stacked
-    leaf with another layer count than ``cfg.n_layers``, or another shape
-    or dtype."""
+    leaf with another count than the config's (``n_layers`` layers, or
+    ``n_layers // len(block_pattern)`` groups and the rest in the tail),
+    or another shape or dtype."""
     model = Model(cfg, device)
     dev = model.device
     own = dict(model.named_parameters())
@@ -149,21 +153,28 @@ def lm_params(params, cfg, device: DeviceLike = None) -> Model:
         own[name].copy_(t)
         loaded.add(name)
 
-    def walk(prefix, tree, layer=None):
+    def walk(prefix, tree, layer=None, n=0, unit=""):
         for key, sub in tree.items():
             if isinstance(sub, dict):
-                walk(f"{prefix}{key}.", sub, layer)
+                walk(f"{prefix}{key}.", sub, layer, n, unit)
             elif layer is None:
                 load(prefix + key, sub)
-            elif np.shape(sub)[0] != cfg.n_layers:
-                raise ValueError(f"{prefix}{key}: {np.shape(sub)[0]} layers "
-                                 f"stacked, the config has {cfg.n_layers}")
+            elif np.shape(sub)[0] != n:
+                raise ValueError(f"{prefix}{key}: {np.shape(sub)[0]} {unit} "
+                                 f"stacked, the config has {n}")
             else:
                 load(prefix + key, sub[layer])
 
-    walk("", {k: v for k, v in params.items() if k != "layers"})
-    for i in range(cfg.n_layers):
-        walk(f"layers.{i}.", params["layers"], i)
+    if cfg.family == "hybrid":
+        G, T = _hybrid_counts(cfg)
+        stacks = {"groups": (G, "groups"), "tail": (T, "layers")}
+    else:
+        stacks = {"layers": (cfg.n_layers, "layers")}
+    stacks = {k: v for k, v in stacks.items() if v[0] and k in params}
+    walk("", {k: v for k, v in params.items() if k not in stacks})
+    for key, (n, unit) in stacks.items():
+        for i in range(n):
+            walk(f"{key}.{i}.", params[key], i, n, unit)
     missing = sorted(set(own) - loaded)
     if missing:
         raise ValueError(f"not in the tree: {', '.join(missing)}")
@@ -173,10 +184,21 @@ def lm_params(params, cfg, device: DeviceLike = None) -> Model:
 def lm_cache(cache, device: DeviceLike = None) -> Cache:
     """The port's cache from the reference's, on ``device`` (default
     ``cuda``; pass ``device="cpu"`` for the CPU): a KV cache (``k``, ``v``
-    of (L, B, S, Hkv, hd) bf16) or an SSM cache (``state`` (L, B, H, P, N)
-    float32, ``conv`` (L, B, W-1, d_inner) bf16), told apart by their keys,
-    each array in its own dtype; the scalar ``len`` becomes a host int."""
+    of (L, B, S, Hkv, hd) bf16), an SSM cache (``state`` (L, B, H, P, N)
+    float32, ``conv`` (L, B, W-1, d_inner) bf16) or a hybrid cache
+    (``groups`` mapping ``b{i}`` to an (h, conv tail) or (k, v) ring pair,
+    ``tail`` an (h, conv tail) pair), told apart by their keys, each array
+    in its own dtype and a copy of its own (the reference's ``init_cache``
+    hands one array over as both k and v); the scalar ``len`` becomes a
+    host int."""
     dev = resolve_device(device)
+    if "groups" in cache:
+        out = {"groups": {k: tuple(_same_dtype(a, dev) for a in pair)
+                          for k, pair in cache["groups"].items()},
+               "len": int(cache["len"])}
+        if "tail" in cache:
+            out["tail"] = tuple(_same_dtype(a, dev) for a in cache["tail"])
+        return out
     keys = ("state", "conv") if "state" in cache else ("k", "v")
     return {**{k: _same_dtype(cache[k], dev) for k in keys},
             "len": int(cache["len"])}

@@ -8,15 +8,16 @@ host sync inside it raises on the card; on the card the stats also hold
 each step's device milliseconds (CUDA events on the stream between
 steps).
 
-Usage (any dense, MoE or Mamba-2 arch, e.g. ``qwen2-moe-a2.7b``,
-``grok-1-314b``, ``mamba2-2.7b``; ``--preset full`` for the published
-widths):
+Usage (any dense, MoE, Mamba-2 or RecurrentGemma arch, e.g.
+``qwen2-moe-a2.7b``, ``grok-1-314b``, ``mamba2-2.7b``,
+``recurrentgemma-9b``; ``--preset full`` for the published widths):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-72b \\
       --preset smoke --batch 2 --prompt-len 32 --gen 8 --device cpu
 
 The cache is whatever the family's ``Model.prefill`` builds (KV of
-``prompt_len + gen`` positions, or Mamba-2's fixed-size SSD states and
-conv tails); each decode step advances it in place.
+``prompt_len + gen`` positions, Mamba-2's fixed-size SSD states and conv
+tails, or RecurrentGemma's RG-LRU states, conv tails and ``window``-slot
+k/v rings, fixed-size too); each decode step advances it in place.
 """
 from __future__ import annotations
 

@@ -57,6 +57,12 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out.to(x.dtype)
 
 
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, i.e. ``logaddexp(x, 0)``: ``max(x, 0) +
+    log1p(exp(-|x|))`` (``F.softplus`` turns linear above its threshold)."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
 def silu(g: torch.Tensor) -> torch.Tensor:
     """The reference's ``jax.nn.silu``: ``g * sigmoid(g)`` with its sigmoid
     ``1 / (1 + exp(-g))``, each op rounded to g's dtype (a fused

@@ -1,5 +1,5 @@
-"""The dense, MoE and Mamba-2 (ssm) families of the model zoo (counterpart
-of ``repro.models.model``).
+"""The dense, MoE, Mamba-2 (ssm) and RecurrentGemma (hybrid) families of
+the model zoo (counterpart of ``repro.models.model``).
 
 A GQA transformer: RoPE (partial for ChatGLM), optional QKV bias, SwiGLU
 or GELU MLP, RMS or layer norms, an untied ``lm_head`` and an optional
@@ -9,36 +9,49 @@ config has them, shared experts (one SwiGLU MLP of ``n_shared_experts ·
 moe_d_ff``); decode (S == 1) runs at capacity factor ``n_experts``, so it
 never drops a token.  The ssm family is attention-free: each layer is a
 Mamba-2 block (``models/ssm.py``'s chunked SSD scan over a depthwise causal
-conv of x, gated by silu(z), out-normed).  Entry points are the reference's
-serving ones: ``Model.prefill`` (builds the cache, returns last-position
-logits) and ``Model.decode_step`` (one token against the cache).
+conv of x, gated by silu(z), out-normed).  The hybrid family repeats
+``block_pattern`` (RecurrentGemma's (rec, rec, attn)) over ``n_layers //
+3`` groups and ends in a tail of the recurrent layers left over: a
+recurrent layer is an RG-LRU (``models/rglru.py``) over a causal conv of
+its x branch, gated by a GELU branch, then an MLP; an attention layer is a
+dense layer with local attention over the last ``window`` positions.
+Entry points are the reference's serving ones: ``Model.prefill`` (builds
+the cache, returns last-position logits) and ``Model.decode_step`` (one
+token against the cache).
 
 What is PyTorch idiom here rather than a copy:
 - ``Model`` is an ``nn.Module`` on one device that holds its weights, in
   the reference's layouts and dtypes (bf16 matrices, float32 norms and
   biases); its layers are an ``nn.ModuleList`` of ``DenseBlock``s or
   ``MambaBlock``s walked in a loop, where the reference scans stacked
-  leaves.  The reference's ``_norm_params``/``_attn_params``/
-  ``_mlp_params``/``_moe_params``/``_dense_layer_params``/
-  ``_mamba_layer_params`` are the ``Norm``/``Attention``/``Mlp``/
-  ``MoeFfn``/``DenseBlock``/``MambaBlock`` constructors, with the
-  reference's names, and ``init_params`` draws the weights from a
-  ``torch.Generator``.  The SSD scan's chunk loop is a Python loop where
-  the reference has ``lax.scan``.
-- The cache is the reference's: k and v of (L, B, S, Hkv, hd) bf16, or for
+  leaves, and for the hybrid ``groups`` of ``HybridGroup`` (blocks
+  ``b0_rec``, ``b1_rec``, ``b2_attn``) and ``tail`` of ``RecBlock``s, so a
+  parameter's name (``groups.3.b2_attn.attn.wq``, ``tail.1.lam``) maps
+  onto the reference's tree.  The reference's ``_norm_params``/
+  ``_attn_params``/``_mlp_params``/``_moe_params``/``_dense_layer_params``/
+  ``_mamba_layer_params``/``_rec_layer_params`` are the ``Norm``/
+  ``Attention``/``Mlp``/``MoeFfn``/``DenseBlock``/``MambaBlock``/
+  ``RecBlock`` constructors, with the reference's names, and
+  ``init_params`` draws the weights from a ``torch.Generator``.  The SSD
+  scan's chunk loop is a Python loop where the reference has ``lax.scan``.
+- The cache is the reference's: k and v of (L, B, S, Hkv, hd) bf16; for
   ssm each layer's SSD ``state`` (L, B, H, P, N) float32 and ``conv`` tail
-  (L, B, W-1, d_inner) in the activations' dtype, plus ``len``, here a
-  host int, so a decode step reads nothing back from the device.
-  ``decode_step`` writes the new position (ssm: the new state and tail)
-  into the caller's cache in place (the reference's server donates the
-  cache to the step) and raises where the reference's
-  ``dynamic_update_slice`` would clamp a write past the cache's end.
+  (L, B, W-1, d_inner) in the activations' dtype; for the hybrid
+  ``groups`` mapping ``b{i}`` to a recurrent block's (h (G, B, W) float32,
+  conv tails) or an attention block's (k, v) rings (G, B, window, Hkv, hd)
+  (position p at slot p mod window) and ``tail`` the tail layers' (h,
+  conv tails); plus ``len``, here a host int, so a decode step reads
+  nothing back from the device.  ``decode_step`` writes the new position
+  (ssm: the new state and tail; hybrid: h, tails and the ring slot) into
+  the caller's cache in place (the reference's server donates the cache
+  to the step) and raises where the reference's ``dynamic_update_slice``
+  would clamp a write past the cache's end.
 - ``_shard_act`` (an XLA mesh constraint that is the identity on one
   device) has no counterpart.
 
 The backbone carries the MoE layers' auxiliary loss summed over layers,
 as the reference's does; serving drops it (training will read it).
-Families outside the port so far (hybrid, audio, vlm) and training
+Families outside the port so far (audio, vlm) and training
 (``Model.loss``, ``lm_loss``) raise ``NotImplementedError`` naming their
 item of ``ROADMAP.md`` queue 1.
 """
@@ -55,13 +68,14 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as lru_lib
 from repro_torch.models import ssm as ssm_lib
 
 PDT = torch.bfloat16  # param dtype
 Cache = Dict[str, Any]
 
 # families still to port: ROADMAP.md queue 1, item 5
-_LATER = {"hybrid": "5(c)", "audio": "5(d)", "vlm": "5(d)"}
+_LATER = {"audio": "5(d)", "vlm": "5(d)"}
 _TRAINING = "5(e)"
 
 
@@ -70,7 +84,7 @@ def _check_family(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: ROADMAP.md queue 1 "
             f"item {_LATER[cfg.family]}")
-    if cfg.family not in ("dense", "moe", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise ValueError(cfg.family)
 
 
@@ -260,6 +274,72 @@ class MambaBlock(nn.Module):
         self.wo.copy_(L.dense_init(g, Di, (D,), dtype=PDT))
 
 
+class RecBlock(nn.Module):
+    """``_rec_layer_params``: norm; w_x, w_gate (D, W), conv_w (conv
+    width, W), w_r, w_i (W, W) and w_out (W, D) bf16; conv_b, lam, b_r,
+    b_i (W,) float32; ln2 and a SwiGLU or GELU ``mlp`` (W = ``lru_width``).
+    ``lam`` is the reference's constant ``linspace(0.5, 4.0, W)``; the
+    biases and norms stay zero."""
+
+    def __init__(self, cfg: ArchConfig, device: torch.device):
+        super().__init__()
+        D, Wd = cfg.d_model, cfg.lru_width
+        z = dict(dtype=PDT, device=device)
+        f = dict(dtype=torch.float32, device=device)
+        self.norm = Norm(cfg, D, device)
+        self.w_x = _param(torch.zeros((D, Wd), **z))
+        self.w_gate = _param(torch.zeros((D, Wd), **z))
+        self.conv_w = _param(torch.zeros((cfg.conv_width, Wd), **z))
+        self.conv_b = _param(torch.zeros(Wd, **f))
+        self.lam = _param(_linspace(0.5, 4.0, Wd).to(device))
+        self.w_r = _param(torch.zeros((Wd, Wd), **z))
+        self.b_r = _param(torch.zeros(Wd, **f))
+        self.w_i = _param(torch.zeros((Wd, Wd), **z))
+        self.b_i = _param(torch.zeros(Wd, **f))
+        self.w_out = _param(torch.zeros((Wd, D), **z))
+        self.ln2 = Norm(cfg, D, device)
+        self.mlp = Mlp(cfg, device)
+
+    def init(self, g: torch.Generator, cfg: ArchConfig) -> None:
+        """The reference's draws, in its order: fan-in truncated normals
+        (w_x, w_gate), conv_w a standard normal · 0.5, then w_r, w_i, w_out
+        and the MLP; each drawn in float32 and cast to bf16."""
+        D, Wd = cfg.d_model, cfg.lru_width
+        self.w_x.copy_(L.dense_init(g, D, (Wd,), dtype=PDT))
+        self.w_gate.copy_(L.dense_init(g, D, (Wd,), dtype=PDT))
+        self.conv_w.copy_(torch.randn((cfg.conv_width, Wd), generator=g,
+                                      dtype=torch.float32, device=g.device)
+                          .mul_(0.5).to(PDT))
+        for w in (self.w_r, self.w_i):
+            w.copy_(L.dense_init(g, Wd, (Wd,), dtype=PDT))
+        self.w_out.copy_(L.dense_init(g, Wd, (D,), dtype=PDT))
+        self.mlp.init(g)
+
+
+class HybridGroup(nn.Module):
+    """One group of ``cfg.block_pattern``: block i is ``b{i}_rec`` (a
+    ``RecBlock``) or ``b{i}_attn`` (a ``DenseBlock``), the reference's
+    group subtree."""
+
+    def __init__(self, cfg: ArchConfig, device: torch.device):
+        super().__init__()
+        for i, kind in enumerate(cfg.block_pattern):
+            self.add_module(f"b{i}_{kind}", RecBlock(cfg, device)
+                            if kind == "rec" else DenseBlock(cfg, device))
+
+    def blocks(self, cfg: ArchConfig):
+        """(i, kind, block) in the pattern's order."""
+        return [(i, kind, getattr(self, f"b{i}_{kind}"))
+                for i, kind in enumerate(cfg.block_pattern)]
+
+
+def _hybrid_counts(cfg: ArchConfig) -> Tuple[int, int]:
+    """(groups, tail layers): ``n_layers // len(pattern)`` groups and the
+    recurrent layers left over."""
+    G = cfg.n_layers // len(cfg.block_pattern)
+    return G, cfg.n_layers - G * len(cfg.block_pattern)
+
+
 # ===========================================================================
 # blocks — sequence (prefill) path
 # ===========================================================================
@@ -344,17 +424,11 @@ def _dense_block_seq(lp: DenseBlock, x: torch.Tensor, cfg: ArchConfig,
     return x + f, kv, aux
 
 
-def _softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus``, i.e. ``logaddexp(x, 0)``: ``max(x, 0) +
-    log1p(exp(-|x|))`` (``F.softplus`` turns linear above its threshold)."""
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
-
-
 def _mamba_in(lp: MambaBlock, x: torch.Tensor, cfg: ArchConfig):
     """(z, x, B, C (B, S, ·) in x's dtype, dt (B, S, H) float32) of the
     normed input: the five projections and ``softplus(x·wdt + dt_bias)``."""
     h = _apply_norm(lp.norm, x, cfg)
-    dt = _softplus((h @ lp.wdt).float() + lp.dt_bias)
+    dt = L.softplus((h @ lp.wdt).float() + lp.dt_bias)
     return h @ lp.wz, h @ lp.wx, h @ lp.wB, h @ lp.wC, dt
 
 
@@ -398,6 +472,66 @@ def _mamba_block_step(lp: MambaBlock, x: torch.Tensor, state: torch.Tensor,
     return _mamba_out(lp, x, y, xh, z, cfg)
 
 
+def _rec_in(lp: RecBlock, x: torch.Tensor, cfg: ArchConfig):
+    """(x branch, gate) of the normed input, in x's dtype: the gate is the
+    tanh GELU of its projection in float32."""
+    h = _apply_norm(lp.norm, x, cfg)
+    gate = F.gelu((h @ lp.w_gate).float(), approximate="tanh").to(x.dtype)
+    return h @ lp.w_x, gate
+
+
+def _rec_out(lp: RecBlock, x: torch.Tensor, y: torch.Tensor,
+             gate: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The two residuals: ``x + w_out(y · gate)``, then its MLP on ln2."""
+    x = x + (y * gate) @ lp.w_out
+    return x + _mlp_apply(lp.mlp, _apply_norm(lp.ln2, x, cfg), cfg)
+
+
+def _rec_block_seq(lp: RecBlock, x: torch.Tensor, cfg: ArchConfig):
+    """x (B, S, D) -> (x, (final h (B, W) float32, conv tail (B, W-1, W)
+    in x's dtype)): the reference's ``_rec_block_seq`` and its prefill's
+    ``rec_with_state`` in one."""
+    xb, gate = _rec_in(lp, x, cfg)
+    xb, tail = ssm_lib.causal_conv1d(xb, lp.conv_w, lp.conv_b)
+    y, h = lru_lib.rglru_scan(xb, lp.lam, lp.w_r, lp.b_r, lp.w_i, lp.b_i)
+    return _rec_out(lp, x, y, gate, cfg), (h, tail)
+
+
+def _rec_block_step(lp: RecBlock, x: torch.Tensor, h: torch.Tensor,
+                    tail: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """One token x (B, 1, D) through a recurrent layer; writes its new h
+    and conv tail into ``h`` and ``tail`` (cache views)."""
+    xb, gate = _rec_in(lp, x, cfg)
+    xb, new_tail = ssm_lib.causal_conv1d(xb, lp.conv_w, lp.conv_b, tail)
+    y, new = lru_lib.rglru_step(xb[:, 0], h, lp.lam, lp.w_r, lp.b_r,
+                                lp.w_i, lp.b_i)
+    h.copy_(new)
+    tail.copy_(new_tail)
+    return _rec_out(lp, x, y[:, None, :], gate, cfg)
+
+
+def _attn_block_step(lp: DenseBlock, x: torch.Tensor, kc: torch.Tensor,
+                     vc: torch.Tensor, pos: int,
+                     cfg: ArchConfig) -> torch.Tensor:
+    """One token x (B, 1, D) at position ``pos`` through a local-attention
+    layer whose ring buffers ``kc``, ``vc`` (B, window, Hkv, hd) it writes
+    at slot ``pos % window``.  As the reference's ``attn_step``: no QKV
+    bias and RoPE over the whole head, whatever the config."""
+    W = cfg.window
+    posv = torch.arange(pos, pos + 1, device=x.device)
+    p = lp.attn
+    h = _apply_norm(lp.ln1, x, cfg)
+    q = L.apply_rope(_proj(h, p.wq), posv, base=cfg.rope_base)
+    k = L.apply_rope(_proj(h, p.wk), posv, base=cfg.rope_base)
+    slot = pos % W
+    kc[:, slot] = k[:, 0]
+    vc[:, slot] = _proj(h, p.wv)[:, 0]
+    o = attn.decode_attention(q, kc, vc, pos + 1, window=W)
+    x = x + _out_proj(o, p.wo)
+    f, _ = _ffn_seq(lp, _apply_norm(lp.ln2, x, cfg), cfg)
+    return x + f
+
+
 # ===========================================================================
 # backbone
 # ===========================================================================
@@ -415,12 +549,21 @@ def _embed_inputs(model: "Model", cfg: ArchConfig,
 def _backbone_seq(model: "Model", cfg: ArchConfig, x: torch.Tensor,
                   positions: torch.Tensor, *, collect_kv: bool = False):
     """Runs the layers.  Returns (hidden, (k, v) stacked (L, B, S, Hkv, hd)
-    or None, the layers' aux losses summed, float32 ())."""
+    or None, the layers' aux losses summed, float32 ()); ssm and hybrid
+    models return no kv (their prefill keeps its own states)."""
     ks, vs = [], []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         for lp in model.layers:
             x, _ = _mamba_block_seq(lp, x, cfg)
+        return x, None, aux_total
+    if cfg.family == "hybrid":
+        for kind, lp, _, _ in _hybrid_blocks(model):
+            if kind == "rec":
+                x, _ = _rec_block_seq(lp, x, cfg)
+            else:
+                x, _, _ = _dense_block_seq(lp, x, cfg, positions,
+                                           window=cfg.window)
         return x, None, aux_total
     for lp in model.layers:
         x, (k, v), a = _dense_block_seq(lp, x, cfg, positions)
@@ -430,6 +573,35 @@ def _backbone_seq(model: "Model", cfg: ArchConfig, x: torch.Tensor,
             vs.append(v)
     kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
     return x, kvs, aux_total
+
+
+def _hybrid_blocks(model: "Model"):
+    """(kind, block, cache key, index) for each layer of a hybrid model in
+    order: every group's blocks (key ``b{i}``, index the group), then the
+    tail's recurrent layers (key ``tail``)."""
+    for g, gp in enumerate(model.groups):
+        for i, kind, lp in gp.blocks(model.cfg):
+            yield kind, lp, f"b{i}", g
+    for t, lp in enumerate(model.tail):
+        yield "rec", lp, "tail", t
+
+
+def _hybrid_state(cache: Cache, key: str, index: int):
+    """A layer's two cache views: (h, conv tail) or (k ring, v ring)."""
+    pair = cache["tail"] if key == "tail" else cache["groups"][key]
+    return pair[0][index], pair[1][index]
+
+
+def _ring_init(k: torch.Tensor, W: int) -> torch.Tensor:
+    """The last W positions of prefill kv (B, S, H, hd) as ring state,
+    laid out so that position p occupies slot p mod W (decode's
+    convention); zeros after the prompt where S < W."""
+    B, S, H, hd = k.shape
+    if S <= W:
+        pad = torch.zeros((B, W - S, H, hd), dtype=k.dtype, device=k.device)
+        return torch.cat([k, pad], dim=1)
+    # index j holds position S-W+j; it belongs at slot (j + S) mod W
+    return torch.roll(k[:, S - W:], S % W, dims=1)
 
 
 def _logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -455,13 +627,16 @@ def lm_loss(*args, **kwargs):
 # ===========================================================================
 
 class Model(nn.Module):
-    """A dense, MoE or Mamba-2 decoder's weights on one device and its
-    serving steps.
+    """A dense, MoE, Mamba-2 or RecurrentGemma decoder's weights on one
+    device and its serving steps.
 
     ``Model(cfg, device)`` holds zeros (the reference's init for norms and
-    biases) and the SSM layers' constants; ``init(generator)`` draws the
-    matrices, ``interop.lm_params`` loads the reference's.
-    ``device=None`` means the card and raises where there is none.
+    biases) and the SSM and RG-LRU layers' constants; ``init(generator)``
+    draws the matrices, ``interop.lm_params`` loads the reference's.
+    ``device=None`` means the card and raises where there is none.  The
+    layers are ``layers``, or for the hybrid family ``groups`` (of
+    ``HybridGroup``) and ``tail`` (``RecBlock``s, empty when the pattern
+    divides ``n_layers``).
     """
 
     def __init__(self, cfg: ArchConfig, device: DeviceLike = None):
@@ -473,6 +648,12 @@ class Model(nn.Module):
         self.embed = _param(torch.zeros((Vp, D), dtype=PDT, device=dev))
         self.lm_head = _param(torch.zeros((D, Vp), dtype=PDT, device=dev))
         self.final_norm = Norm(cfg, D, dev)
+        if cfg.family == "hybrid":
+            G, T = _hybrid_counts(cfg)
+            self.groups = nn.ModuleList(HybridGroup(cfg, dev)
+                                        for _ in range(G))
+            self.tail = nn.ModuleList(RecBlock(cfg, dev) for _ in range(T))
+            return
         block = MambaBlock if cfg.family == "ssm" else DenseBlock
         self.layers = nn.ModuleList(block(cfg, dev)
                                     for _ in range(cfg.n_layers))
@@ -484,8 +665,8 @@ class Model(nn.Module):
     def init(self, generator: torch.Generator) -> "Model":
         """Draws the embedding, ``lm_head`` and every layer's matrices from
         ``generator`` (on this model's device), in that order, with the
-        reference's distributions; norms, biases and the SSM constants stay
-        as constructed."""
+        reference's distributions; norms, biases and the SSM and RG-LRU
+        constants stay as constructed."""
         if generator.device.type != self.device.type:
             raise ValueError(f"generator on {generator.device}, model on "
                              f"{self.device}")
@@ -494,8 +675,10 @@ class Model(nn.Module):
                                       cfg.d_model))
         self.lm_head.copy_(L.dense_init(generator, cfg.d_model,
                                         (cfg.vocab_padded,), dtype=PDT))
-        for lp in self.layers:
-            if cfg.family == "ssm":
+        blocks = ([lp for _, lp, _, _ in _hybrid_blocks(self)]
+                  if cfg.family == "hybrid" else self.layers)
+        for lp in blocks:
+            if isinstance(lp, (MambaBlock, RecBlock)):
                 lp.init(generator, cfg)
             else:
                 lp.attn.init(generator, cfg)
@@ -522,12 +705,15 @@ class Model(nn.Module):
                 cache_len: int) -> Tuple[torch.Tensor, Cache]:
         """Process the full prompt ``batch["tokens"]`` (B, S); returns (last
         logits (B, V) float32, cache of ``cache_len`` positions; for ssm
-        each layer's final SSD state and conv tail, whatever
-        ``cache_len``)."""
+        each layer's final SSD state and conv tail, for the hybrid each
+        recurrent layer's final h and conv tail and each attention layer's
+        window of k and v as a ring, whatever ``cache_len``)."""
         cfg = self.cfg
         x, _ = _embed_inputs(self, cfg, batch)
         if cfg.family == "ssm":
             x, cache = self._ssm_prefill(x)
+        elif cfg.family == "hybrid":
+            x, cache = self._hybrid_prefill(x)
         else:
             positions = torch.arange(x.shape[1], device=x.device)
             x, (k, v), _ = _backbone_seq(self, cfg, x, positions,
@@ -559,14 +745,62 @@ class Model(nn.Module):
                                     device=self.device),
                 "len": 0}
 
+    def _hybrid_prefill(self, x: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+        """The layers over the embedded prompt x (B, S, D), each layer's
+        state written into a new cache: a recurrent layer's final h and
+        conv tail, an attention layer's last ``window`` k and v as a ring
+        (``_ring_init``)."""
+        cfg = self.cfg
+        cache = self._hybrid_cache(x.shape[0], x.dtype)
+        positions = torch.arange(x.shape[1], device=x.device)
+        for kind, lp, key, idx in _hybrid_blocks(self):
+            a, b = _hybrid_state(cache, key, idx)
+            if kind == "rec":
+                x, (h, tail) = _rec_block_seq(lp, x, cfg)
+                a.copy_(h)
+                b.copy_(tail)
+            else:
+                x, (k, v), _ = _dense_block_seq(lp, x, cfg, positions,
+                                                window=cfg.window)
+                a.copy_(_ring_init(k, cfg.window))
+                b.copy_(_ring_init(v, cfg.window))
+        cache["len"] = x.shape[1]
+        return x, cache
+
+    def _hybrid_cache(self, batch_size: int, dtype: torch.dtype) -> Cache:
+        """Zeros in the reference's layout: ``groups`` maps ``b{i}`` to (h
+        (G, B, W) float32, conv tails (G, B, conv-1, W)) or (k, v) rings
+        (G, B, window, Hkv, hd), ``tail`` holds (h, conv tails) of the
+        tail layers; tails and rings in ``dtype``."""
+        cfg = self.cfg
+        B, Wd = batch_size, cfg.lru_width
+        G, T = _hybrid_counts(cfg)
+
+        def zeros(*shape, dt=dtype):
+            return torch.zeros(shape, dtype=dt, device=self.device)
+
+        def rec(n):
+            return (zeros(n, B, Wd, dt=torch.float32),
+                    zeros(n, B, cfg.conv_width - 1, Wd))
+        groups = {f"b{i}": rec(G) if kind == "rec" else tuple(
+            zeros(G, B, cfg.window, cfg.n_kv_heads, cfg.head_dim)
+            for _ in range(2)) for i, kind in enumerate(cfg.block_pattern)}
+        cache = {"groups": groups, "len": 0}
+        if T:
+            cache["tail"] = rec(T)
+        return cache
+
     def init_cache(self, batch_size: int, cache_len: int) -> Cache:
         """Zero-initialised cache; k and v are separate tensors, since the
         port's decode writes into them.  For ssm: the SSD states (L, B, H,
-        P, N) float32 and conv tails (L, B, W-1, d_inner) bf16, whatever
+        P, N) float32 and conv tails (L, B, W-1, d_inner) bf16; for the
+        hybrid ``_hybrid_cache``'s in bf16; both whatever
         ``cache_len``."""
         cfg = self.cfg
         if cfg.family == "ssm":
             return self._ssm_cache(batch_size, PDT)
+        if cfg.family == "hybrid":
+            return self._hybrid_cache(batch_size, PDT)
         kv = torch.zeros((cfg.n_layers, batch_size, cache_len,
                           cfg.n_kv_heads, cfg.head_dim), dtype=PDT,
                          device=self.device)
@@ -586,6 +820,8 @@ class Model(nn.Module):
             x = x + table[pos][None, None, :].to(PDT)
         if cfg.family == "ssm":
             x, cache = self._ssm_decode(x, cache)
+        elif cfg.family == "hybrid":
+            x, cache = self._hybrid_decode(x, cache, pos)
         else:
             x, cache = self._kv_decode(x, cache, pos)
         x = _apply_norm(self.final_norm, x, cfg)
@@ -609,6 +845,15 @@ class Model(nn.Module):
             x = _mamba_block_step(lp, x, st, tl, self.cfg)
         return x, {"state": cache["state"], "conv": cache["conv"],
                    "len": cache["len"] + 1}
+
+    def _hybrid_decode(self, x: torch.Tensor, cache: Cache, pos: int):
+        for kind, lp, key, idx in _hybrid_blocks(self):
+            a, b = _hybrid_state(cache, key, idx)
+            if kind == "rec":
+                x = _rec_block_step(lp, x, a, b, self.cfg)
+            else:
+                x = _attn_block_step(lp, x, a, b, pos, self.cfg)
+        return x, {**cache, "len": pos + 1}
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,

@@ -1448,3 +1448,53 @@ def test_ssm_serving_on_card_matches_cpu(dev):
             for g, w in zip(gcache[key], wcache[key]):
                 assert float((g - w).abs().max()) <= tol * float(
                     w.abs().max()), (key, tol)
+
+
+def test_hybrid_serving_on_card_matches_cpu(dev):
+    """The hybrid family at the SMOKE preset on the card: greedy ``serve``
+    deterministic with 0 host syncs in its decode steps; at window 16 a
+    prefill of 40 tokens (the ring rolls by 8) plus four decode steps
+    (across position 48) within 0.03·max|want| of the CPU's on the same
+    parameters in bf16, and within 1e-4·max|want| in float32: logits and
+    every h, conv tail and k/v ring."""
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch.train import scaled_config
+    from repro_torch.models import Model
+    from repro_torch.models.model import init_params
+    from repro_torch.obs.syncs import sync_counter
+    cfg = scaled_config("recurrentgemma-9b", "smoke")
+    t1, st = tserve.serve(cfg, batch=2, prompt_len=32, gen=6, device=dev)
+    t2, _ = tserve.serve(cfg, batch=2, prompt_len=32, gen=6, device=dev)
+    assert torch.equal(t1, t2) and st["decode_host_syncs"] == 0
+    assert len(st["decode_step_ms"]) == 5
+    cfg = cfg.scaled(window=16)
+    card = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    cpu = Model(cfg, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    toks = torch.randint(0, cfg.vocab, (2, 44),
+                         generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    for tol in (0.03, 1e-4):
+        if tol < 0.03:
+            card.float(), cpu.float()
+        outs = []
+        for m in (card, cpu):
+            logits, cache = m.prefill({"tokens": toks[:, :40].to(m.device)},
+                                      44)
+            seq = [logits.cpu()]
+            for i in range(4):
+                tok = toks[:, 40 + i: 41 + i].to(m.device)
+                with sync_counter() as sc:
+                    logits, cache = m.decode_step(tok, cache)
+                assert sc.syncs == 0 and cache["len"] == 41 + i
+                seq.append(logits.cpu())
+            states = [t.float().cpu() for pair in (
+                *cache["groups"].values(), cache["tail"]) for t in pair]
+            outs.append((seq, states))
+        (got, gstates), (want, wstates) = outs
+        for g, w in zip(got, want):
+            assert float((g - w).abs().max()) <= tol * float(w.abs().max())
+        for gs, ws in zip(gstates, wstates):
+            for g, w in zip(gs, ws):
+                assert float((g - w).abs().max()) <= tol * float(
+                    w.abs().max()), tol

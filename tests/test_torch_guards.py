@@ -65,6 +65,8 @@ NEW_MODULES = ("repro_torch.configs", "repro_torch.configs.gkmeans_paper",
                "repro_torch.models.layers", "repro_torch.models.attention",
                "repro_torch.models.model", "repro_torch.models.moe",
                "repro_torch.models.ssm", "repro_torch.configs.mamba2_27b",
+               "repro_torch.models.rglru",
+               "repro_torch.configs.recurrentgemma_9b",
                "repro_torch.train",
                "repro_torch.train.serve_step", "repro_torch.launch.train",
                "repro_torch.launch.serve", "repro_torch.interop")
@@ -170,10 +172,42 @@ def test_lm_ssm_entry_points_build_and_serve():
     assert toks.shape == (1, 2) and stats["decode_host_syncs"] == 0
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "whisper-base",
-                                  "internvl2-2b"])
+def test_lm_hybrid_entry_points_build_and_serve():
+    """The hybrid family (ported after the dense, MoE and ssm ones) builds
+    from every LM entry point: RecurrentGemma-9B at its full width and all
+    38 layers (on ``meta``: 12 (rec, rec, attn) groups and a tail of two
+    recurrent layers, 10.4 B parameters, 20.9 GB) and at the smoke preset
+    on the CPU, where it serves; audio and vlm still raise at 5(d)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch.train import scaled_config
+    from repro_torch.models import Model, build_model
+    from repro_torch.models.model import HybridGroup, RecBlock, init_params
+    full = build_model(get_config("recurrentgemma-9b"), "meta")
+    n = sum(p.numel() for p in full.parameters())
+    assert len(full.groups) == 12 and len(full.tail) == 2
+    assert 3 * len(full.groups) + len(full.tail) == 38
+    assert 10.4e9 < n < 10.5e9
+    assert full.tail[1].w_r.shape == (4096, 4096)
+    assert full.groups[11].b2_attn.attn.wk.shape == (4096, 1, 256)
+    cfg = scaled_config("recurrentgemma-9b", "smoke").scaled(n_layers=4)
+    for model in (build_model(cfg, "cpu"), Model(cfg, "cpu")):
+        assert isinstance(model.groups[0], HybridGroup)
+        assert isinstance(model.tail[0], RecBlock) and len(model.tail) == 1
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert float(model.tail[0].w_out.float().abs().sum()) > 0
+    toks, stats = tserve.serve(cfg, batch=1, prompt_len=4, gen=2,
+                               device="cpu")
+    assert toks.shape == (1, 2) and stats["decode_host_syncs"] == 0
+    for arch in ("whisper-base", "internvl2-2b"):
+        with pytest.raises(NotImplementedError, match=re.escape(
+                "item 5(d)")):
+            build_model(scaled_config(arch, "smoke"), "meta")
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "internvl2-2b"])
 def test_lm_out_of_slice_families_raise(arch):
-    """The families after the dense, MoE and ssm ones raise
+    """The families after the dense, MoE, ssm and hybrid ones raise
     ``NotImplementedError`` naming their ROADMAP.md item, from every LM
     entry point, before any allocation."""
     from repro_torch.launch import serve as tserve
@@ -181,7 +215,7 @@ def test_lm_out_of_slice_families_raise(arch):
     from repro_torch.models import Model, build_model
     from repro_torch.models.model import init_params
     cfg = scaled_config(arch, "smoke")
-    item = {"hybrid": "5(c)", "audio": "5(d)", "vlm": "5(d)"}[cfg.family]
+    item = {"audio": "5(d)", "vlm": "5(d)"}[cfg.family]
     calls = (lambda: build_model(cfg, "cpu"), lambda: Model(cfg, "cpu"),
              lambda: init_params(cfg, torch.Generator(), "cpu"),
              lambda: tserve.serve(cfg, batch=1, prompt_len=4, gen=2,
