@@ -9,7 +9,34 @@ It needs one CUDA card and the CUDA toolkit (``nvcc``), builds every kernel
 of the main path from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
 source, all at once), and exits non-zero — printing no result — when there
 is no card, when a kernel fails to build or launch or disagrees with its
-plain PyTorch version, or when any phase fails.  Phases:
+plain PyTorch version, or when any phase fails.  It aims to finish within
+600 s, build included; to fit that, some paths run at a smaller depth than
+before (before -> after; widths and shapes, every check and every limit
+unchanged; the phase seconds before and after are in PERF.md):
+
+- phases 3 and 4: ``gk_means`` 20 -> 10 iterations (``ITERS``); the PQ
+  codecs' training (phase 3 at SIFT_SMALL, phase 5 over all live rows)
+  8 -> 1 engine epochs a subspace (``PQ_ITERS``);
+- phase 5: the sweeps' rounds 3 -> 1;
+- phase 6 at SIFT1M's shape: KGraph + GK-means 20 -> 4 iterations, full
+  BKM and the probe source 10 -> 3 epochs, closure k-means 10 -> 3
+  iterations (the SIFT_SMALL kernels-vs-plain runs keep 20, 10 and 10);
+- phase 7: ``gk_means`` with telemetry off and on 20 -> 3 iterations, the
+  one-epoch on/off runs 12 -> 4;
+- phase 9: the emulated ``engine.run`` 6 -> 2 epochs, the NCCL group's
+  ``ShardedEngine.run`` against ``engine.run`` 6 -> 2 epochs;
+- phase 12: (b)'s teacher-forced steps 8 -> 4;
+- phase 13: Mamba2-2.7B 64 -> 32 layers; phase 14: RecurrentGemma-9B 38 ->
+  20 layers (6 groups and the tail of 2); their long prompts kept.
+
+Not cuts: the plain-version graph builds (phase 4's recall reference and
+phase 9's emulation) refine ``REF_CHUNK`` = 131,072 rows a call (was
+32,768 and 1,024; a row's refinement is independent of the others'),
+traces are read from the profiler's raw results (``_device_events``), and
+a kernel's device time is the median of three whole traces, a trace that
+reads below the kernel's bound dropped (``kernel_device_us``).
+Each log line carries the seconds since the start; the phases' own seconds
+are printed as one ``{"phase_seconds": ...}`` line.  Phases:
 
 1. build the kernels; print their build times, ptxas reports, and the
    card's name and power limit;
@@ -57,7 +84,7 @@ plain PyTorch version, or when any phase fails.  Phases:
    int8 and PQ nsub=8 (rerank at its default and 0; reranked d2 against
    the exact distance) and qgroup=8 (also against the per-query search);
 4. the main path at SIFT1M's published shape (n=1,000,000, d=128,
-   k=10,000 -> 16,384, κ=50, ξ=64, τ=10, 20 iterations, batch 1024) on
+   k=10,000 -> 16,384, κ=50, ξ=64, τ=10, 10 iterations, batch 1024) on
    ``sift_like`` data: stage seconds, distortion history, recall@κ on
    1,000 sampled rows against brute force, peak memory, host syncs (the
    run is under ``obs.syncs.sync_counter``: sync-debug mode "error", so a
@@ -86,7 +113,8 @@ plain PyTorch version, or when any phase fails.  Phases:
    each query's first chunk dropped), and a torch.profiler trace of an
    nprobe=16 batch loop; then three more sweeps on the same index and
    queries at nprobe 1, 4, 16, 64, each its own counted run: codec int8,
-   codec PQ (nsub=8, trained on all live rows inside the run) and qgroup=8
+   codec PQ (nsub=8, trained on all live rows inside the run, ``PQ_ITERS``
+   epochs a subspace) and qgroup=8
    — the same numbers plus bytes per scanned row and the codec's training
    seconds, the same gates (PQ's recall is reported, not held to rise with
    nprobe: see ``serve_codec_paths``); then ``ivf_scan_adc`` against its
@@ -103,13 +131,13 @@ plain PyTorch version, or when any phase fails.  Phases:
    seconds on the host clock, device synchronised at the edges): NN-Descent
    (κ=50, 10 iterations, sample 100; recall@50 and recall_top1 on 1,000
    sampled rows), KGraph + GK-means over that graph (k=10,000 -> 16,384,
-   20 iterations), Lloyd (k=10,000, k-means++ init timed apart, 30
+   4 iterations), Lloyd (k=10,000, k-means++ init timed apart, 30
    iterations with the early stop), Mini-Batch (k=10,000, batch 1,024,
    10·(n // 1,024) steps), full BKM over the dense source and the engine's
-   probe source (p=16, bkm), both k=16,384 from the 2M tree for 10 epochs
+   probe source (p=16, bkm), both k=16,384 from the 2M tree for 3 epochs
    (the probe run's host syncs, under ``sync_counter``, must be epochs +
    1),
-   closure k-means (k=10,000 -> 16,384, 3 trees of leaf 32, 10 iterations)
+   closure k-means (k=10,000 -> 16,384, 3 trees of leaf 32, 3 iterations)
    and graph search over phase 4's GK-means graph (phase 5's 10,000
    queries, topk=10, ef=32, 24 rounds; recall@10 against the exact top 10
    of X); every kernel a path names must launch; then each kernel at these
@@ -123,7 +151,8 @@ plain PyTorch version, or when any phase fails.  Phases:
    ``assign_centroids``;
 7. the observability layer (``repro_torch.obs``) on phase 4's data:
    ``gk_means`` over phase 4's graph with telemetry off and on (same
-   seed), each under ``sync_counter`` (host syncs = epochs + 1), the rows
+   seed, 3 iterations), each under ``sync_counter`` (host syncs = epochs
+   + 1), the rows
    held against the result (moves, distortion, proposed >= moves, hit
    rate, empty clusters, zero rows past the epochs run), the iter stage
    and one-epoch runs on against off (telemetry's cost); the main path's
@@ -159,12 +188,12 @@ plain PyTorch version, or when any phase fails.  Phases:
    sparse_updates=True)`` (epochs + 1 host syncs with the final read) and
    one epoch of the emulated probe source (p=16: ``probe_centroids`` and
    ``gather_score`` per shard), once through the kernels and once through
-   the plain versions (cut: τ 2, 6 epochs): recall@κ within 0.02,
+   the plain versions (cut: τ 2, 2 epochs): recall@κ within 0.02,
    distortions within 1%; (b) a world-size-1 NCCL group (NCCL takes one
    rank a card; ranks that exchange data run in the CPU tests):
    ``GraphBuilder`` at SIFT_SMALL against the one-device build (recall
    within 0.02, 0 host syncs), ``ShardedEngine.run`` on phase 4's graph
-   against ``engine.run`` from the same init (6 epochs; rows counted n,
+   against ``engine.run`` from the same init (1 epoch; rows counted n,
    distortion within 1%, host syncs epochs + 1) and ``ShardedIvf.search``
    on phase 5's index (10,000 queries, nprobe 16; f32, qgroup 8, int8 and
    PQ nsub=8 at rerank 0: ids equal to ``search``'s, 0 host syncs, the four
@@ -213,7 +242,7 @@ plain PyTorch version, or when any phase fails.  Phases:
    the same figures as phase 11, the step's bytes bound reading every
    expert (as the reference's dispatch does) and, beside it, the bytes
    the steps route to; (d) the same run again: equal tokens; (b) the
-   prompt plus 8 teacher-forced steps against one prefill of the longer
+   prompt plus 4 teacher-forced steps against one prefill of the longer
    sequence at capacity factor 64 (two prefill lengths drop different
    pairs at the configured 1.25; the reference after each step is
    ``prefill`` of the prompt and the forced tokens), per step and row:
@@ -224,7 +253,7 @@ plain PyTorch version, or when any phase fails.  Phases:
    at least a quarter of the (layer, pair) MoE inputs checked; every
    decode layer's MoE output against its experts run token by token in
    float32; the steps' distinct experts a layer counted; then a trace of
-   8 steps; (c) a 2-layer copy at batch 2, prompt 64, at the configured
+   4 steps; (c) a 2-layer copy at batch 2, prompt 64, at the configured
    capacity factor on the card and the CPU, in bf16 and in float32, each
    within phase 11's limits (the tokens routed differently printed with
    their margins; in float32 none may be); (e)
@@ -233,17 +262,17 @@ plain PyTorch version, or when any phase fails.  Phases:
    greedy tokens twice: equal tokens, 0 syncs, finite logits; any failed
    check raises;
 13. Mamba-2 serving (``models/ssm.py``; plain PyTorch, none of the eight
-   kernels may launch) at Mamba2-2.7B's published widths and all 64
+   kernels may launch) at Mamba2-2.7B's published widths and 32 of its 64
    layers: ``serve`` at batch 4, prompt 1,024 (twice, equal tokens) and at
    batch 1, prompt 32,768; decode against one prefill of the longer
    sequence end to end and layer by layer (``ssm_decode_vs_prefill``), in
    bf16 and in float32; a 2-layer copy on the card and the CPU;
 14. RecurrentGemma serving (``models/rglru.py``, the hybrid family; plain
    PyTorch, none of the eight kernels may launch) at RecurrentGemma-9B's
-   published widths and all 38 layers (d_model and lru_width 4,096, 16
-   query heads of 256 and one KV head, d_ff 12,288, vocab 256,000,
-   pattern (rec, rec, attn), window 2,048, conv width 4; 20.9 GB of
-   bf16): (a) ``serve`` at batch 4, prompt 1,024, 32 greedy tokens, the
+   published widths and 20 of its 38 layers (d_model and lru_width 4,096,
+   16 query heads of 256 and one KV head, d_ff 12,288, vocab 256,000,
+   pattern (rec, rec, attn), window 2,048, conv width 4; 6 groups and the
+   tail of 2): (a) ``serve`` at batch 4, prompt 1,024, 32 greedy tokens, the
    step's bytes bound reading every weight but the embedding, the valid
    ring slots and the recurrent states; (d) the same run again: equal
    tokens; (e) batch 1 at an 8,192-token prompt: prefill seconds, peak
@@ -257,16 +286,37 @@ plain PyTorch version, or when any phase fails.  Phases:
    copy (one group and a tail layer) with the window cut to 64, prompt 200
    and 4 steps on the card and the CPU, in bf16 and float32, within phase
    11's limits; any failed check raises;
-15. one JSON line of the sharded topology, one of the baselines (each
+15. Whisper and the VLM patch frontend (the audio and vlm families of
+   ``models/model.py``; plain PyTorch, none of the eight kernels may
+   launch) at their published widths and full depth: Whisper-base (6
+   encoder and 6 decoder layers, d_model 512, 8 heads of 64, d_ff 2,048,
+   vocab 51,865, layer norms, GELU, sinusoidal positions) and
+   InternVL2-2B (24 layers, d_model 2,048, 16/8 heads of 128, d_ff 8,192,
+   vocab 92,553, 256 patches of 1,024 features): (a) ``serve`` twice
+   (Whisper: batch 16, prompt 448, as many frames; the VLM: batch 4, 256
+   patches and 1,024 tokens; 32 greedy tokens each): equal tokens, each
+   step's CUDA-event ms beside its bytes bound (Whisper's: the decoder's
+   weights but the cross k/v projections, ``lm_head``, the valid
+   self-attention slots and the cross-attention ``xk``/``xv`` read whole),
+   0 host syncs, peak memory; (b) Whisper at the shape users run, one 30 s
+   window of 1,500 frames and a 4-token prompt, through
+   ``make_prefill``/``make_decode_step`` for 64 steps (0 syncs, finite,
+   the ``xk``/``xv`` bytes printed); (c) the prompt plus 8 teacher-forced
+   steps against one prefill of the longer sequence, in bf16 and in a
+   float32 copy, at the reference test's limits, with a trace of 8 decode
+   steps; (d) a 2-layer copy on the card and the CPU, bf16 and float32,
+   within phase 11's limits; any failed check raises;
+16. one JSON line of the sharded topology, one of the baselines (each
    path's seconds, quality and launches), one of clustered-KV decode, one
    of phase 10 (``{"dryrun": ...}``), one of the kernels (with each
    kernel's launches on the baselines' paths, its numbers at their shapes,
    its launches in phase 9 and its ``autotune`` field: the table's knob,
    its entries' shapes and knobs and phase 10's times, or "exempt" with
-   the reason), one each of phases 11–14 (``{"lm_serve": ...}``,
-   ``{"lm_moe": ...}``, ``{"lm_ssm": ...}``, ``{"lm_hybrid": ...}``), the
-   card's ``nvidia-smi`` line, and last ``{"ok": true, "device":
-   {...}}``.
+   the reason), one each of phases 11–15 (``{"lm_serve": ...}``,
+   ``{"lm_moe": ...}``, ``{"lm_ssm": ...}``, ``{"lm_hybrid": ...}``,
+   ``{"lm_audio_vlm": ...}``), the phases' seconds (``{"phase_seconds":
+   ...}``, the build and the start-up included), the card's
+   ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Every bound comes from ``launch/roofline.py``'s inventory and every
 CUDA-event time from ``obs.timing.device_span``.
@@ -282,7 +332,9 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
+T_START = time.perf_counter()   # the process's start, for phase_seconds
 HERE = Path(__file__).resolve().parent
 
 sys.path.insert(0, str(HERE / "src"))
@@ -297,12 +349,15 @@ def _shape(c):
 
 SIFT_SMALL = _shape(_paper.SIFT_SMALL)   # Table 1's CPU-scaled analogue
 SIFT1M = _shape(_paper.SIFT1M)           # Table 1
-ITERS = 20
+# gk_means iterations of phases 3 and 4 (cut 20 -> 10 to fit the script's
+# time; the paper's SIFT1M setting runs 20)
+ITERS = 10
 # rows per refine call of phase 4's plain-version build: the plain merge
 # is ~700 small ops per call, so at the build's default 1,024 rows the
-# launches dominate (199.5-279.0 s for 10 rounds on the H100); the rows of
-# a call are independent, and a 32,768-row call gathers ~2.3 GB
-REF_CHUNK = 32768
+# launches dominate (199.5-279.0 s for 10 rounds on the H100; 30.2 s at
+# 32,768 rows a call); the rows of a call are independent, and a
+# 131,072-row call gathers ~9.2 GB
+REF_CHUNK = 131072
 BATCH = 1024
 COMPONENTS = 256        # mixture components of the synthetic data
 # gather_score vs plain: |got - want| <= SCORE_RTOL * ref.score_scale, per
@@ -316,7 +371,9 @@ DEV = "cuda"
 
 
 def log(*a):
-    print(*a, flush=True)
+    """Print, each line stamped with the seconds since the process
+    started."""
+    print(f"[{time.perf_counter() - T_START:7.1f} s]", *a, flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -342,9 +399,9 @@ def time_ms(fn, sets, reps=40):
     return ms["calls"] / reps
 
 
-def _trace_events(fn):
-    """Trace ``fn`` with torch.profiler (CPU and CUDA activity): (all the
-    trace's events, wall seconds of fn)."""
+def _trace(fn):
+    """Trace ``fn`` with torch.profiler (CPU and CUDA activity): (the
+    profiler, wall seconds of fn)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -354,35 +411,60 @@ def _trace_events(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return prof.events(), wall
+    return prof, wall
+
+
+class _Interval(NamedTuple):
+    start: float    # us
+    end: float
+
+
+class _Activity(NamedTuple):
+    name: str
+    time_range: _Interval
 
 
 def _device_events(fn):
-    """(the device activities of a trace of ``fn``, wall seconds of fn):
-    the kernel scopes' ranges, which the trace also shows on the device
-    timeline, are left out."""
+    """(the device activities of a trace of ``fn``, wall seconds of fn),
+    each with its ``name`` and ``time_range`` (us): the kernel scopes'
+    ranges, which the trace also shows on the device timeline, are left
+    out.  Read from the profiler's raw results: building its per-event
+    Python objects (``prof.events()``) took 19-42 s for one traced engine
+    epoch or two-round graph build (34,000-69,000 device activities)."""
     import torch
     from repro_torch.obs.timing import SCOPE_PREFIX
-    events, wall = _trace_events(fn)
-    return [ev for ev in events
-            if ev.device_type == torch.autograd.DeviceType.CUDA
-            and not ev.name.startswith(SCOPE_PREFIX + ".")], wall
+    prof, wall = _trace(fn)
+    cuda = torch.autograd.DeviceType.CUDA
+    return [_Activity(ev.name(), _Interval(
+        ev.start_ns() / 1e3, (ev.start_ns() + ev.duration_ns()) / 1e3))
+        for ev in prof.profiler.kineto_results.events()
+        if ev.device_type() == cuda
+        and not ev.name().startswith(SCOPE_PREFIX + ".")], wall
 
 
-def kernel_device_us(fn, sets, names, reps=20, tries=8, *, launches=1):
+WHOLE_TRACES = 3     # kernel_device_us: the median of this many traces
+
+
+def kernel_device_us(fn, sets, names, reps=20, tries=8, *, launches=1,
+                     bound_ms):
     """Mean device time (us) per call of ``fn``: the summed durations of
     the launches of the kernels ``names`` (one name or a tuple; a launch
     matches when one of them is in its kernel's name), ``launches`` of them
-    per call, from a torch.profiler trace of ``reps`` calls.
+    per call, from torch.profiler traces of ``reps`` calls.
 
     On the H100 machines, from a minute or so into the process, a trace now
     and then loses the records of its first launches, all of them in a
     short trace (framing the window with spin kernels did not prevent it:
-    the frame was lost with them).  Such a trace is taken again, up to
-    ``tries`` times; the result is from the first trace that kept all
-    ``launches * reps`` launches, else the sum over the kernels of each
-    one's mean time per launch over every launch kept, and None when none
-    was.
+    the frame was lost with them); and a trace that keeps every launch can
+    still read below ``bound_ms``, the least time the call can take
+    (``ivf_scan`` at nq=10,000, nprobe 16: 1,313.75 us against 2.64 ms a
+    call by CUDA events), which no run can reach.  Traces are taken, up to
+    ``tries`` of them, until WHOLE_TRACES of them kept all ``launches *
+    reps`` launches and read at least ``bound_ms`` a call; a whole trace
+    that reads less is dropped, and the log counts it.  The result is the
+    median per-call time of the whole traces kept, else the sum over the
+    kernels of each one's mean time per launch over every launch the other
+    traces kept, and None when none was.
     """
     if isinstance(names, str):
         names = (names,)
@@ -391,6 +473,7 @@ def kernel_device_us(fn, sets, names, reps=20, tries=8, *, launches=1):
         for i in range(reps):
             fn(*sets[i % len(sets)])
     kept = {name: [] for name in names}
+    means, dropped = [], []
     label = "+".join(names)
     for t in range(1, tries + 1):
         events, _ = _device_events(run)
@@ -399,12 +482,24 @@ def kernel_device_us(fn, sets, names, reps=20, tries=8, *, launches=1):
         count = sum(len(v) for v in ts.values())
         log(f"kernel_device_us({label}): trace {t} kept {count} of "
             f"{launches * reps} launches")
-        if count == launches * reps:
-            return sum(sum(v) for v in ts.values()) / reps
-        for name, v in ts.items():
-            kept[name] += v
-    means = [sum(v) / len(v) for v in kept.values() if v]
-    return sum(means) if means else None
+        if count != launches * reps:
+            for name, v in ts.items():
+                kept[name] += v
+            continue
+        mean = sum(sum(v) for v in ts.values()) / reps
+        (means if mean >= bound_ms * 1e3 else dropped).append(mean)
+        if len(means) == WHOLE_TRACES:
+            break
+    if dropped:
+        log(f"kernel_device_us({label}): dropped {len(dropped)} whole "
+            f"trace(s) below the bound {bound_ms * 1e3:.3f} us a call: "
+            f"{dropped}")
+    if means:
+        log(f"kernel_device_us({label}): per-call means of the whole traces "
+            f"kept {means}")
+        return statistics.median(means)
+    partial = [sum(v) / len(v) for v in kept.values() if v]
+    return sum(partial) if partial else None
 
 
 def bound_ms(name, peak=None, **shape):
@@ -553,10 +648,15 @@ def check_gather_score(X, k, label="sift1m", C=SIFT1M["kappa"]):
     # device time per launch and device launches per call, traced after
     # all the event timings above (a trace's teardown must not land inside
     # a timed window)
+    from repro_torch.launch.roofline import kernel_terms
+    shape = dict(B=B, C=C, d=d, k=k)
+    nbytes = kernel_terms("gather_score", **shape)["hbm_bytes"]
+    bms, by = bound_ms("gather_score", **shape)
     for mode in ("bkm", "lloyd"):
         fn = (lambda *a: ops.gather_score(*a, mode=mode))
         out[mode]["device_us"] = kernel_device_us(fn, sets,
-                                                  "gather_score_kernel")
+                                                  "gather_score_kernel",
+                                                  bound_ms=bms)
         per_call, names = device_launches(lambda: fn(*sets[0]))
         out[mode]["device_launches_per_call"] = per_call
         # a trace that lost records cannot count them, but one that shows
@@ -578,10 +678,6 @@ def check_gather_score(X, k, label="sift1m", C=SIFT1M["kappa"]):
     del gsets
     log(f"gather_score[{label}] yardstick: torch.bmm over pre-gathered "
         f"(B, C+1, d) rows, dots only: {bmm:.4f} ms")
-    from repro_torch.launch.roofline import kernel_terms
-    shape = dict(B=B, C=C, d=d, k=k)
-    nbytes = kernel_terms("gather_score", **shape)["hbm_bytes"]
-    bms, by = bound_ms("gather_score", **shape)
     gathered = B * (C + 1) * d * 4
     rate = l2_rate()
     floor_us = gathered / rate * 1e6
@@ -697,8 +793,15 @@ def check_refine_merge(X_pad, real_id, n, B=BATCH, C=136):
     ms = time_ms(lambda *a: ops.refine_merge(*a, ysq=ysq), sets)
     plain = time_ms(lambda *a: ops.refine_merge(*a, ysq=ysq, force="ref"),
                     sets, reps=8)
+    valid = cand >= 0
+    uniq = int(torch.unique(rows[valid]).numel())
+    pairs = int(valid.sum())
+    from repro_torch.launch.roofline import HBM_BYTES_PER_S, kernel_terms
+    shape = dict(B=B, C=C, kappa=kappa, d=d, uniq_rows=uniq, pairs=pairs)
+    nbytes = kernel_terms("refine_merge", **shape)["hbm_bytes"]
+    bms, by = bound_ms("refine_merge", **shape)
     dev_us = kernel_device_us(lambda *a: ops.refine_merge(*a, ysq=ysq), sets,
-                              "refine_merge_kernel")
+                              "refine_merge_kernel", bound_ms=bms)
     log(f"refine_merge B={B} C={C} kappa={kappa} d={d} N={N}: max_abs_err "
         f"{err:.3e} (tol rtol 1e-5 + 1e-6*{scale:.3e}); ids differing "
         f"{frac:.2e}, all at near-ties and distinct per row: {ids_ok}; "
@@ -710,13 +813,6 @@ def check_refine_merge(X_pad, real_id, n, B=BATCH, C=136):
     bmm = time_ms(torch.bmm, gsets)
     log(f"refine_merge yardstick: torch.bmm over pre-gathered (B, C, d) rows,"
         f" dots only: {bmm:.4f} ms")
-    valid = cand >= 0
-    uniq = int(torch.unique(rows[valid]).numel())
-    pairs = int(valid.sum())
-    from repro_torch.launch.roofline import HBM_BYTES_PER_S, kernel_terms
-    shape = dict(B=B, C=C, kappa=kappa, d=d, uniq_rows=uniq, pairs=pairs)
-    nbytes = kernel_terms("refine_merge", **shape)["hbm_bytes"]
-    bms, by = bound_ms("refine_merge", **shape)
     log(f"refine_merge bound: {nbytes / 1e6:.2f} MB ({uniq} unique valid "
         f"rows of Xsrc) -> {bms * 1e3:.2f} us at 3.35 TB/s ({by}); "
         f"B*C*d*4 = {B * C * d * 4 / 1e6:.2f} MB -> "
@@ -784,7 +880,7 @@ def main_path(X):
     c = SIFT1M
     log(f"main path: gk_means n={c['n']} d={c['d']} k={c['k']} "
         f"kappa={c['kappa']} xi={c['xi']} tau={c['tau']} iters={ITERS} "
-        f"batch={BATCH}; cuts: none")
+        f"batch={BATCH}; cuts: iterations 20 -> {ITERS}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
@@ -848,7 +944,7 @@ def main_path(X):
 
 # the serving path at SIFT1M's shape (repro.launch.serve_index's sweep)
 SERVE = dict(nq=10_000, topk=10, probes=(1, 2, 4, 8, 16, 32, 64), batch=64,
-             rounds=3, block_rows=128, add=10_000)
+             rounds=1, block_rows=128, add=10_000)   # rounds cut 3 -> 1
 RECALL_GAP = 0.002      # kernels vs plain, recall@10 at each nprobe
 DIST_RTOL = 1e-5        # |d2 - plain| <= DIST_RTOL*(||x||² + ||c||²) per slot
 FAULT_Q = 1_024         # queries of the planted-fault scans
@@ -1046,15 +1142,19 @@ def check_centroid_kernels(X, k):
     for p, chk in out["probe"].items():
         chk["device_us"] = kernel_device_us(
             lambda: ops.probe_centroids(Q, C, p), [()], PROBE_KERNELS,
-            launches=1 + (chk["plan"]["splits"] > 1))
-    out["probe_batch"]["device_us"] = kernel_device_us(
+            launches=1 + (chk["plan"]["splits"] > 1),
+            bound_ms=chk["bound_ms"])
+    pbc = out["probe_batch"]
+    pbc["device_us"] = kernel_device_us(
         lambda: ops.probe_centroids(Qb, C, pb), [()], PROBE_KERNELS,
-        launches=1 + (out["probe_batch"]["plan"]["splits"] > 1))
+        launches=1 + (pbc["plan"]["splits"] > 1), bound_ms=pbc["bound_ms"])
     for key, (A, Ck) in cases.items():
-        out["assign"][key]["device_us"] = kernel_device_us(
+        ac = out["assign"][key]
+        ac["device_us"] = kernel_device_us(
             lambda: ops.assign_centroids(A, Ck), [()], ASSIGN_KERNELS,
             reps=3 if key == "n1m" else 20,
-            launches=1 + (out["assign"][key]["plan"]["splits"] > 1))
+            launches=1 + (ac["plan"]["splits"] > 1),
+            bound_ms=ac["bound_ms"])
     # yardstick: the (rows, k) product alone, no selection; at n=10^6 the
     # (n, k) output is 65 GB, so one 131,072-row chunk is timed and scaled
     mm = time_ms(lambda: torch.matmul(Q, C.T), [()], 10)
@@ -1211,7 +1311,7 @@ def check_scan_kernel(index, Q, X_all):
         launches = 1 + (chk["plan"]["splits"] > 1)
         chk["device_us"] = kernel_device_us(
             lambda: ops.ivf_scan(*args, **kw), [()], SCAN_KERNELS, 5,
-            launches=launches)
+            launches=launches, bound_ms=chk["bound_ms"])
         log(f"ivf_scan nq={args[0].shape[0]} topk={kw['topk']} "
             f"T={args[3].shape[1]} kernel device time per call: "
             f"{chk['device_us']} us ({launches} launch(es) a call; "
@@ -1338,6 +1438,14 @@ def ivf_parity_small(X, r):
     return ivf_codec_parity_small(a, X_all, Q) and ok
 
 
+# engine epochs a subspace of the PQ codecs' training, phase 3's (SIFT_SMALL)
+# and phase 5's (all 1,010,000 live rows): cut 8 -> 1; at 8 (64 epochs in
+# all) the host-bound training took 52-148 s in phase 5 and ~20 s in phase
+# 3, and the checks hold the kernels against the plain versions on the
+# same codec
+PQ_ITERS = 1
+
+
 def ivf_codec_parity_small(index, X_all, Q, nprobe=8, topk=10):
     """The compressed-list and grouped searches through the kernels vs the
     plain versions at the SIFT_SMALL shape: codec int8 and PQ (nsub=8),
@@ -1351,8 +1459,9 @@ def ivf_codec_parity_small(index, X_all, Q, nprobe=8, topk=10):
     res, ok = {}, True
     for kind in ("int8", "pq"):
         t0 = time.perf_counter()
-        ix = ivf.quantize_index(index, kind, nsub=8, generator=torch.Generator(
-        ).manual_seed(SEED + 14))
+        ix = ivf.quantize_index(index, kind, nsub=8, iters=PQ_ITERS,
+                                generator=torch.Generator().manual_seed(
+                                    SEED + 14))
         torch.cuda.synchronize()
         res[f"{kind}_train_s"] = time.perf_counter() - t0
         for rerank in (None, 0):
@@ -1408,7 +1517,7 @@ def serve_path(X, r):
     log(f"serving path: build_ivf (block_rows={s['block_rows']}) over "
         f"n={c['n']}, k={r.k}; add {s['add']} rows; sweep nq={s['nq']} "
         f"topk={s['topk']} probes={list(s['probes'])} batch={s['batch']} "
-        f"rounds={s['rounds']}; cuts: none")
+        f"rounds={s['rounds']}; cuts: rounds 3 -> {s['rounds']}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
@@ -1484,14 +1593,17 @@ def serve_codec_paths(index, Q, gt):
         _build.reset_launch_counts()
         t0 = time.perf_counter()
         ix = index if codec == "f32" else ivf.quantize_index(
-            index, codec, nsub=8,
+            index, codec, nsub=8, iters=PQ_ITERS,
             generator=torch.Generator().manual_seed(SEED + 15))
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         log(f"serving sweep {label}: codec {codec}, qgroup {qgroup}, "
             f"nq={s['nq']} topk={s['topk']} probes={list(CODEC_PROBES)} "
             f"batch={s['batch']} rounds={s['rounds']}; codec training "
-            f"{train_s:.3f} s on {ix.size} live rows; cuts: none")
+            f"{train_s:.3f} s on {ix.size} live rows; cuts: rounds 3 -> "
+            f"{s['rounds']}"
+            + (f", PQ training 8 -> {PQ_ITERS} epochs a subspace"
+               if codec == "pq" else ""))
         rows = si.sweep(ix, Q, gt, topk=s["topk"], probes=CODEC_PROBES,
                         batch=s["batch"], rounds=s["rounds"], qgroup=qgroup,
                         codec=codec)
@@ -1781,7 +1893,8 @@ def check_codec_kernels(index, runs, Q, X_all):
     for chk, fn, args, kw, names in traced:
         launches = 1 + (chk.get("plan", {}).get("splits", 1) > 1)
         chk["device_us"] = kernel_device_us(lambda: fn(*args, **kw), [()],
-                                            names, 5, launches=launches)
+                                            names, 5, launches=launches,
+                                            bound_ms=chk["bound_ms"])
         log(f"{names} device time per call: {chk['device_us']} us "
             f"({launches} launch(es) a call; torch.profiler)")
     return out
@@ -1901,7 +2014,8 @@ def check_pairwise_sq(X):
     # device time per launch, traced after all the event timings above
     for key, Xb in shapes.items():
         out["shapes"][key]["device_us"] = kernel_device_us(
-            lambda: ops.pairwise_sq(Xb), [()], PAIR_KERNELS)
+            lambda: ops.pairwise_sq(Xb), [()], PAIR_KERNELS,
+            bound_ms=out["shapes"][key]["bound_ms"])
     for key, chk in out["shapes"].items():
         log(f"pairwise_sq[{key}]: {json.dumps(chk)}")
     out["ok"] = path_ok and all(c["ok"] for c in out["shapes"].values())
@@ -1946,7 +2060,10 @@ def profile_window(label, fn):
     so a kernel's count can come up short; its time per launch holds.
     Returns {"wall_s", "busy_s", "idle", "activities", "by_name": {name:
     (us, count)}}, or None where the trace holds no device activity."""
+    t0 = time.perf_counter()
     events, wall = _device_events(fn)
+    log(f"profile[{label}]: traced and read back in "
+        f"{time.perf_counter() - t0:.1f} s")
     spans, by_name = [], {}
     for ev in events:
         a, b = ev.time_range.start, ev.time_range.end
@@ -2003,10 +2120,18 @@ def profile_main_path(X, r):
 # SIFT1M's shape, with the iteration counts of its figure scripts
 # (benchmarks/fig5_quality.py at full size) rather than the reference's
 # defaults
+# cut to fit the script's time: GK-means 20 -> 4 iterations, BKM and the
+# probe source 10 -> 3 epochs, closure 10 -> 3 iterations (each path's
+# kernels still launch, its quality is still reported and held at
+# SIFT_SMALL)
 BASE = dict(k=10_000, kappa=50, nnd_iters=10, nnd_sample=100,
-            nnd_chunk=4096, gk_iters=ITERS, lloyd_iters=30, mb_batch=1024, epochs=10,
-            probe_p=16, trees=3, leaf=32, closure_iters=10, topk=10, ef=32,
-            search_iters=24)
+            nnd_chunk=4096, gk_iters=4, lloyd_iters=30, mb_batch=1024,
+            epochs=3, probe_p=16, trees=3, leaf=32, closure_iters=3,
+            topk=10, ef=32, search_iters=24)
+# the SIFT_SMALL kernels-vs-plain runs keep the uncut counts: at 4
+# GK-means iterations the kernels-vs-plain distortion gap of KGraph +
+# GK-means read 0.0096 and 0.0109 against the 1% limit (0.0075 at 20)
+BASE_SMALL = dict(BASE, gk_iters=20, epochs=10, closure_iters=10)
 DIST_TOL = 0.01         # kernels vs plain, final distortion (PERF.md §2)
 # each path's kernels: each must launch at least once in its counted run
 BASE_KERNELS = {"nn_descent": ("refine_merge",),
@@ -2043,15 +2168,14 @@ def counted(fn, syncs=False):
     return out, secs, launches, sc.syncs if syncs else None
 
 
-def probe_run(X, assign0, k, force=None, seed=34):
+def probe_run(X, assign0, k, force=None, seed=34, b=BASE):
     """The probe source's path: ``engine.run`` in bkm mode from ``assign0``
-    with ``probe_source(p)``, all its epochs, then the final distortion
-    read (its last host sync).  Returns (history, final, host syncs the run
-    documents)."""
+    with ``probe_source(p)``, all of ``b``'s epochs, then the final
+    distortion read (its last host sync).  Returns (history, final, host
+    syncs the run documents)."""
     import torch
     from repro_torch.core import engine
     from repro_torch.obs import syncs
-    b = BASE
     cfg = engine.EngineConfig(batch_size=BATCH, mode="bkm", iters=b["epochs"],
                               min_move_frac=-1.0, force=force)
     res = engine.run(X, engine.init_state(X, assign0, k),
@@ -2073,7 +2197,7 @@ def baselines_small():
     from repro_torch.core.objective import distortion
     from repro_torch.data import sift_like
     from repro_torch.kernels import ops, ref
-    c, b = SIFT_SMALL, BASE
+    c, b = SIFT_SMALL, BASE_SMALL
     n, k, kappa = c["n"], c["k"], c["kappa"]
     X = sift_like(n, c["d"], COMPONENTS,
                   generator=torch.Generator(device=DEV).manual_seed(SEED))
@@ -2102,7 +2226,7 @@ def baselines_small():
                                 force=force, device=DEV)
         q["minibatch"] = float(distortion(X, a, k))
         mb = (a, C) if force is None else mb
-        q["probe_source"] = probe_run(X, a0, k, force)[1]
+        q["probe_source"] = probe_run(X, a0, k, force, b=b)[1]
         q["closure"] = closure_kmeans(
             X, k, iters=b["closure_iters"], trees=b["trees"], leaf=b["leaf"],
             batch_size=BATCH, generator=gen(35), force=force,
@@ -2183,10 +2307,12 @@ def check_path_shapes(X):
     # device time per call, traced after the event timings
     out["assign"]["device_us"] = kernel_device_us(
         lambda: ops.assign_centroids(X, C), [()], ASSIGN_KERNELS, reps=3,
-        launches=1 + (out["assign"]["plan"]["splits"] > 1))
+        launches=1 + (out["assign"]["plan"]["splits"] > 1),
+        bound_ms=out["assign"]["bound_ms"])
     out["probe"]["device_us"] = kernel_device_us(
         lambda: ops.probe_centroids(xb, Cp, p), [()], PROBE_KERNELS,
-        launches=1 + (out["probe"]["plan"]["splits"] > 1))
+        launches=1 + (out["probe"]["plan"]["splits"] > 1),
+        bound_ms=out["probe"]["bound_ms"])
     for key, chk in out.items():
         log(f"{key} at the baselines' shape: {json.dumps(chk)}")
     out["ok"] = all(v["ok"] for v in out.values())
@@ -2219,8 +2345,10 @@ def baselines_phase(X, r, Q):
         f"k={k} -> {k2}, trees={b['trees']} leaf={b['leaf']}, "
         f"{b['closure_iters']} iterations; graph search over phase 4's "
         f"graph, nq={Q.shape[0]} topk={b['topk']} ef={b['ef']} "
-        f"iters={b['search_iters']}; cuts: iteration counts follow the "
-        f"paper's figure scripts, not the reference's defaults")
+        f"iters={b['search_iters']}; cuts: GK-means 20 -> "
+        f"{b['gk_iters']} iterations, BKM and probe source 10 -> "
+        f"{b['epochs']} epochs, closure 10 -> {b['closure_iters']} "
+        f"iterations")
 
     def gen(s):
         return torch.Generator().manual_seed(SEED + s)
@@ -2322,7 +2450,8 @@ def baselines_phase(X, r, Q):
 
 # --------------------------------------------------------------- phase 7
 
-OBS_EPOCHS = 12         # one-epoch runs, telemetry on and off in turns
+OBS_EPOCHS = 4          # one-epoch runs, telemetry on and off in turns
+OBS_ITERS = 3           # gk_means with telemetry off and on (cut from 20)
 ENGINE_SLOTS = ("moves", "proposed", "empty_clusters", "distortion",
                 "hit_rate")
 BUILD_SLOTS = ("overflow", "guided_moves", "graph_updates",
@@ -2348,7 +2477,7 @@ def engine_telemetry(X, r):
         torch.cuda.synchronize()
         _build.reset_launch_counts()
         with sync_counter() as sc:
-            rr = gk_means(X, c["k"], kappa=c["kappa"], iters=ITERS,
+            rr = gk_means(X, c["k"], kappa=c["kappa"], iters=OBS_ITERS,
                           batch_size=BATCH, graph=r.graph, telemetry=tel,
                           generator=torch.Generator().manual_seed(SEED + 50),
                           device=DEV)
@@ -2377,7 +2506,7 @@ def engine_telemetry(X, r):
         "off_has_no_rows": off["res"].telemetry is None,
     }
     log(f"engine telemetry (gk_means over phase 4's graph, k={c['k']} -> "
-        f"{rr.k}, {ITERS} iterations), rows per epoch:")
+        f"{rr.k}, {OBS_ITERS} iterations), rows per epoch:")
     for t in range(ep):
         log("  " + json.dumps({s: d[s][t] for s in ENGINE_SLOTS}))
     # the cost: one-epoch runs from one state with the same words, in turns
@@ -2486,7 +2615,7 @@ def scope_check(label, fn):
     from repro_torch.kernels import _build
     from repro_torch.obs.timing import scope_coverage
     _build.reset_launch_counts()
-    events, _ = _trace_events(fn)
+    events = _trace(fn)[0].events()
     launches = {k: v for k, v in _build.launch_counts.items() if v}
     cov = scope_coverage(events, KERNEL_MARKERS)
     ok = (bool(launches) and cov["ranges"] == launches
@@ -2557,7 +2686,7 @@ def obs_phase(X, r, ref_tel, index, Q, entries):
         notes=["device us per call at each kernel's main shape, phase 2"])
     erec = emit.run_record(
         "engine", shapes=dict(n=c["n"], d=c["d"], k=r.k),
-        config=dict(iters=ITERS, batch_size=BATCH, kappa=c["kappa"],
+        config=dict(iters=OBS_ITERS, batch_size=BATCH, kappa=c["kappa"],
                     telemetry=True),
         metrics={key: eng[key] for key in (
             "iter_s_on", "iter_s_off", "epochs_on", "epoch_s_on_median",
@@ -2663,9 +2792,9 @@ def runtime_launches(fn):
     driver calls of a torch.profiler trace (host records, which a trace
     keeps whole)."""
     import torch
-    events, wall = _trace_events(fn)
+    prof, wall = _trace(fn)
     cpu = torch.autograd.DeviceType.CPU
-    return sum(1 for ev in events if ev.device_type == cpu
+    return sum(1 for ev in prof.events() if ev.device_type == cpu
                and "LaunchKernel" in ev.name), wall
 
 
@@ -2865,7 +2994,7 @@ def kv_cluster_phase():
 # epoch of the probe source.  (b) A world-size-1 NCCL group: NCCL takes one
 # rank a card and the machine has one, so ranks that exchange data run in
 # the CPU tests (gloo) only.
-SHARD = dict(R=4, tau=2, iters=6, probe_p=16, group_iters=6, nprobe=16)
+SHARD = dict(R=4, tau=2, iters=2, probe_p=16, group_iters=2, nprobe=16)
 
 
 def _nonzero(launches):
@@ -2897,6 +3026,7 @@ def emulation_pipeline(X, force, truth):
     out = {}
     (g, diag), secs, launches, nsync = counted(lambda: build_knn_graph(
         X, c["kappa"], xi=c["xi"], tau=s["tau"], shards=s["R"], force=force,
+        chunk=REF_CHUNK if force else 1024,
         generator=torch.Generator().manual_seed(SEED), device=DEV,
         return_diagnostics=True), syncs=True)
     out["build"] = dict(seconds=secs, launches=_nonzero(launches),
@@ -3090,7 +3220,7 @@ def sharded_phase(X, r, index, runs, Q, gt):
     log(f"sharded phase: (a) R={s['R']} emulation n={c['n']} d={c['d']} "
         f"k={c['k']} kappa={c['kappa']} xi={c['xi']} tau={s['tau']} "
         f"iters={s['iters']} batch={BATCH}; cuts: tau {c['tau']} -> "
-        f"{s['tau']}, iterations {ITERS} -> {s['iters']}, the probe source "
+        f"{s['tau']}, iterations 20 -> {s['iters']}, the probe source "
         f"1 epoch; (b) a world-size-1 NCCL group; ranks that exchange data "
         "run only in the CPU tests")
     truth = sampled_truth(X, c["kappa"], 1000, SEED + 4)
@@ -3311,7 +3441,7 @@ BF16_TFLOPS = 989.0     # H100 SXM data sheet, dense bf16
 FP32_TFLOPS = 67.0      # H100 SXM data sheet, FP32 outside the tensor cores
 
 
-def lm_bounds(cfg, batch, prompt_len, gen):
+def lm_bounds(cfg, batch, prompt_len, gen, frames=None):
     """(decode step bytes bound ms, prefill operations bound ms, step
     bytes) from the model's own parameter inventory (built on ``meta``): a
     step reads every weight but the embedding table once (B of its rows;
@@ -3329,13 +3459,27 @@ def lm_bounds(cfg, batch, prompt_len, gen):
     slots (a step reads the valid ones, at most ``window``); its recurrent
     layers' h and conv tails are read and written each step
     (``hybrid_state_bytes``), and its prefill's attention takes
-    min(q + 1, window) keys a query."""
+    min(q + 1, window) keys a query.  Whisper's step reads the decoder's
+    weights (not the encoder's, nor the cross k/v projections, which
+    prefill applies to the frames once), ``lm_head`` and each layer's
+    cross-attention ``xk``/``xv`` whole (``frames`` positions, default
+    ``prompt_len`` as ``serve`` ties them); its prefill adds the encoder
+    over the frames (its matrices and a full non-causal attention), the
+    cross k/v projections of the frames and the decoder's attention over
+    them.  A VLM's ``prompt_len`` counts its patches, and its prefill adds
+    the patch projection."""
     import torch
     from repro_torch.models import Model
     from repro_torch.models.moe import capacity
     meta = Model(cfg, device="meta")
+    # a decode step reads neither the embedding table, nor the encoder,
+    # nor the patch projection, nor the cross k/v projections (applied to
+    # the frames once, in prefill)
+    xkv = (".xattn.wk", ".xattn.wv")
     w = sum(p.numel() * p.element_size()
-            for n, p in meta.named_parameters() if n != "embed")
+            for n, p in meta.named_parameters()
+            if not n.startswith(("embed", "enc_layers.", "patch_proj"))
+            and not n.endswith(xkv))
     D, L_ = cfg.d_model, cfg.n_layers
     mean_len = prompt_len + gen / 2
     n_attn, keys = L_, prompt_len ** 2 / 2
@@ -3350,8 +3494,10 @@ def lm_bounds(cfg, batch, prompt_len, gen):
     step_bytes = w + batch * D * 2 + kv_row * (mean_len + 1) \
         + batch * cfg.vocab_padded * 4
     dense = sum(p.numel() for n, p in meta.named_parameters()
-                if n.startswith(("layers.", "groups.", "tail."))
-                and p.dtype == torch.bfloat16 and ".moe.we_" not in n)
+                if n.startswith(("layers.", "groups.", "tail.",
+                                 "dec_layers."))
+                and p.dtype == torch.bfloat16 and ".moe.we_" not in n
+                and not n.endswith(xkv))
     T = batch * prompt_len
     ops = 2 * dense * T + 2 * D * cfg.vocab_padded * batch \
         + 2 * 2 * batch * cfg.n_heads * cfg.head_dim * keys * n_attn
@@ -3359,6 +3505,20 @@ def lm_bounds(cfg, batch, prompt_len, gen):
         E, K, Fe = cfg.n_experts, cfg.experts_per_token, cfg.moe_d_ff
         C = capacity(T, E, K, cfg.moe_capacity_factor)
         ops += L_ * (2 * 3 * E * C * D * Fe + 2 * T * D * E)
+    if cfg.family == "audio":
+        F_ = prompt_len if frames is None else frames
+        Te = batch * F_
+        qk = 2 * 2 * batch * cfg.n_heads * cfg.head_dim
+
+        def count(pick):
+            return sum(p.numel() for n, p in meta.named_parameters()
+                       if pick(n) and p.dtype == torch.bfloat16)
+        ops += 2 * Te * (count(lambda n: n.startswith("enc_layers."))
+                         + count(lambda n: n.endswith(xkv))) \
+            + qk * (F_ * F_ * cfg.enc_layers + prompt_len * F_ * L_)
+        step_bytes += 2 * L_ * batch * F_ * cfg.n_kv_heads * cfg.head_dim * 2
+    if cfg.family == "vlm":
+        ops += 2 * batch * cfg.n_patches * cfg.frontend_dim * D
     f32_ops = 0
     if cfg.family == "ssm":
         step_bytes += 2 * ssm_cache_bytes(cfg, batch)
@@ -3450,18 +3610,23 @@ def moe_by_token(x, idx, gate, w):
     return (o * gate.float()[..., None]).sum(1)
 
 
-def _card_and_cpu(card, cpu, toks, n, steps, vocab):
+def _card_and_cpu(card, cpu, toks, n, steps, vocab, stub=None):
     """Prefill then teacher-forced decode steps on both copies, each under
     ``routing_log``: ({"card"|"cpu": logits per call}, seconds, {"card"|
     "cpu": each ``moe_ffn`` call's sorted expert ids and margins}, none
-    for a dense model)."""
+    for a dense model).  ``stub``: Whisper's ``frames`` or the VLM's
+    ``patches`` (CPU tensors), given to both prefills; the patches add
+    their count to the cache's positions."""
     import torch
+    stub = stub or {}
+    room = stub["patches"].shape[1] if "patches" in stub else 0
     out, secs, routes = {}, {}, {}
     for name, m in (("card", card), ("cpu", cpu)):
         t0 = time.perf_counter()
         with routing_log() as calls:
-            logits, cache = m.prefill({"tokens": toks[:, :n].to(m.device)},
-                                      n + steps)
+            batch = {"tokens": toks[:, :n].to(m.device),
+                     **{k: v.to(m.device) for k, v in stub.items()}}
+            logits, cache = m.prefill(batch, room + n + steps)
             seq = [logits[:, :vocab].cpu()]
             for i in range(steps):
                 logits, cache = m.decode_step(
@@ -3660,7 +3825,7 @@ def lm_serve_phase():
 # widths, then Grok-1's widths at 2 of 64 layers.
 
 MOE = dict(arch="qwen2-moe-a2.7b", batch=4, prompt_len=1024, gen=32,
-           extra=8, decode_cf=64.0)    # (a), (b), (d): nothing cut
+           extra=4, decode_cf=64.0)    # (a), (b), (d): (b)'s steps 8 -> 4
 MOE_CPU = dict(n_layers=2, batch=2, prompt_len=64, steps=4)   # (c)
 GROK = dict(arch="grok-1-314b", n_layers=2, published_layers=64, batch=2,
             prompt_len=256, gen=8)     # (e): depth cut 64 -> 2
@@ -3957,10 +4122,11 @@ def lm_moe_phase():
 
 
 # --------------------------------------------------------------- phase 13
-# Mamba-2 serving: Mamba2-2.7B at its published widths and all 64 layers.
+# Mamba-2 serving: Mamba2-2.7B at its published widths, depth cut 64 -> 32
+# layers to fit the script's time.
 
-SSM = dict(arch="mamba2-2.7b", batch=4, prompt_len=1024, gen=32,
-           extra=8)                     # (a), (b), (d): nothing cut
+SSM = dict(arch="mamba2-2.7b", n_layers=32, published_layers=64, batch=4,
+           prompt_len=1024, gen=32, extra=8)    # (a), (b), (d)
 SSM_CPU = dict(n_layers=2, batch=2, prompt_len=200, steps=4)   # (c): pads
 SSM_LONG = dict(batch=1, gen=8)         # (e), at SHAPES["prefill_32k"]'s S
 # (b) in float32, layer by layer: each layer's decode outputs, final SSD
@@ -4116,7 +4282,7 @@ def ssm_matmul_rate(prof, cfg, steps):
 
 def lm_ssm_phase():
     """Phase 13: Mamba-2 serving (``launch.serve.serve``) at Mamba2-2.7B's
-    published widths and all 64 layers: (a) batch 4, prompt 1,024, 32
+    published widths and 32 of its 64 layers: (a) batch 4, prompt 1,024, 32
     greedy tokens; (d) the same run again, equal tokens; (e) batch 1 at a
     32,768-token prompt, 8 tokens; (b) prompt + 8 teacher-forced steps
     against one prefill of the longer sequence, in bf16 and in a float32
@@ -4130,7 +4296,7 @@ def lm_ssm_phase():
     from repro_torch.launch.serve import serve
     from repro_torch.models.model import init_params
     c = SSM
-    cfg = get_config(c["arch"])
+    cfg = get_config(c["arch"]).scaled(n_layers=c["n_layers"])
     n_long = SHAPES["prefill_32k"].seq_len
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
@@ -4148,7 +4314,8 @@ def lm_ssm_phase():
     bound_step, bound_prefill, step_bytes = lm_bounds(
         cfg, c["batch"], c["prompt_len"], c["gen"])
     serve_out = dict(
-        arch=c["arch"], layers=cfg.n_layers, batch=c["batch"],
+        arch=c["arch"], layers=cfg.n_layers,
+        published_layers=c["published_layers"], batch=c["batch"],
         prompt_len=c["prompt_len"], gen=c["gen"],
         prefill_s=st["prefill_s"], decode_s=st["decode_s"],
         tok_per_s=st["tok_per_s"], decode_step_ms=st["decode_step_ms"],
@@ -4289,11 +4456,13 @@ def lm_ssm_phase():
 
 
 # --------------------------------------------------------------- phase 14
-# RecurrentGemma serving: RecurrentGemma-9B at its published widths and all
-# 38 layers (12 (rec, rec, attn) groups and a tail of two recurrent layers).
+# RecurrentGemma serving: RecurrentGemma-9B at its published widths, depth
+# cut 38 -> 20 layers (6 (rec, rec, attn) groups and the tail of two
+# recurrent layers) to fit the script's time.
 
-HYB = dict(arch="recurrentgemma-9b", batch=4, prompt_len=1024, gen=32,
-           trace_steps=8)               # (a), (d): nothing cut
+HYB = dict(arch="recurrentgemma-9b", n_layers=20, published_layers=38,
+           batch=4, prompt_len=1024, gen=32,
+           trace_steps=8)               # (a), (d): depth cut 38 -> 20
 HYB_WRAP = dict(batch=2, prompt_len=2040, extra=16)   # (b): crosses 2,048
 HYB_CPU = dict(n_layers=4, window=64, batch=2, prompt_len=200,
                steps=4)                 # (c): one group and a tail layer
@@ -4435,7 +4604,7 @@ def hybrid_card_vs_cpu(cfg):
 
 def lm_hybrid_phase():
     """Phase 14: RecurrentGemma serving (``launch.serve.serve``) at
-    RecurrentGemma-9B's published widths and all 38 layers: (a) batch 4,
+    RecurrentGemma-9B's published widths and 20 of its 38 layers: (a) batch 4,
     prompt 1,024, 32 greedy tokens; (d) the same run again, equal tokens;
     (e) batch 1 at an 8,192-token prompt (4x the window), 8 tokens; (b) a
     2,040-token prompt + 16 teacher-forced steps across position 2,048
@@ -4450,7 +4619,7 @@ def lm_hybrid_phase():
     from repro_torch.launch.serve import serve
     from repro_torch.models.model import init_params
     c, e, w = HYB, HYB_LONG, HYB_WRAP
-    cfg = get_config(c["arch"])
+    cfg = get_config(c["arch"]).scaled(n_layers=c["n_layers"])
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4467,7 +4636,8 @@ def lm_hybrid_phase():
     bound_step, bound_prefill, step_bytes = lm_bounds(
         cfg, c["batch"], c["prompt_len"], c["gen"])
     serve_out = dict(
-        arch=c["arch"], layers=cfg.n_layers, batch=c["batch"],
+        arch=c["arch"], layers=cfg.n_layers,
+        published_layers=c["published_layers"], batch=c["batch"],
         prompt_len=c["prompt_len"], gen=c["gen"], window=cfg.window,
         prefill_s=st["prefill_s"], decode_s=st["decode_s"],
         tok_per_s=st["tok_per_s"], decode_step_ms=st["decode_step_ms"],
@@ -4615,6 +4785,291 @@ def lm_hybrid_phase():
     return out
 
 
+# --------------------------------------------------------------- phase 15
+# Whisper-base (the audio family) and InternVL2-2B (the VLM patch
+# frontend) at their published widths and full depth.
+
+AUD = dict(arch="whisper-base", batch=16, prompt_len=448, gen=32,
+           extra=8, trace_steps=8)      # (a), (c): Whisper's decoder context
+AUD_WINDOW = dict(batch=16, frames=1500, prompt_len=4,
+                  steps=64)             # (b): one 30 s window
+VLM = dict(arch="internvl2-2b", batch=4, prompt_len=1280, gen=32,
+           extra=8, trace_steps=8)      # (a), (c): 256 patches + 1,024 tokens
+AV_CPU = dict(n_layers=2, batch=2, prompt_len=64, frames=96,
+              steps=4)                  # (d): a 2-layer copy
+
+
+def stub_inputs(cfg, batch, n, seed, device, frames=None):
+    """Whisper's ``frames`` (batch, ``frames`` or n, d_model) or the VLM's
+    ``patches`` (batch, n_patches, frontend_dim): bf16 standard normals
+    from a generator seeded with ``seed`` on ``device``."""
+    import torch
+    shape = ((batch, frames or n, cfg.d_model) if cfg.family == "audio"
+             else (batch, cfg.n_patches, cfg.frontend_dim))
+    x = torch.randn(shape, generator=torch.Generator(device).manual_seed(
+        seed), device=device).to(torch.bfloat16)
+    return {"frames" if cfg.family == "audio" else "patches": x}
+
+
+def av_serve(cfg, c):
+    """(a) and its rerun: ``serve`` twice from the same seed; the step's
+    CUDA-event ms against ``lm_bounds``' bytes bound, tokens a second,
+    prefill seconds, host syncs and peak memory.  Raises on unequal or
+    out-of-range tokens or a host sync."""
+    import torch
+    from repro_torch.launch.serve import serve
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        toks, stats = serve(cfg, batch=c["batch"], prompt_len=c["prompt_len"],
+                            gen=c["gen"], seed=SEED, device=DEV)
+        stats["wall_s"] = time.perf_counter() - t0
+        runs.append((toks.cpu(), stats))
+    toks, st = runs[0]
+    bound_step, bound_prefill, step_bytes = lm_bounds(
+        cfg, c["batch"], c["prompt_len"], c["gen"])
+    out = dict(
+        arch=c["arch"], layers=cfg.n_layers, enc_layers=cfg.enc_layers,
+        batch=c["batch"], prompt_len=c["prompt_len"], gen=c["gen"],
+        prefill_s=st["prefill_s"], decode_s=st["decode_s"],
+        tok_per_s=st["tok_per_s"], decode_step_ms=st["decode_step_ms"],
+        decode_step_ms_median=statistics.median(st["decode_step_ms"]),
+        decode_step_ms_min=min(st["decode_step_ms"]),
+        decode_step_bound_ms=bound_step, decode_step_bytes=step_bytes,
+        prefill_bound_ms=bound_prefill,
+        decode_host_syncs=[s["decode_host_syncs"] for _, s in runs],
+        rerun=dict(prefill_s=runs[1][1]["prefill_s"],
+                   tok_per_s=runs[1][1]["tok_per_s"],
+                   decode_step_ms_median=statistics.median(
+                       runs[1][1]["decode_step_ms"])),
+        wall_s=[s["wall_s"] for _, s in runs],
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+    label = f"lm_audio_vlm {c['arch']}"
+    log(f"{label} (a): {json.dumps(out)}")
+    if any(s["decode_host_syncs"] for _, s in runs):
+        raise RuntimeError(f"{label} (a): host syncs inside decode_step")
+    if not torch.equal(runs[0][0], runs[1][0]):
+        raise RuntimeError(f"{label} (a): two greedy runs differ")
+    if toks.shape != (c["batch"], c["gen"]) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.vocab:
+        raise RuntimeError(f"{label} (a): tokens {tuple(toks.shape)} out "
+                           "of range")
+    return out
+
+
+def av_decode_vs_prefill(model, c, label):
+    """(c) on ``model`` (bf16 or float32): the prompt's prefill and
+    ``extra`` teacher-forced steps against one prefill of the longer
+    sequence (the same frames or patches), at the reference test's limits
+    (max|Δ| / max(max|want|, 1) < 0.15, top-1 >= 0.5)."""
+    import torch
+    cfg, n, extra = model.cfg, c["prompt_len"], c["extra"]
+    room = cfg.n_patches if cfg.family == "vlm" else 0
+    full = torch.randint(0, cfg.vocab, (c["batch"], n - room + extra),
+                         generator=torch.Generator(DEV).manual_seed(SEED + 1),
+                         dtype=torch.int32, device=DEV)
+    stub = stub_inputs(cfg, c["batch"], n, SEED + 1, DEV)
+    want, _ = model.prefill({"tokens": full, **stub}, n + extra)
+    logits, cache = model.prefill({"tokens": full[:, :n - room], **stub},
+                                  n + extra)
+    for i in range(extra):
+        logits, cache = model.decode_step(
+            full[:, n - room + i: n - room + i + 1], cache)
+    logits, want = logits[:, :cfg.vocab], want[:, :cfg.vocab]
+    if not (torch.isfinite(logits).all() and torch.isfinite(want).all()):
+        raise RuntimeError(f"{label} (c): non-finite logits")
+    err = float((logits - want).abs().max())
+    a, b = logits.argmax(-1), want.argmax(-1)
+    res = dict(prompt_len=n, steps=extra, len=cache["len"],
+               max_rel_err=err / max(float(want.abs().max()), 1.0),
+               max_abs_err=err, max_abs_logit=float(want.abs().max()),
+               top1=float((a == b).float().mean()),
+               flipped_row_gaps=[float(want[r, b[r]] - want[r, a[r]])
+                                 for r in range(a.shape[0]) if a[r] != b[r]])
+    if not (res["max_rel_err"] < LM_DECODE_TOL
+            and res["top1"] >= LM_DECODE_TOP1):
+        raise RuntimeError(f"{label} (c): decode vs prefill "
+                           f"{res['max_rel_err']:.4g}, top-1 {res['top1']}")
+    return res
+
+
+def av_trace(model, c):
+    """A trace of ``trace_steps`` decode steps after a prefill of the
+    prompt: activities and busy ms a step, idle share, matmul ms a step."""
+    import torch
+    cfg, n, ts = model.cfg, c["prompt_len"], c["trace_steps"]
+    room = cfg.n_patches if cfg.family == "vlm" else 0
+    tt = torch.randint(0, cfg.vocab, (c["batch"], n - room + ts),
+                       generator=torch.Generator(DEV).manual_seed(SEED + 5),
+                       dtype=torch.int32, device=DEV)
+    stub = stub_inputs(cfg, c["batch"], n, SEED + 5, DEV)
+    _, cache = model.prefill({"tokens": tt[:, :n - room], **stub}, n + ts)
+    prof = profile_window(
+        f"lm {c['arch']} decode, {ts} steps",
+        lambda: [model.decode_step(tt[:, n - room + i: n - room + i + 1],
+                                   cache) for i in range(ts)])
+    return None if prof is None else dict(
+        batch=c["batch"], steps=ts, wall_s=prof["wall_s"],
+        busy_s=prof["busy_s"], idle=prof["idle"],
+        activities_per_step=prof["activities"] / ts,
+        busy_ms_per_step=prof["busy_s"] * 1e3 / ts,
+        matmul_ms_per_step=sum(
+            t for name, (t, _) in prof["by_name"].items()
+            if any(m in name for m in MATMUL_MARKERS)) / 1e3 / ts)
+
+
+def av_card_vs_cpu(cfg, label):
+    """(d): a 2-layer copy at full width (Whisper: 2 encoder and 2 decoder
+    layers) on the card and on the CPU, in bf16 as served and then both
+    copies in float32, each held to phase 11's limits (logits within
+    ``LM_CPU_TOL`` of max|want|, top-1 equal but at near-ties)."""
+    import torch
+    from repro_torch.models import Model
+    from repro_torch.models.model import init_params
+    c = AV_CPU
+    cfg = cfg.scaled(n_layers=c["n_layers"], enc_layers=min(
+        cfg.enc_layers, c["n_layers"]))
+    card = init_params(cfg, torch.Generator(DEV).manual_seed(SEED), DEV)
+    cpu = Model(cfg, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    n, steps = c["prompt_len"], c["steps"]
+    toks = torch.randint(0, cfg.vocab, (c["batch"], n + steps),
+                         generator=torch.Generator().manual_seed(SEED + 2),
+                         dtype=torch.int32)
+    stub = stub_inputs(cfg, c["batch"], n, SEED + 2, "cpu",
+                       frames=c["frames"])
+    res = dict(layers=c["n_layers"], enc_layers=cfg.enc_layers,
+               batch=c["batch"], prompt_len=n, decode_steps=steps,
+               stub={k: list(v.shape) for k, v in stub.items()})
+    for dtype in ("bf16", "f32"):
+        if dtype == "f32":
+            card.float(), cpu.float()
+        out, secs, routes = _card_and_cpu(card, cpu, toks, n, steps,
+                                          cfg.vocab, stub)
+        rels, agree, ties, missed, _ = _compare(out, routes, f"{label} (d)")
+        res[dtype] = dict(max_rel_err=max(rels), rel_errs=rels,
+                          top1_agree=agree, top1_near_ties=ties,
+                          top1_missed=missed, seconds=secs)
+    del card, cpu
+    log(f"{label} (d) card vs CPU: {json.dumps(res)}")
+    for dtype in ("bf16", "f32"):
+        r = res[dtype]
+        if r["top1_missed"] or r["max_rel_err"] > LM_CPU_TOL:
+            raise RuntimeError(
+                f"{label} (d): {dtype} card vs CPU {r['max_rel_err']:.4g} "
+                f"(limit {LM_CPU_TOL}), top-1 missed {r['top1_missed']}")
+    return res
+
+
+def whisper_window(model):
+    """(b): the shape users run, one 30 s window (1,500 frames) and a
+    4-token prompt, through ``make_prefill``/``make_decode_step``: 64
+    greedy steps, each under ``sync_counter`` and timed by CUDA events; the
+    cross-attention ``xk``/``xv`` bytes, prefill seconds, peak memory."""
+    import torch
+    from repro_torch.obs.syncs import sync_counter
+    from repro_torch.train import make_decode_step, make_prefill
+    c, cfg = AUD_WINDOW, model.cfg
+    n, steps = c["prompt_len"], c["steps"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    toks = torch.randint(0, cfg.vocab, (c["batch"], n),
+                         generator=torch.Generator(DEV).manual_seed(SEED + 6),
+                         dtype=torch.int32, device=DEV)
+    batch = {"tokens": toks, **stub_inputs(cfg, c["batch"], n, SEED + 6, DEV,
+                                           frames=c["frames"])}
+    prefill = make_prefill(model, n + steps)
+    decode = make_decode_step(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    syncs, finite = 0, [bool(torch.isfinite(logits).all())]
+    events[0].record()
+    for i in range(steps):
+        with sync_counter() as sc:
+            tok, logits, cache = decode(tok, cache)
+        syncs += sc.syncs
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    finite.append(bool(torch.isfinite(logits).all()))
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    bound_step, bound_prefill, step_bytes = lm_bounds(
+        cfg, c["batch"], n, steps, frames=c["frames"])
+    out = dict(batch=c["batch"], frames=c["frames"], prompt_len=n,
+               steps=steps, prefill_s=prefill_s,
+               prefill_bound_ms=bound_prefill, decode_step_ms=step_ms,
+               decode_step_ms_median=statistics.median(step_ms),
+               decode_step_bound_ms=bound_step, decode_step_bytes=step_bytes,
+               xk_xv_bytes=cache_bytes([cache["xk"], cache["xv"]]),
+               xk_shape=list(cache["xk"].shape), len=cache["len"],
+               decode_host_syncs=syncs, finite_logits=all(finite),
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    log(f"lm_audio_vlm whisper-base (b) one window: {json.dumps(out)}")
+    if syncs or not all(finite) or cache["len"] != n + steps \
+            or cache["xk"].shape[2] != c["frames"]:
+        raise RuntimeError(f"lm_audio_vlm whisper-base (b): syncs {syncs}, "
+                           f"finite {finite}, len {cache['len']}, xk "
+                           f"{tuple(cache['xk'].shape)}")
+    return out
+
+
+def lm_audio_vlm_phase():
+    """Phase 15: Whisper-base at its published widths and all 6 + 6 layers,
+    then InternVL2-2B at its published widths and all 24 layers, through
+    ``launch.serve.serve`` and ``Model``: (a) ``serve`` twice (Whisper:
+    batch 16, prompt 448 with as many frames, 32 greedy tokens; the VLM:
+    batch 4, 256 patches + 1,024 tokens, 32 tokens), equal tokens, 0
+    syncs; (b) Whisper at one 30 s window (1,500 frames) and a 4-token
+    prompt, 64 steps; (c) the prompt + 8 teacher-forced steps against one
+    prefill of the longer sequence, in bf16 and in a float32 copy, with a
+    trace of 8 decode steps between them; (d) a 2-layer copy on the card
+    against the CPU.  Raises on any failed check.  None of the eight
+    kernels may launch."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models.model import init_params
+    t_phase = time.perf_counter()
+    _build.reset_launch_counts()
+    out = {}
+    for c in (AUD, VLM):
+        t0 = time.perf_counter()
+        cfg, label = get_config(c["arch"]), f"lm_audio_vlm {c['arch']}"
+        res = dict(serve=av_serve(cfg, c))
+        model = init_params(cfg, torch.Generator(DEV).manual_seed(SEED),
+                            DEV)
+        res["parameters"] = sum(p.numel() for p in model.parameters())
+        if cfg.family == "audio":
+            res["one_window"] = whisper_window(model)
+        res["decode_vs_prefill"] = dict(
+            bf16=av_decode_vs_prefill(model, c, label))
+        res["trace"] = av_trace(model, c)
+        model.float()
+        res["decode_vs_prefill"]["f32"] = av_decode_vs_prefill(model, c,
+                                                               label)
+        log(f"{label} (c) decode vs prefill: "
+            f"{json.dumps(res['decode_vs_prefill'])}; trace "
+            f"{json.dumps(res['trace'])}")
+        del model
+        torch.cuda.empty_cache()
+        res["card_vs_cpu"] = av_card_vs_cpu(cfg, label)
+        res["seconds"] = time.perf_counter() - t0
+        out[c["arch"]] = res
+    launched = {k: n for k, n in _build.launch_counts.items() if n}
+    if launched:
+        raise RuntimeError(f"lm_audio_vlm: kernels launched {launched}")
+    out["kernel_launches"] = launched
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"lm_audio_vlm phase: {out['seconds']:.1f} s")
+    return out
+
+
 def autotune_field(name, tuned):
     """A kernel entry's ``autotune`` field: the table's knob, its entries
     (shape and knob) and phase 10's times, or "exempt" with the reason from
@@ -4647,7 +5102,7 @@ def main() -> int:
     from repro_torch.data import sift_like
     from repro_torch.kernels import _build
     resolve_device("cuda")                 # full-f32 matmuls (no TF32)
-    t_all = time.perf_counter()
+    t_all = T_START
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     smi = nvidia_smi_line()
@@ -4655,7 +5110,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     secs = _build.build()
-    log(f"kernel build: {time.perf_counter() - t0:.2f} s wall, per source "
+    phase_s = {"startup (imports, card, nvidia-smi)": t0 - t_all,
+               "build (phase 1)": time.perf_counter() - t0}
+    log(f"kernel build: {phase_s['build (phase 1)']:.2f} s wall, per source "
         f"{json.dumps({k: round(v, 2) for k, v in secs.items()})}")
     for name in _build.SOURCES:
         rep = _build.build_log(name) or ""
@@ -4664,7 +5121,11 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     def elapsed(after):
-        log(f"elapsed {time.perf_counter() - t_all:.1f} s after {after}")
+        """Logs the seconds since the start and records ``after``'s own
+        seconds (since the previous mark) in ``phase_s``."""
+        now = time.perf_counter() - t_all
+        phase_s[after] = now - sum(phase_s.values())
+        log(f"elapsed {now:.1f} s after {after}")
 
     failures = []
     c = SIFT1M
@@ -4747,12 +5208,15 @@ def main() -> int:
         failures.append("analysis / autotune / dry run")
     elapsed("analysis (phase 10)")
     lm = lm_serve_phase()                  # raises on a failed check
+    elapsed("dense LM serving (phase 11)")
     moe_out = lm_moe_phase()               # raises on a failed check
-    elapsed("LM serving (phases 11-12)")
+    elapsed("MoE serving (phase 12)")
     ssm_out = lm_ssm_phase()               # raises on a failed check
     elapsed("Mamba-2 serving (phase 13)")
     hybrid_out = lm_hybrid_phase()         # raises on a failed check
     elapsed("RecurrentGemma serving (phase 14)")
+    av_out = lm_audio_vlm_phase()          # raises on a failed check
+    elapsed("Whisper and VLM serving (phase 15)")
 
     kernels = [
         dict(name="gather_score", route="cuda",
@@ -4979,7 +5443,8 @@ def main() -> int:
     for kd in kernels:
         kd["sharded_launches"] = sharded["launches"].get(kd["name"], 0)
         kd["autotune"] = autotune_field(kd["name"], analysis["autotune"])
-    log(f"total {time.perf_counter() - t_all:.1f} s; failures: {failures}")
+    phase_s["total"] = time.perf_counter() - t_all
+    log(f"total {phase_s['total']:.1f} s; failures: {failures}")
     if failures:
         return 1
     print(json.dumps({"sharded": {k: sharded[k] for k in (
@@ -4994,6 +5459,8 @@ def main() -> int:
     print(json.dumps({"lm_moe": moe_out}), flush=True)
     print(json.dumps({"lm_ssm": ssm_out}), flush=True)
     print(json.dumps({"lm_hybrid": hybrid_out}), flush=True)
+    print(json.dumps({"lm_audio_vlm": av_out}), flush=True)
+    print(json.dumps({"phase_seconds": phase_s}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

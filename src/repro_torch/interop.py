@@ -130,14 +130,16 @@ def lm_params(params, cfg, device: DeviceLike = None) -> Model:
     projections, conv, ``A_log``, ``Dskip``, ``dt_bias`` and norms; for
     the hybrid family ``groups`` of ``b{i}_rec``/``b{i}_attn`` subtrees
     stacked over the groups and ``tail``, the recurrent layers left over,
-    stacked over those), on ``device`` (default ``cuda``; pass
-    ``device="cpu"`` for the CPU).
+    stacked over those; for audio ``enc_layers`` and ``dec_layers``, the
+    decoder's with ``lnx`` and ``xattn``; for vlm also ``patch_proj``), on
+    ``device`` (default ``cuda``; pass ``device="cpu"`` for the CPU).
 
     Raises ``ValueError`` unless the tree and the model hold the same
     leaves: a leaf the model lacks, a parameter the tree lacks, a stacked
     leaf with another count than the config's (``n_layers`` layers, or
-    ``n_layers // len(block_pattern)`` groups and the rest in the tail),
-    or another shape or dtype."""
+    ``n_layers // len(block_pattern)`` groups and the rest in the tail, or
+    ``enc_layers`` encoder and ``n_layers`` decoder layers), or another
+    shape or dtype."""
     model = Model(cfg, device)
     dev = model.device
     own = dict(model.named_parameters())
@@ -168,6 +170,9 @@ def lm_params(params, cfg, device: DeviceLike = None) -> Model:
     if cfg.family == "hybrid":
         G, T = _hybrid_counts(cfg)
         stacks = {"groups": (G, "groups"), "tail": (T, "layers")}
+    elif cfg.family == "audio":
+        stacks = {"enc_layers": (cfg.enc_layers, "encoder layers"),
+                  "dec_layers": (cfg.n_layers, "decoder layers")}
     else:
         stacks = {"layers": (cfg.n_layers, "layers")}
     stacks = {k: v for k, v in stacks.items() if v[0] and k in params}
@@ -184,7 +189,8 @@ def lm_params(params, cfg, device: DeviceLike = None) -> Model:
 def lm_cache(cache, device: DeviceLike = None) -> Cache:
     """The port's cache from the reference's, on ``device`` (default
     ``cuda``; pass ``device="cpu"`` for the CPU): a KV cache (``k``, ``v``
-    of (L, B, S, Hkv, hd) bf16), an SSM cache (``state`` (L, B, H, P, N)
+    of (L, B, S, Hkv, hd) bf16; Whisper's also ``xk``, ``xv``), an SSM
+    cache (``state`` (L, B, H, P, N)
     float32, ``conv`` (L, B, W-1, d_inner) bf16) or a hybrid cache
     (``groups`` mapping ``b{i}`` to an (h, conv tail) or (k, v) ring pair,
     ``tail`` an (h, conv tail) pair), told apart by their keys, each array
@@ -199,6 +205,7 @@ def lm_cache(cache, device: DeviceLike = None) -> Cache:
         if "tail" in cache:
             out["tail"] = tuple(_same_dtype(a, dev) for a in cache["tail"])
         return out
-    keys = ("state", "conv") if "state" in cache else ("k", "v")
+    keys = (("state", "conv") if "state" in cache
+            else ("k", "v", "xk", "xv") if "xk" in cache else ("k", "v"))
     return {**{k: _same_dtype(cache[k], dev) for k in keys},
             "len": int(cache["len"])}

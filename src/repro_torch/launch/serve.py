@@ -8,16 +8,28 @@ host sync inside it raises on the card; on the card the stats also hold
 each step's device milliseconds (CUDA events on the stream between
 steps).
 
-Usage (any dense, MoE, Mamba-2 or RecurrentGemma arch, e.g.
-``qwen2-moe-a2.7b``, ``grok-1-314b``, ``mamba2-2.7b``,
-``recurrentgemma-9b``; ``--preset full`` for the published widths):
+Usage (any arch of the registry: dense, MoE, Mamba-2, RecurrentGemma,
+Whisper or the VLM, e.g. ``qwen2-moe-a2.7b``, ``grok-1-314b``,
+``mamba2-2.7b``, ``recurrentgemma-9b``, ``whisper-base``,
+``internvl2-2b``; ``--preset full`` for the published widths):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-72b \\
       --preset smoke --batch 2 --prompt-len 32 --gen 8 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \\
+      --preset smoke --batch 2 --prompt-len 32 --gen 8 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-2b \\
+      --preset smoke --batch 2 --prompt-len 32 --gen 8 --device cpu
+
+As the reference's serve: Whisper gets ``frames`` (batch, prompt_len,
+d_model) beside its ``prompt_len`` tokens (stub frame embeddings, one a
+prompt position), the VLM ``patches`` (batch, n_patches, frontend_dim)
+and ``prompt_len - n_patches`` tokens after them; both are standard
+normals in bf16 from their own ``torch.Generator``s.
 
 The cache is whatever the family's ``Model.prefill`` builds (KV of
-``prompt_len + gen`` positions, Mamba-2's fixed-size SSD states and conv
-tails, or RecurrentGemma's RG-LRU states, conv tails and ``window``-slot
-k/v rings, fixed-size too); each decode step advances it in place.
+``prompt_len + gen`` positions, with Whisper's cross-attention k/v over
+its frames, Mamba-2's fixed-size SSD states and conv tails, or
+RecurrentGemma's RG-LRU states, conv tails and ``window``-slot k/v rings,
+fixed-size too); each decode step advances it in place.
 """
 from __future__ import annotations
 
@@ -38,27 +50,55 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def prompt_batch(cfg, batch: int, prompt_len: int, seed: int,
+                 device: torch.device):
+    """The prefill batch of ``serve``: ``tokens`` (batch, prompt_len)
+    int32, uniform over the vocabulary; for audio also ``frames`` (batch,
+    prompt_len, d_model), for vlm ``patches`` (batch, n_patches,
+    frontend_dim) in place of the first ``n_patches`` tokens; the stubs
+    standard normals in bf16.  Tokens, frames and patches each come from
+    a generator seeded with ``seed``."""
+    def gen():
+        return torch.Generator(device).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen(), device=device).to(
+            torch.bfloat16)
+    b = {"tokens": torch.randint(0, cfg.vocab, (batch, prompt_len),
+                                 generator=gen(), dtype=torch.int32,
+                                 device=device)}
+    if cfg.family == "audio":
+        b["frames"] = normal(batch, prompt_len, cfg.d_model)
+    if cfg.family == "vlm":
+        P = cfg.n_patches
+        if prompt_len <= P:
+            raise ValueError(f"prompt_len {prompt_len}: the VLM's prompt "
+                             f"holds {P} patches and at least one token")
+        b = {"tokens": b["tokens"][:, :prompt_len - P],
+             "patches": normal(batch, P, cfg.frontend_dim)}
+    return b
+
+
 def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
           sample: bool = False, device: DeviceLike = None):
-    """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then
-    decode ``gen - 1`` more tokens a row.  Returns (tokens (batch, gen)
-    int32 on the device, stats): ``prefill_s``, ``decode_s``,
-    ``tok_per_s`` (host clock, the device synchronised at both ends),
+    """Prefill ``batch`` random prompts of ``prompt_len`` positions
+    (``prompt_batch``), then decode ``gen - 1`` more tokens a row.
+    Returns (tokens (batch, gen) int32 on the device, stats):
+    ``prefill_s``, ``decode_s``, ``tok_per_s`` (host clock, the device
+    synchronised at both ends),
     ``decode_step_ms`` (per step, CUDA events; None on the CPU) and
     ``decode_host_syncs`` (counted inside the decode steps)."""
     dev = resolve_device(device)
     model = init_params(cfg, torch.Generator(dev).manual_seed(seed), dev)
     cache_len = prompt_len + gen
-    tokens = torch.randint(0, cfg.vocab, (batch, prompt_len),
-                           generator=torch.Generator(dev).manual_seed(seed),
-                           dtype=torch.int32, device=dev)
+    prompt = prompt_batch(cfg, batch, prompt_len, seed, dev)
     prefill = make_prefill(model, cache_len)
     decode = make_decode_step(model, sample=sample)
     draws = torch.Generator(dev).manual_seed(seed) if sample else None
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill({"tokens": tokens})
+    logits, cache = prefill(prompt)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 

@@ -1,5 +1,6 @@
-"""The dense, MoE, Mamba-2 (ssm) and RecurrentGemma (hybrid) families of
-the model zoo (counterpart of ``repro.models.model``).
+"""The dense, MoE, Mamba-2 (ssm), RecurrentGemma (hybrid), Whisper (audio)
+and VLM families of the model zoo (counterpart of
+``repro.models.model``).
 
 A GQA transformer: RoPE (partial for ChatGLM), optional QKV bias, SwiGLU
 or GELU MLP, RMS or layer norms, an untied ``lm_head`` and an optional
@@ -15,6 +16,15 @@ conv of x, gated by silu(z), out-normed).  The hybrid family repeats
 recurrent layer is an RG-LRU (``models/rglru.py``) over a causal conv of
 its x branch, gated by a GELU branch, then an MLP; an attention layer is a
 dense layer with local attention over the last ``window`` positions.
+The audio family is Whisper's encoder-decoder: the frames (stub
+embeddings of ``d_model``, as the reference's) plus a sinusoidal table
+run through bidirectional dense blocks (no final norm on the encoder's
+output, as the reference); the decoder embeds its tokens plus the same
+table, and each of its blocks adds a non-causal cross-attention residual
+over the encoder's output (its k and v projected without bias or
+positions) between self-attention and the MLP.  The vlm family is the
+dense decoder with the patches (stub embeddings of ``frontend_dim``)
+projected by ``patch_proj`` and put before the token embeddings.
 Entry points are the reference's serving ones: ``Model.prefill`` (builds
 the cache, returns last-position logits) and ``Model.decode_step`` (one
 token against the cache).
@@ -31,7 +41,9 @@ What is PyTorch idiom here rather than a copy:
   ``_attn_params``/``_mlp_params``/``_moe_params``/``_dense_layer_params``/
   ``_mamba_layer_params``/``_rec_layer_params`` are the ``Norm``/
   ``Attention``/``Mlp``/``MoeFfn``/``DenseBlock``/``MambaBlock``/
-  ``RecBlock`` constructors, with the reference's names, and
+  ``RecBlock`` constructors, with the reference's names (Whisper's
+  ``enc_layers`` and ``dec_layers``, whose blocks carry ``lnx`` and
+  ``xattn``; the VLM's ``patch_proj``), and
   ``init_params`` draws the weights from a ``torch.Generator``.  The SSD
   scan's chunk loop is a Python loop where the reference has ``lax.scan``.
 - The cache is the reference's: k and v of (L, B, S, Hkv, hd) bf16; for
@@ -40,20 +52,20 @@ What is PyTorch idiom here rather than a copy:
   ``groups`` mapping ``b{i}`` to a recurrent block's (h (G, B, W) float32,
   conv tails) or an attention block's (k, v) rings (G, B, window, Hkv, hd)
   (position p at slot p mod window) and ``tail`` the tail layers' (h,
-  conv tails); plus ``len``, here a host int, so a decode step reads
-  nothing back from the device.  ``decode_step`` writes the new position
-  (ssm: the new state and tail; hybrid: h, tails and the ring slot) into
-  the caller's cache in place (the reference's server donates the cache
-  to the step) and raises where the reference's ``dynamic_update_slice``
-  would clamp a write past the cache's end.
+  conv tails); for audio also each decoder layer's cross-attention
+  ``xk``/``xv`` (L, B, S_enc, Hkv, hd); plus ``len``, here a host int,
+  so a decode step reads nothing back from the device.  ``decode_step``
+  writes the new position (ssm: the new state and tail; hybrid: h, tails
+  and the ring slot) into the caller's cache in place (the reference's
+  server donates the cache to the step) and raises where the reference's
+  ``dynamic_update_slice`` would clamp a write past the cache's end.
 - ``_shard_act`` (an XLA mesh constraint that is the identity on one
   device) has no counterpart.
 
 The backbone carries the MoE layers' auxiliary loss summed over layers,
 as the reference's does; serving drops it (training will read it).
-Families outside the port so far (audio, vlm) and training
-(``Model.loss``, ``lm_loss``) raise ``NotImplementedError`` naming their
-item of ``ROADMAP.md`` queue 1.
+Training (``Model.loss``, ``lm_loss``) raises ``NotImplementedError``
+naming its item of ``ROADMAP.md`` queue 1.
 """
 from __future__ import annotations
 
@@ -74,18 +86,9 @@ from repro_torch.models import ssm as ssm_lib
 PDT = torch.bfloat16  # param dtype
 Cache = Dict[str, Any]
 
-# families still to port: ROADMAP.md queue 1, item 5
-_LATER = {"audio": "5(d)", "vlm": "5(d)"}
+# training, still to port: ROADMAP.md queue 1, item 5
 _TRAINING = "5(e)"
-
-
-def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: ROADMAP.md queue 1 "
-            f"item {_LATER[cfg.family]}")
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise ValueError(cfg.family)
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -110,9 +113,11 @@ class Norm(nn.Module):
 
 class Attention(nn.Module):
     """``_attn_params``: wq (D, Hq, hd), wk/wv (D, Hkv, hd), wo (Hq, hd, D)
-    bf16; with ``qkv_bias`` also bq (Hq, hd), bk/bv (Hkv, hd) float32."""
+    bf16; with ``qkv_bias`` also bq (Hq, hd), bk/bv (Hkv, hd) float32, but
+    never for cross-attention (``cross``)."""
 
-    def __init__(self, cfg: ArchConfig, device: torch.device):
+    def __init__(self, cfg: ArchConfig, device: torch.device,
+                 cross: bool = False):
         super().__init__()
         D, Hq, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, \
             cfg.head_dim
@@ -121,8 +126,8 @@ class Attention(nn.Module):
         self.wk = _param(torch.zeros((D, Hkv, hd), **z))
         self.wv = _param(torch.zeros((D, Hkv, hd), **z))
         self.wo = _param(torch.zeros((Hq, hd, D), **z))
-        self.qkv_bias = cfg.qkv_bias
-        if cfg.qkv_bias:
+        self.qkv_bias = cfg.qkv_bias and not cross
+        if self.qkv_bias:
             f = dict(dtype=torch.float32, device=device)
             self.bq = _param(torch.zeros((Hq, hd), **f))
             self.bk = _param(torch.zeros((Hkv, hd), **f))
@@ -208,9 +213,11 @@ class MoeFfn(nn.Module):
 
 class DenseBlock(nn.Module):
     """``_dense_layer_params``: ln1, attn, ln2, and ``mlp`` (dense family)
-    or ``moe`` (MoE family)."""
+    or ``moe`` (MoE family); with ``cross`` (Whisper's decoder) also
+    ``lnx`` and ``xattn``, a cross-attention without QKV bias."""
 
-    def __init__(self, cfg: ArchConfig, device: torch.device):
+    def __init__(self, cfg: ArchConfig, device: torch.device,
+                 cross: bool = False):
         super().__init__()
         self.ln1 = Norm(cfg, cfg.d_model, device)
         self.attn = Attention(cfg, device)
@@ -219,6 +226,17 @@ class DenseBlock(nn.Module):
             self.moe = MoeFfn(cfg, device)
         else:
             self.mlp = Mlp(cfg, device)
+        self.cross = cross
+        if cross:
+            self.lnx = Norm(cfg, cfg.d_model, device)
+            self.xattn = Attention(cfg, device, cross=True)
+
+    def init(self, g: torch.Generator, cfg: ArchConfig) -> None:
+        """Draws attn, then the MLP or MoE layer, then ``xattn``."""
+        self.attn.init(g, cfg)
+        (self.moe if cfg.family == "moe" else self.mlp).init(g)
+        if self.cross:
+            self.xattn.init(g, cfg)
 
 
 def _linspace(start: float, stop: float, num: int) -> torch.Tensor:
@@ -381,9 +399,17 @@ def _qkv(p: Attention, h: torch.Tensor, cfg: ArchConfig,
 
 def _attn_seq(p: Attention, x: torch.Tensor, cfg: ArchConfig,
               positions: torch.Tensor, *, causal: bool = True,
-              window: int = 0):
-    """x: (B, S, D) -> (out, (k, v))."""
-    q, k, v = _qkv(p, x, cfg, positions)
+              window: int = 0, kv_override=None):
+    """x: (B, S, D) -> (out, (k, v)).  ``kv_override``: the (k, v) of a
+    cross-attention source, taken as given: no k/v projection and no RoPE
+    (on q either), as the reference."""
+    if kv_override is None:
+        q, k, v = _qkv(p, x, cfg, positions)
+    else:
+        q = _proj(x, p.wq)
+        if p.qkv_bias:
+            q = q + p.bq.to(q.dtype)
+        k, v = kv_override
     o = attn.flash_attention(q, k, v, causal=causal, window=window,
                              kv_chunk=cfg.attn_chunk,
                              causal_skip=cfg.causal_skip)
@@ -415,11 +441,17 @@ def _ffn_seq(lp: DenseBlock, x: torch.Tensor, cfg: ArchConfig):
 
 def _dense_block_seq(lp: DenseBlock, x: torch.Tensor, cfg: ArchConfig,
                      positions: torch.Tensor, *, causal: bool = True,
-                     window: int = 0):
-    """Pre-norm attention and FFN residuals -> (x, (k, v), aux)."""
+                     window: int = 0, cross_kv=None):
+    """Pre-norm attention and FFN residuals -> (x, (k, v), aux); with
+    ``cross_kv`` (the encoder's (k, v) for this layer) a non-causal
+    cross-attention residual between them."""
     h, kv = _attn_seq(lp.attn, _apply_norm(lp.ln1, x, cfg), cfg, positions,
                       causal=causal, window=window)
     x = x + h
+    if cross_kv is not None:
+        hx, _ = _attn_seq(lp.xattn, _apply_norm(lp.lnx, x, cfg), cfg,
+                          positions, causal=False, kv_override=cross_kv)
+        x = x + hx
     f, aux = _ffn_seq(lp, _apply_norm(lp.ln2, x, cfg), cfg)
     return x + f, kv, aux
 
@@ -538,11 +570,22 @@ def _attn_block_step(lp: DenseBlock, x: torch.Tensor, kc: torch.Tensor,
 
 def _embed_inputs(model: "Model", cfg: ArchConfig,
                   batch: Dict[str, torch.Tensor]):
-    """(x (B, S, D), loss mask None) from ``batch["tokens"]`` (B, S)."""
+    """(x (B, S, D), loss mask None) from ``batch["tokens"]`` (B, S); for
+    vlm the ``patches`` (B, P, frontend_dim) projected by ``patch_proj`` and
+    put before the tokens' embeddings (S = P + the tokens).  Audio prompts
+    go through ``Model._audio_prefill`` instead.  Inputs and tables are cast to the
+    weights' dtype where the reference casts to its ``PDT``: bf16; in a
+    float32 copy (``model.float()``) float32, so the copy computes in
+    float32 from its inputs on, as the reference does with ``PDT``
+    float32."""
+    dt = model.embed.dtype
     emb = F.embedding(batch["tokens"], model.embed)
+    if cfg.family == "vlm":
+        patches = batch["patches"].to(dt) @ model.patch_proj
+        emb = torch.cat([patches, emb], dim=1)
     if cfg.pos_embedding == "sinusoidal":
         emb = emb + L.sinusoidal_pos(emb.shape[1], cfg.d_model,
-                                     device=emb.device).to(PDT)
+                                     device=emb.device).to(dt)
     return emb, None
 
 
@@ -550,7 +593,8 @@ def _backbone_seq(model: "Model", cfg: ArchConfig, x: torch.Tensor,
                   positions: torch.Tensor, *, collect_kv: bool = False):
     """Runs the layers.  Returns (hidden, (k, v) stacked (L, B, S, Hkv, hd)
     or None, the layers' aux losses summed, float32 ()); ssm and hybrid
-    models return no kv (their prefill keeps its own states)."""
+    models return no kv (their prefill keeps its own states).  The audio
+    family runs ``_whisper_encode`` and ``_whisper_decode_seq`` instead."""
     ks, vs = [], []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
@@ -573,6 +617,44 @@ def _backbone_seq(model: "Model", cfg: ArchConfig, x: torch.Tensor,
             vs.append(v)
     kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
     return x, kvs, aux_total
+
+
+def _whisper_encode(model: "Model", cfg: ArchConfig,
+                    frames: torch.Tensor) -> torch.Tensor:
+    """The encoder: frames (B, S_enc, D) in the weights' dtype plus the
+    sinusoidal table, then the bidirectional ``enc_layers``; no final norm,
+    as the reference."""
+    x = frames.to(model.embed.dtype)
+    x = x + L.sinusoidal_pos(x.shape[1], cfg.d_model,
+                             device=x.device).to(x.dtype)
+    pos = torch.arange(x.shape[1], device=x.device)
+    for lp in model.enc_layers:
+        x, _, _ = _dense_block_seq(lp, x, cfg, pos, causal=False)
+    return x
+
+
+def _whisper_decode_seq(model: "Model", cfg: ArchConfig,
+                        tokens: torch.Tensor, enc: torch.Tensor, *,
+                        collect_kv: bool = False):
+    """The decoder over tokens (B, S) against the encoder's output enc (B,
+    S_enc, D): token embeddings plus the sinusoidal table, causal
+    self-attention, and per layer cross-attention to ``xk``/``xv``, enc
+    projected by ``xattn.wk``/``wv`` (no bias, no positions).  Returns (x,
+    ((k, v), (xk, xv)) each stacked (L, B, ·, Hkv, hd), or None)."""
+    x = F.embedding(tokens, model.embed)
+    x = x + L.sinusoidal_pos(x.shape[1], cfg.d_model,
+                             device=x.device).to(x.dtype)
+    pos = torch.arange(x.shape[1], device=x.device)
+    kvs = []
+    for lp in model.dec_layers:
+        xkv = (_proj(enc, lp.xattn.wk), _proj(enc, lp.xattn.wv))
+        x, kv, _ = _dense_block_seq(lp, x, cfg, pos, cross_kv=xkv)
+        if collect_kv:
+            kvs.append((*kv, *xkv))
+    if not collect_kv:
+        return x, None
+    k, v, xk, xv = (torch.stack(t) for t in zip(*kvs))
+    return x, ((k, v), (xk, xv))
 
 
 def _hybrid_blocks(model: "Model"):
@@ -627,8 +709,8 @@ def lm_loss(*args, **kwargs):
 # ===========================================================================
 
 class Model(nn.Module):
-    """A dense, MoE, Mamba-2 or RecurrentGemma decoder's weights on one
-    device and its serving steps.
+    """A dense, MoE, Mamba-2, RecurrentGemma or VLM decoder's, or a Whisper
+    encoder-decoder's, weights on one device and its serving steps.
 
     ``Model(cfg, device)`` holds zeros (the reference's init for norms and
     biases) and the SSM and RG-LRU layers' constants; ``init(generator)``
@@ -636,12 +718,15 @@ class Model(nn.Module):
     ``device=None`` means the card and raises where there is none.  The
     layers are ``layers``, or for the hybrid family ``groups`` (of
     ``HybridGroup``) and ``tail`` (``RecBlock``s, empty when the pattern
-    divides ``n_layers``).
+    divides ``n_layers``), or for audio ``enc_layers`` (``enc_layers``
+    blocks) and ``dec_layers`` (``n_layers`` blocks with cross-attention);
+    vlm adds ``patch_proj`` (frontend_dim, D) bf16.
     """
 
     def __init__(self, cfg: ArchConfig, device: DeviceLike = None):
         super().__init__()
-        _check_family(cfg)
+        if cfg.family not in FAMILIES:
+            raise ValueError(cfg.family)
         dev = resolve_device(device)
         self.cfg = cfg
         Vp, D = cfg.vocab_padded, cfg.d_model
@@ -654,6 +739,15 @@ class Model(nn.Module):
                                         for _ in range(G))
             self.tail = nn.ModuleList(RecBlock(cfg, dev) for _ in range(T))
             return
+        if cfg.family == "audio":
+            self.enc_layers = nn.ModuleList(DenseBlock(cfg, dev)
+                                            for _ in range(cfg.enc_layers))
+            self.dec_layers = nn.ModuleList(DenseBlock(cfg, dev, cross=True)
+                                            for _ in range(cfg.n_layers))
+            return
+        if cfg.family == "vlm":
+            self.patch_proj = _param(torch.zeros(
+                (cfg.frontend_dim, D), dtype=PDT, device=dev))
         block = MambaBlock if cfg.family == "ssm" else DenseBlock
         self.layers = nn.ModuleList(block(cfg, dev)
                                     for _ in range(cfg.n_layers))
@@ -663,7 +757,8 @@ class Model(nn.Module):
         return self.embed.device
 
     def init(self, generator: torch.Generator) -> "Model":
-        """Draws the embedding, ``lm_head`` and every layer's matrices from
+        """Draws the embedding, ``lm_head``, every layer's matrices (audio:
+        the encoder's, then the decoder's) and a VLM's ``patch_proj`` from
         ``generator`` (on this model's device), in that order, with the
         reference's distributions; norms, biases and the SSM and RG-LRU
         constants stay as constructed."""
@@ -675,14 +770,17 @@ class Model(nn.Module):
                                       cfg.d_model))
         self.lm_head.copy_(L.dense_init(generator, cfg.d_model,
                                         (cfg.vocab_padded,), dtype=PDT))
-        blocks = ([lp for _, lp, _, _ in _hybrid_blocks(self)]
-                  if cfg.family == "hybrid" else self.layers)
+        if cfg.family == "hybrid":
+            blocks = [lp for _, lp, _, _ in _hybrid_blocks(self)]
+        elif cfg.family == "audio":
+            blocks = [*self.enc_layers, *self.dec_layers]
+        else:
+            blocks = self.layers
         for lp in blocks:
-            if isinstance(lp, (MambaBlock, RecBlock)):
-                lp.init(generator, cfg)
-            else:
-                lp.attn.init(generator, cfg)
-                (lp.moe if cfg.family == "moe" else lp.mlp).init(generator)
+            lp.init(generator, cfg)
+        if cfg.family == "vlm":
+            self.patch_proj.copy_(L.dense_init(
+                generator, cfg.frontend_dim, (cfg.d_model,), dtype=PDT))
         return self
 
     # ----- training -----
@@ -703,18 +801,24 @@ class Model(nn.Module):
     @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor],
                 cache_len: int) -> Tuple[torch.Tensor, Cache]:
-        """Process the full prompt ``batch["tokens"]`` (B, S); returns (last
-        logits (B, V) float32, cache of ``cache_len`` positions; for ssm
-        each layer's final SSD state and conv tail, for the hybrid each
-        recurrent layer's final h and conv tail and each attention layer's
-        window of k and v as a ring, whatever ``cache_len``)."""
+        """Process the full prompt ``batch["tokens"]`` (B, S) (audio: also
+        ``frames`` (B, S_enc, D); vlm: also ``patches`` (B, P,
+        frontend_dim), before the tokens); returns (last logits (B, V)
+        float32, cache of ``cache_len`` positions; for ssm each layer's
+        final SSD state and conv tail, for the hybrid each recurrent layer's
+        final h and conv tail and each attention layer's window of k and v
+        as a ring, whatever ``cache_len``; for audio also each decoder
+        layer's cross-attention ``xk``/``xv`` over the S_enc frames)."""
         cfg = self.cfg
-        x, _ = _embed_inputs(self, cfg, batch)
-        if cfg.family == "ssm":
-            x, cache = self._ssm_prefill(x)
+        if cfg.family == "audio":
+            x, cache = self._audio_prefill(batch, cache_len)
+        elif cfg.family == "ssm":
+            x, cache = self._ssm_prefill(_embed_inputs(self, cfg, batch)[0])
         elif cfg.family == "hybrid":
-            x, cache = self._hybrid_prefill(x)
+            x, cache = self._hybrid_prefill(
+                _embed_inputs(self, cfg, batch)[0])
         else:
+            x, _ = _embed_inputs(self, cfg, batch)
             positions = torch.arange(x.shape[1], device=x.device)
             x, (k, v), _ = _backbone_seq(self, cfg, x, positions,
                                          collect_kv=True)
@@ -722,6 +826,19 @@ class Model(nn.Module):
                      "len": x.shape[1]}
         x = _apply_norm(self.final_norm, x, cfg)
         return self._mask_vocab(_logits(x[:, -1, :], self.lm_head)), cache
+
+    def _audio_prefill(self, batch: Dict[str, torch.Tensor],
+                       cache_len: int) -> Tuple[torch.Tensor, Cache]:
+        """The encoder over ``batch["frames"]``, then the decoder over
+        ``batch["tokens"]``: its self-attention k and v grown to
+        ``cache_len`` positions, its cross-attention ``xk``/``xv`` as
+        projected (S_enc positions) and ``len`` the tokens' count."""
+        cfg = self.cfg
+        enc = _whisper_encode(self, cfg, batch["frames"])
+        x, ((k, v), (xk, xv)) = _whisper_decode_seq(
+            self, cfg, batch["tokens"], enc, collect_kv=True)
+        return x, {"k": _grow(k, cache_len), "v": _grow(v, cache_len),
+                   "xk": xk, "xv": xv, "len": batch["tokens"].shape[1]}
 
     def _ssm_prefill(self, x: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
         """The layers over the embedded prompt x (B, S, D), each layer's
@@ -794,8 +911,9 @@ class Model(nn.Module):
         """Zero-initialised cache; k and v are separate tensors, since the
         port's decode writes into them.  For ssm: the SSD states (L, B, H,
         P, N) float32 and conv tails (L, B, W-1, d_inner) bf16; for the
-        hybrid ``_hybrid_cache``'s in bf16; both whatever
-        ``cache_len``."""
+        hybrid ``_hybrid_cache``'s in bf16; both whatever ``cache_len``.
+        For audio also ``xk`` and ``xv``, sized ``cache_len`` (not the
+        encoder's length), as the reference's."""
         cfg = self.cfg
         if cfg.family == "ssm":
             return self._ssm_cache(batch_size, PDT)
@@ -804,7 +922,10 @@ class Model(nn.Module):
         kv = torch.zeros((cfg.n_layers, batch_size, cache_len,
                           cfg.n_kv_heads, cfg.head_dim), dtype=PDT,
                          device=self.device)
-        return {"k": kv, "v": kv.clone(), "len": 0}
+        cache = {"k": kv, "v": kv.clone(), "len": 0}
+        if cfg.family == "audio":
+            cache["xk"], cache["xv"] = kv.clone(), kv.clone()
+        return cache
 
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor,
@@ -817,7 +938,7 @@ class Model(nn.Module):
         if cfg.pos_embedding == "sinusoidal":
             table = L.sinusoidal_pos(cache_size_of(cache, cfg), cfg.d_model,
                                      device=x.device)
-            x = x + table[pos][None, None, :].to(PDT)
+            x = x + table[pos][None, None, :].to(x.dtype)
         if cfg.family == "ssm":
             x, cache = self._ssm_decode(x, cache)
         elif cfg.family == "hybrid":
@@ -828,17 +949,29 @@ class Model(nn.Module):
         return self._mask_vocab(_logits(x[:, 0], self.lm_head)), cache
 
     def _kv_decode(self, x: torch.Tensor, cache: Cache, pos: int):
+        """Self-attention writes position ``pos`` of each layer's k and v
+        in place; a Whisper decoder layer then attends to all of its
+        ``xk``/``xv`` (``xk.shape[1]`` slots, as the reference)."""
         cfg = self.cfg
+        audio = cfg.family == "audio"
         posv = torch.arange(pos, pos + 1, device=x.device)
-        for lp, kc, vc in zip(self.layers, cache["k"], cache["v"]):
+        layers = self.dec_layers if audio else self.layers
+        cross = zip(cache["xk"], cache["xv"]) if audio \
+            else [(None, None)] * len(layers)
+        for lp, kc, vc, (xk, xv) in zip(layers, cache["k"], cache["v"],
+                                        cross):
             q, k, v = _qkv(lp.attn, _apply_norm(lp.ln1, x, cfg), cfg, posv)
             kc[:, pos] = k[:, 0]
             vc[:, pos] = v[:, 0]
             o = attn.decode_attention(q, kc, vc, pos + 1)
             x = x + _out_proj(o, lp.attn.wo)
+            if audio:
+                qx = _proj(_apply_norm(lp.lnx, x, cfg), lp.xattn.wq)
+                ox = attn.decode_attention(qx, xk, xv, xk.shape[1])
+                x = x + _out_proj(ox, lp.xattn.wo)
             f, _ = _ffn_seq(lp, _apply_norm(lp.ln2, x, cfg), cfg)
             x = x + f
-        return x, {"k": cache["k"], "v": cache["v"], "len": pos + 1}
+        return x, {**cache, "len": pos + 1}
 
     def _ssm_decode(self, x: torch.Tensor, cache: Cache):
         for lp, st, tl in zip(self.layers, cache["state"], cache["conv"]):
@@ -880,6 +1013,5 @@ def cache_size_of(cache: Cache, cfg: ArchConfig) -> int:
 
 
 def build_model(cfg: ArchConfig, device: DeviceLike = None) -> Model:
-    """A ``Model`` of zeros on ``device`` (default the card); raises
-    ``NotImplementedError`` for a family not ported yet."""
+    """A ``Model`` of zeros on ``device`` (default the card)."""
     return Model(cfg, device)

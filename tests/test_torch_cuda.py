@@ -1498,3 +1498,60 @@ def test_hybrid_serving_on_card_matches_cpu(dev):
             for g, w in zip(gs, ws):
                 assert float((g - w).abs().max()) <= tol * float(
                     w.abs().max()), tol
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "internvl2-2b"])
+def test_audio_vlm_serving_on_card_matches_cpu(dev, arch):
+    """Whisper and the VLM at the SMOKE preset on the card: greedy
+    ``serve`` deterministic with 0 host syncs in its decode steps; a
+    prefill (Whisper: 40 frames and a 24-token prompt; the VLM: 16 patches
+    and 24 tokens) plus four decode steps within 0.03·max|want| of the
+    CPU's on the same parameters and inputs in bf16, and within
+    1e-4·max|want| in float32: logits and every cache tensor (Whisper's
+    xk and xv too)."""
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch.train import scaled_config
+    from repro_torch.models import Model
+    from repro_torch.models.model import init_params
+    from repro_torch.obs.syncs import sync_counter
+    cfg = scaled_config(arch, "smoke")
+    t1, st = tserve.serve(cfg, batch=2, prompt_len=32, gen=6, device=dev)
+    t2, _ = tserve.serve(cfg, batch=2, prompt_len=32, gen=6, device=dev)
+    assert torch.equal(t1, t2) and st["decode_host_syncs"] == 0
+    assert len(st["decode_step_ms"]) == 5
+    card = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    cpu = Model(cfg, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 28), generator=g,
+                         dtype=torch.int32)
+    stub = ({"frames": torch.randn((2, 40, cfg.d_model), generator=g)}
+            if cfg.family == "audio" else
+            {"patches": torch.randn((2, cfg.n_patches, cfg.frontend_dim),
+                                    generator=g)})
+    n = 24 + (cfg.n_patches if cfg.family == "vlm" else 0)
+    for tol in (0.03, 1e-4):
+        if tol < 0.03:
+            card.float(), cpu.float()
+        outs = []
+        for m in (card, cpu):
+            batch = {"tokens": toks[:, :24].to(m.device),
+                     **{k: v.to(m.device) for k, v in stub.items()}}
+            logits, cache = m.prefill(batch, n + 4)
+            seq = [logits.cpu()]
+            for i in range(4):
+                tok = toks[:, 24 + i: 25 + i].to(m.device)
+                with sync_counter() as sc:
+                    logits, cache = m.decode_step(tok, cache)
+                assert sc.syncs == 0 and cache["len"] == n + 1 + i
+                seq.append(logits.cpu())
+            outs.append((seq, [cache[k].float().cpu() for k in sorted(cache)
+                               if k != "len"]))
+        (got, gstates), (want, wstates) = outs
+        assert len(gstates) == (4 if cfg.family == "audio" else 2)
+        for g_, w in zip(got, want):
+            assert float((g_ - w).abs().max()) <= tol * float(w.abs().max())
+        for gs, ws in zip(gstates, wstates):
+            for g_, w in zip(gs, ws):
+                assert float((g_ - w).abs().max()) <= tol * float(
+                    w.abs().max()), tol
