@@ -306,17 +306,34 @@ are printed as one ``{"phase_seconds": ...}`` line.  Phases:
    float32 copy, at the reference test's limits, with a trace of 8 decode
    steps; (d) a 2-layer copy on the card and the CPU, bf16 and float32,
    within phase 11's limits; any failed check raises;
-16. one JSON line of the sharded topology, one of the baselines (each
+16. LM training (``Model.loss``, ``lm_loss``, remat, ``train/
+   optimizer.py``, ``train/train_step.py``; plain PyTorch, none of the
+   eight kernels may launch) at Qwen1.5-4B's published widths and all 40
+   layers (d_model 2,560, 20 heads of 128, d_ff 6,912, vocab 151,936, QKV
+   bias; 3,950,369,280 parameters): (a) bf16, remat ``full``, one fixed
+   batch of 2 × 2,048 tokens (a repeating pattern), the config's AdamW at
+   lr 3e-4 and warm-up 1: one warm-up and 6 timed steps (CUDA events, the
+   timed ones under ``sync_counter``: 0 host syncs), ms a step against
+   ``train_bounds``, tokens/s, peak memory, the state's bytes, the loss
+   each step (finite, lower at the end) and the grad norm; a trace of one
+   more step (busy, idle, matmul share, top kernels); a ``full`` and
+   a ``dots`` step from the same parameters (loss within 1e-6, grad norm
+   within 1e-4, both peaks); AdamW's state dropped, 2 Adafactor steps
+   (finite; its state bytes); (b) a 2-layer full-width copy in float32 on
+   the card and the CPU at batch 1 × 128: loss, grad norm, every clipped
+   grad, and the parameters after one AdamW and one Adafactor step from
+   the CPU's grads on both, within ``TRAIN_TOL``; any failed check raises;
+17. one JSON line of the sharded topology, one of the baselines (each
    path's seconds, quality and launches), one of clustered-KV decode, one
    of phase 10 (``{"dryrun": ...}``), one of the kernels (with each
    kernel's launches on the baselines' paths, its numbers at their shapes,
    its launches in phase 9 and its ``autotune`` field: the table's knob,
    its entries' shapes and knobs and phase 10's times, or "exempt" with
-   the reason), one each of phases 11–15 (``{"lm_serve": ...}``,
+   the reason), one each of phases 11–16 (``{"lm_serve": ...}``,
    ``{"lm_moe": ...}``, ``{"lm_ssm": ...}``, ``{"lm_hybrid": ...}``,
-   ``{"lm_audio_vlm": ...}``), the phases' seconds (``{"phase_seconds":
-   ...}``, the build and the start-up included), the card's
-   ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+   ``{"lm_audio_vlm": ...}``, ``{"lm_train": ...}``), the phases' seconds
+   (``{"phase_seconds": ...}``, the build and the start-up included), the
+   card's ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Every bound comes from ``launch/roofline.py``'s inventory and every
 CUDA-event time from ``obs.timing.device_span``.
@@ -327,6 +344,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -5070,6 +5088,334 @@ def lm_audio_vlm_phase():
     return out
 
 
+# --------------------------------------------------------------- phase 16
+# LM training: Qwen1.5-4B at its published widths and all 40 layers.
+
+TRAIN = dict(arch="qwen1.5-4b", batch=2, seq=2048, timed=6, lr=3e-4,
+             warmup=1, adafactor_steps=2)
+TRAIN_CPU = dict(n_layers=2, batch=1, seq=128)     # (b)
+# (b) card against CPU, float32 both (TF32 off): the CPU tests' float32
+# limits against the JAX package (tests/test_torch_train.py): loss 1e-5
+# relative, grad norm and each grad leaf 1e-4 of max|want| (cuBLAS and the
+# CPU sum in other orders); the parameters after one AdamW and one
+# Adafactor step from the same grads (the CPU's, on both) 1e-5 of
+# max|want| (the same float32 operations; Adafactor's means in another
+# order)
+TRAIN_TOL = dict(loss=1e-5, grad_norm=1e-4, grads=1e-4, params=1e-5)
+# the dots step against a full step from the same parameters: the same
+# products, saved instead of recomputed
+TRAIN_DOTS_TOL = dict(loss=1e-6, grad_norm=1e-4)
+
+
+def train_bounds(cfg, batch, seq):
+    """A training step's floor at remat ``full``: the bf16 products (every
+    weight product forward, recomputed and twice backward; ``lm_head``
+    forward and recomputed) at 989 TFLOP/s, the float32 ones
+    (``lm_head``'s backward, whose cotangent is float32 as the
+    reference's, and the plain attention's scores and weighted sums over
+    the whole S × S square, forward, recomputed and twice backward) at 67,
+    and AdamW's bytes (parameters and grads read, m and v read and
+    written, parameters written) at 3.35 TB/s, added: the three run one
+    after another.  Returns a dict of the terms and ``bound_ms``."""
+    from repro_torch.models import Model
+    D, Hq, Hkv, hd, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                         cfg.head_dim, cfg.d_ff)
+    T = batch * seq
+    layer = D * Hq * hd * 2 + D * Hkv * hd * 2 + 3 * D * F
+    lm = D * cfg.vocab_padded
+    bf16 = 2 * T * (4 * layer * cfg.n_layers + 2 * lm)
+    attn_fwd = 2 * 2 * batch * seq * seq * Hq * hd
+    fp32 = 2 * 2 * T * lm + 4 * attn_fwd * cfg.n_layers
+    n_bf16 = layer * cfg.n_layers + 2 * lm
+    n_all = sum(p.numel() for p in Model(cfg, "meta").parameters())
+    adam = n_bf16 * (2 + 2 + 16 + 2) + (n_all - n_bf16) * (4 + 4 + 16 + 4)
+    ms = dict(bf16_ms=bf16 / BF16_TFLOPS / 1e9, fp32_ms=fp32 / FP32_TFLOPS /
+              1e9, adamw_ms=adam / HBM_TBS / 1e9)
+    return dict(bf16_tflop=bf16 / 1e12, fp32_tflop=fp32 / 1e12,
+                adamw_gb=adam / 1e9, **ms, bound_ms=sum(ms.values()),
+                parameters=n_all)
+
+
+def _pattern_batch(vocab, batch, seq, device):
+    """One fixed batch of a repeating 16-token pattern (the reference's
+    ``test_loss_learns_structure``): labels are the next token."""
+    import torch
+    toks = (torch.arange(seq, device=device) % 16).repeat(batch, 1)
+    toks = (toks * 997 % vocab).to(torch.int32)
+    return {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+
+
+def _noop_opt(box):
+    """An optimizer that keeps the (clipped) grads it is given and updates
+    nothing: a step's loss, grad norm and grads from fixed parameters."""
+    from repro_torch.train.optimizer import Optimizer
+
+    def update(grads, state, params, step):
+        box["grads"] = grads
+        return params, state
+    return Optimizer(lambda params: None, update)
+
+
+def _state_bytes(tree):
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(_state_bytes(v) for v in tree.values())
+    return 0
+
+
+def _step_ids(first, steps):
+    """Step indices ``first ..`` as 0-d device tensors, made before a
+    ``sync_counter`` block (a host-to-device copy synchronises)."""
+    import torch
+    return [torch.tensor(first + i, device=DEV) for i in range(steps)]
+
+
+def _timed_steps(step, state, batch, ids):
+    """A train step at each of the step indices ``ids``, CUDA events around
+    each; returns (state, metrics per step as device tensors, ms per
+    step)."""
+    import torch
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(ids) + 1)]
+    mets = []
+    ev[0].record()
+    for i, sid in enumerate(ids):
+        state, m = step(state, batch, sid)
+        mets.append(m)
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    return state, mets, [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+
+
+def train_full_model():
+    """(a): Qwen1.5-4B at its published widths and all 40 layers, bf16,
+    remat ``full``: the config's AdamW (lr 3e-4, warm-up 1) for one
+    warm-up and ``TRAIN["timed"]`` timed steps on one fixed batch, the
+    timed ones under ``sync_counter``; then a ``full`` and a ``dots`` step
+    from the same parameters (an optimizer that updates nothing); then
+    AdamW's state dropped and ``adafactor_steps`` Adafactor steps."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.obs.syncs import sync_counter
+    from repro_torch.train import adafactor, make_optimizer, make_train_step
+    c = TRAIN
+    cfg = get_config(c["arch"])
+    assert cfg.remat and cfg.remat_policy == "full" and \
+        cfg.optimizer == "adamw"
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    model = init_params(cfg, torch.Generator(DEV).manual_seed(SEED), DEV)
+    init_s = time.perf_counter() - t0
+    named = dict(model.named_parameters())
+    params_b = _state_bytes(named)
+    batch = _pattern_batch(cfg.vocab, c["batch"], c["seq"], DEV)
+    opt = make_optimizer(cfg.optimizer, lr=c["lr"], warmup=c["warmup"])
+    step = make_train_step(model, opt)
+    state = opt.init(named)
+    adam_b = _state_bytes(state)
+    torch.cuda.reset_peak_memory_stats()
+    state, warm, warm_ms = _timed_steps(step, state, batch, _step_ids(0, 1))
+    ids = _step_ids(1, c["timed"])
+    with sync_counter() as sc:
+        state, mets, ms = _timed_steps(step, state, batch, ids)
+    peak = torch.cuda.max_memory_allocated()
+    mets = warm + mets
+    losses = [float(m["loss"]) for m in mets]
+    norms = [float(m["grad_norm"]) for m in mets]
+    bound = train_bounds(cfg, c["batch"], c["seq"])
+    med = statistics.median(ms)
+    res = dict(
+        arch=c["arch"], layers=cfg.n_layers, published_layers=40,
+        parameters=sum(p.numel() for p in named.values()),
+        batch=c["batch"], seq=c["seq"], remat=cfg.remat_policy,
+        optimizer=dict(name="adamw", lr=c["lr"], warmup=c["warmup"]),
+        init_s=init_s, warmup_step_ms=warm_ms[0], step_ms=ms,
+        step_ms_median=med, step_ms_min=min(ms), step_ms_max=max(ms),
+        step_bound_ms=bound["bound_ms"], bound=bound,
+        tokens_per_s=c["batch"] * c["seq"] / (med / 1e3),
+        max_memory_allocated=peak,
+        state_bytes=dict(params=params_b, grads=params_b,
+                         adamw_m_v=adam_b),
+        host_syncs_per_step=sc.syncs / c["timed"], loss=losses,
+        grad_norm=norms)
+    log(f"lm_train (a) adamw: {json.dumps(res)}")
+    if not all(math.isfinite(v) for v in losses + norms):
+        raise RuntimeError(f"lm_train (a): non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"lm_train (a): loss {losses[0]} -> {losses[-1]}")
+    if sc.syncs:
+        raise RuntimeError(f"lm_train (a): {sc.syncs} host syncs")
+
+    # where a step's time goes: one more AdamW step traced
+    prof = profile_window("lm_train, one AdamW step at full width",
+                          lambda: _timed_steps(step, state, batch,
+                                               _step_ids(1 + c["timed"], 1)))
+    if prof is not None:
+        busy_us = prof["busy_s"] * 1e6
+        top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1][0])[:8]
+        res["trace"] = dict(
+            wall_s=prof["wall_s"], busy_s=prof["busy_s"], idle=prof["idle"],
+            activities=prof["activities"],
+            matmul_share=sum(t for n, (t, _) in prof["by_name"].items()
+                             if any(m in n for m in MATMUL_MARKERS))
+            / busy_us,
+            top={n: dict(ms=t / 1e3, count=k, share=t / busy_us)
+                 for n, (t, k) in top})
+    else:
+        res["trace"] = "not measured"
+    log(f"lm_train (a) trace: {json.dumps(res['trace'])}")
+
+    # the same parameters through a full and a dots step
+    remat = {}
+    for policy in ("full", "dots"):
+        model.cfg = dataclasses.replace(cfg, remat_policy=policy)
+        box = {}
+        torch.cuda.reset_peak_memory_stats()
+        _, (m,), (t,) = _timed_steps(
+            make_train_step(model, _noop_opt(box)), None, batch,
+            _step_ids(2 + c["timed"], 1))
+        remat[policy] = dict(loss=float(m["loss"]),
+                             grad_norm=float(m["grad_norm"]), step_ms=t,
+                             max_memory_allocated=
+                             torch.cuda.max_memory_allocated())
+        del box
+    model.cfg = cfg
+    res["remat"] = remat
+    log(f"lm_train (a) full vs dots: {json.dumps(remat)}")
+    f, d = remat["full"], remat["dots"]
+    if abs(d["loss"] - f["loss"]) > TRAIN_DOTS_TOL["loss"] * abs(f["loss"]) \
+            or abs(d["grad_norm"] - f["grad_norm"]) > \
+            TRAIN_DOTS_TOL["grad_norm"] * f["grad_norm"]:
+        raise RuntimeError(f"lm_train (a): dots {d} against full {f}")
+
+    # AdamW's state dropped; Adafactor from the trained parameters
+    del state, opt, step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt = adafactor(warmup=c["warmup"])
+    step = make_train_step(model, opt)
+    state = opt.init(named)
+    fac_b = _state_bytes(state)
+    state, mets, ms = _timed_steps(step, state, batch,
+                                   _step_ids(0, c["adafactor_steps"]))
+    fac = dict(steps=c["adafactor_steps"], step_ms=ms,
+               loss=[float(m["loss"]) for m in mets],
+               grad_norm=[float(m["grad_norm"]) for m in mets],
+               state_bytes=fac_b,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    res["adafactor"] = fac
+    log(f"lm_train (a) adafactor: {json.dumps(fac)}")
+    if not all(math.isfinite(v) for v in fac["loss"] + fac["grad_norm"]):
+        raise RuntimeError(f"lm_train (a): adafactor non-finite {fac}")
+    del model, named, state, step, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def _rel_err(got, want):
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def train_card_vs_cpu():
+    """(b): a 2-layer full-width copy (the card's generator draws the first
+    two layers first), float32 on the card and on the CPU, batch 1 × 128:
+    loss, grad norm and every clipped grad of one step; then one AdamW and
+    one Adafactor step on each from the same grads (the CPU's), the
+    parameters restored in between.  The errors are computed on the card,
+    the CPU's tensors copied there."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.model import init_params
+    from repro_torch.train import adafactor, adamw, make_train_step
+    c = TRAIN_CPU
+    cfg = get_config(TRAIN["arch"]).scaled(n_layers=c["n_layers"])
+    t0 = time.perf_counter()
+    secs = {}
+    card = init_params(cfg, torch.Generator(DEV).manual_seed(SEED),
+                       DEV).float()
+    cpu = Model(cfg, "meta").float().to_empty(device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    batch = _pattern_batch(cfg.vocab, c["batch"], c["seq"], "cpu")
+    secs["setup"] = time.perf_counter() - t0
+    models = (("card", card), ("cpu", cpu))
+    mets, grads = {}, {}
+    for name, m in models:
+        t = time.perf_counter()
+        box = {}
+        _, met = make_train_step(m, _noop_opt(box))(
+            None, {k: v.to(m.device) for k, v in batch.items()},
+            torch.tensor(0, device=m.device))
+        mets[name] = {k: float(v) for k, v in met.items()}
+        grads[name] = box["grads"]
+        secs[f"{name}_step"] = time.perf_counter() - t
+    gm, wm = mets["card"], mets["cpu"]
+    card_grads = grads["card"]
+    grads["card"] = {n: g.to(DEV) for n, g in grads["cpu"].items()}
+    errs = dict(loss=abs(gm["loss"] - wm["loss"]) / abs(wm["loss"]),
+                grad_norm=abs(gm["grad_norm"] - wm["grad_norm"])
+                / wm["grad_norm"],
+                grads=max(_rel_err(card_grads[n], g)
+                          for n, g in grads["card"].items()))
+    del card_grads
+    # each optimizer from the CPU's grads on both, from the same parameters
+    # (one pristine copy a device, restored after the first)
+    params = {name: dict(m.named_parameters()) for name, m in models}
+    orig = {name: {n: t.detach().clone() for n, t in ps.items()}
+            for name, ps in params.items()}
+    for oname, opt in (("adamw", adamw(lr=TRAIN["lr"], warmup=1)),
+                       ("adafactor", adafactor(warmup=1))):
+        t1 = time.perf_counter()
+        for name, m in models:
+            opt.update(grads[name], opt.init(params[name]), params[name],
+                       torch.tensor(0, device=m.device))
+        errs[f"params_{oname}"] = max(
+            _rel_err(params["card"][n].detach(), t.detach().to(DEV))
+            for n, t in params["cpu"].items())
+        if oname == "adamw":
+            with torch.no_grad():
+                for name, _ in models:
+                    for n, t in params[name].items():
+                        t.copy_(orig[name][n])
+        secs[oname] = time.perf_counter() - t1
+    del orig, grads, params, card, cpu
+    res = dict(layers=c["n_layers"], batch=c["batch"], seq=c["seq"],
+               loss=dict(card=gm["loss"], cpu=wm["loss"]),
+               grad_norm=dict(card=gm["grad_norm"], cpu=wm["grad_norm"]),
+               errors=errs, limits=TRAIN_TOL, step_seconds=secs,
+               seconds=time.perf_counter() - t0)
+    log(f"lm_train (b) card vs CPU: {json.dumps(res)}")
+    bad = {k: v for k, v in errs.items()
+           if not v <= TRAIN_TOL[k.split("_")[0] if k.startswith("params")
+                                 else k]}
+    if bad or not math.isfinite(gm["loss"]):
+        raise RuntimeError(f"lm_train (b): card vs CPU {bad}")
+    return res
+
+
+def lm_train_phase():
+    """Phase 16: training (``Model.loss``, remat, ``make_train_step``,
+    AdamW and Adafactor) at Qwen1.5-4B's published widths and all 40
+    layers: (a) ``train_full_model``; (b) ``train_card_vs_cpu``.  Raises on
+    any failed check.  None of the eight kernels may launch."""
+    from repro_torch.kernels import _build
+    t_phase = time.perf_counter()
+    _build.reset_launch_counts()
+    out = dict(full=train_full_model())
+    out["card_vs_cpu"] = train_card_vs_cpu()
+    launched = {k: n for k, n in _build.launch_counts.items() if n}
+    if launched:
+        raise RuntimeError(f"lm_train: kernels launched {launched}")
+    out["kernel_launches"] = launched
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"lm_train phase: {out['seconds']:.1f} s")
+    return out
+
+
 def autotune_field(name, tuned):
     """A kernel entry's ``autotune`` field: the table's knob, its entries
     (shape and knob) and phase 10's times, or "exempt" with the reason from
@@ -5217,6 +5563,8 @@ def main() -> int:
     elapsed("RecurrentGemma serving (phase 14)")
     av_out = lm_audio_vlm_phase()          # raises on a failed check
     elapsed("Whisper and VLM serving (phase 15)")
+    train_out = lm_train_phase()           # raises on a failed check
+    elapsed("LM training (phase 16)")
 
     kernels = [
         dict(name="gather_score", route="cuda",
@@ -5460,6 +5808,7 @@ def main() -> int:
     print(json.dumps({"lm_ssm": ssm_out}), flush=True)
     print(json.dumps({"lm_hybrid": hybrid_out}), flush=True)
     print(json.dumps({"lm_audio_vlm": av_out}), flush=True)
+    print(json.dumps({"lm_train": train_out}), flush=True)
     print(json.dumps({"phase_seconds": phase_s}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,9 @@
 ``repro.launch.train``): ``SMOKE``, ``M100`` and ``scaled_config``, which
 ``launch/serve.py`` and the tests read, as the reference's serve reads
 them from its training launcher.  The training loop itself (deterministic
-data, checkpoint/restart) comes with the training slice (ROADMAP.md queue
-1 item 5(e)).
+data, checkpoint/restart) comes with the second half of the training slice
+(ROADMAP.md queue 1 item 5(e)); the loss, the optimizers and the train
+step are ``Model.loss`` and ``repro_torch.train``.
 """
 from __future__ import annotations
 

@@ -57,10 +57,31 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out.to(x.dtype)
 
 
+class _Softplus(torch.autograd.Function):
+    """``logaddexp(x, 0)`` and the reference's custom derivative of it,
+    ``exp(x − out)`` with +inf read as 0 (autograd of the forward's max
+    and abs would give 1, not ½, at x = 0)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        out = torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        x, out = ctx.saved_tensors
+
+        def finite(t):
+            return torch.where(t == torch.inf, 0.0, t)
+        return g * torch.exp(finite(x) - finite(out))
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``, i.e. ``logaddexp(x, 0)``: ``max(x, 0) +
-    log1p(exp(-|x|))`` (``F.softplus`` turns linear above its threshold)."""
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+    log1p(exp(-|x|))`` (``F.softplus`` turns linear above its threshold),
+    with the reference's derivative."""
+    return _Softplus.apply(x)
 
 
 def silu(g: torch.Tensor) -> torch.Tensor:

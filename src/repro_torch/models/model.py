@@ -63,17 +63,28 @@ What is PyTorch idiom here rather than a copy:
   device) has no counterpart.
 
 The backbone carries the MoE layers' auxiliary loss summed over layers,
-as the reference's does; serving drops it (training will read it).
-Training (``Model.loss``, ``lm_loss``) raises ``NotImplementedError``
-naming its item of ``ROADMAP.md`` queue 1.
+as the reference's does; serving drops it and ``Model.loss`` adds 0.01 of
+it.  Training is the reference's: ``Model.loss`` runs the backbone at
+positions ``arange(S)`` (MoE at ``moe_capacity_factor``, so tokens drop as
+in its prefill) into ``lm_loss``, the chunked-vocab cross entropy whose
+(B, S, V) logits never exist; gradients come from autograd where the
+reference takes ``jax.grad``, and ``torch.utils.checkpoint`` stands where
+it applies ``jax.checkpoint``: each ``lm_loss`` chunk, and with
+``cfg.remat`` one layer (one hybrid group, one tail layer, one encoder or
+decoder layer) at a time, saving nothing (``remat_policy="full"``) or the
+outputs of the products without a batch dimension (``"dots"``, selective
+checkpointing).  Checkpointing applies only while autograd records, so
+the serving steps (``torch.no_grad``) run as before.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -86,8 +97,6 @@ from repro_torch.models import ssm as ssm_lib
 PDT = torch.bfloat16  # param dtype
 Cache = Dict[str, Any]
 
-# training, still to port: ROADMAP.md queue 1, item 5
-_TRAINING = "5(e)"
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
@@ -589,47 +598,103 @@ def _embed_inputs(model: "Model", cfg: ArchConfig,
     return emb, None
 
 
+# products without a batch dimension: the weight projections (``x @ w``
+# reaches the dispatcher as ``mm``); the attention scores, the experts and
+# the SSD terms are ``bmm`` over batch dimensions, as in the reference
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep
+    the outputs of products without a batch dimension, recompute the
+    rest."""
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _checkpoint(fn, *args, context_fn=ckpt.noop_context_fn):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` while autograd
+    records (the bodies draw no random numbers, so no RNG state is kept),
+    else plainly."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                           preserve_rng_state=False, context_fn=context_fn)
+
+
+def _maybe_remat(fn, cfg: ArchConfig):
+    """``fn`` rematerialised in the backward pass where the reference wraps
+    it in ``jax.checkpoint``: with ``cfg.remat``, saving nothing
+    (``remat_policy="full"``) or the products without a batch dimension
+    (``"dots"``)."""
+    if not cfg.remat:
+        return fn
+    context_fn = ckpt.noop_context_fn
+    if cfg.remat_policy == "dots":
+        context_fn = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(_checkpoint, fn, context_fn=context_fn)
+
+
 def _backbone_seq(model: "Model", cfg: ArchConfig, x: torch.Tensor,
                   positions: torch.Tensor, *, collect_kv: bool = False):
-    """Runs the layers.  Returns (hidden, (k, v) stacked (L, B, S, Hkv, hd)
-    or None, the layers' aux losses summed, float32 ()); ssm and hybrid
-    models return no kv (their prefill keeps its own states).  The audio
-    family runs ``_whisper_encode`` and ``_whisper_decode_seq`` instead."""
-    ks, vs = [], []
+    """Runs the layers, each (a hybrid model: each group, then each tail
+    layer) through ``_maybe_remat``.  Returns (hidden, (k, v) stacked (L,
+    B, S, Hkv, hd) or None, the layers' aux losses summed, float32 ());
+    ssm and hybrid models return no kv (their prefill keeps its own
+    states).  The audio family runs ``_whisper_encode`` and
+    ``_whisper_decode_seq`` instead."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
+        body = _maybe_remat(lambda lp, x: _mamba_block_seq(lp, x, cfg)[0],
+                            cfg)
         for lp in model.layers:
-            x, _ = _mamba_block_seq(lp, x, cfg)
+            x = body(lp, x)
         return x, None, aux_total
     if cfg.family == "hybrid":
-        for kind, lp, _, _ in _hybrid_blocks(model):
-            if kind == "rec":
-                x, _ = _rec_block_seq(lp, x, cfg)
-            else:
-                x, _, _ = _dense_block_seq(lp, x, cfg, positions,
-                                           window=cfg.window)
+        def gbody(gp, x):
+            for _, kind, lp in gp.blocks(cfg):
+                x = (_rec_block_seq(lp, x, cfg) if kind == "rec" else
+                     _dense_block_seq(lp, x, cfg, positions,
+                                      window=cfg.window))[0]
+            return x
+        gbody = _maybe_remat(gbody, cfg)
+        tbody = _maybe_remat(lambda lp, x: _rec_block_seq(lp, x, cfg)[0],
+                             cfg)
+        for gp in model.groups:
+            x = gbody(gp, x)
+        for lp in model.tail:
+            x = tbody(lp, x)
         return x, None, aux_total
+
+    def body(lp, x):
+        x, kv, a = _dense_block_seq(lp, x, cfg, positions)
+        return x, (kv if collect_kv else None), a
+    body = _maybe_remat(body, cfg)
+    kvs = []
     for lp in model.layers:
-        x, (k, v), a = _dense_block_seq(lp, x, cfg, positions)
+        x, kv, a = body(lp, x)
         aux_total = aux_total + a
-        if collect_kv:
-            ks.append(k)
-            vs.append(v)
-    kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
-    return x, kvs, aux_total
+        kvs.append(kv)
+    if not collect_kv:
+        return x, None, aux_total
+    k, v = (torch.stack(t) for t in zip(*kvs))
+    return x, (k, v), aux_total
 
 
 def _whisper_encode(model: "Model", cfg: ArchConfig,
                     frames: torch.Tensor) -> torch.Tensor:
     """The encoder: frames (B, S_enc, D) in the weights' dtype plus the
-    sinusoidal table, then the bidirectional ``enc_layers``; no final norm,
-    as the reference."""
+    sinusoidal table, then the bidirectional ``enc_layers``, each through
+    ``_maybe_remat``; no final norm, as the reference."""
     x = frames.to(model.embed.dtype)
     x = x + L.sinusoidal_pos(x.shape[1], cfg.d_model,
                              device=x.device).to(x.dtype)
     pos = torch.arange(x.shape[1], device=x.device)
+    body = _maybe_remat(lambda lp, x: _dense_block_seq(
+        lp, x, cfg, pos, causal=False)[0], cfg)
     for lp in model.enc_layers:
-        x, _, _ = _dense_block_seq(lp, x, cfg, pos, causal=False)
+        x = body(lp, x)
     return x
 
 
@@ -639,18 +704,23 @@ def _whisper_decode_seq(model: "Model", cfg: ArchConfig,
     """The decoder over tokens (B, S) against the encoder's output enc (B,
     S_enc, D): token embeddings plus the sinusoidal table, causal
     self-attention, and per layer cross-attention to ``xk``/``xv``, enc
-    projected by ``xattn.wk``/``wv`` (no bias, no positions).  Returns (x,
-    ((k, v), (xk, xv)) each stacked (L, B, ·, Hkv, hd), or None)."""
+    projected by ``xattn.wk``/``wv`` (no bias, no positions); each layer,
+    its projections of enc included, through ``_maybe_remat``.  Returns
+    (x, ((k, v), (xk, xv)) each stacked (L, B, ·, Hkv, hd), or None)."""
     x = F.embedding(tokens, model.embed)
     x = x + L.sinusoidal_pos(x.shape[1], cfg.d_model,
                              device=x.device).to(x.dtype)
     pos = torch.arange(x.shape[1], device=x.device)
-    kvs = []
-    for lp in model.dec_layers:
+
+    def body(lp, x, enc):
         xkv = (_proj(enc, lp.xattn.wk), _proj(enc, lp.xattn.wv))
         x, kv, _ = _dense_block_seq(lp, x, cfg, pos, cross_kv=xkv)
-        if collect_kv:
-            kvs.append((*kv, *xkv))
+        return x, ((*kv, *xkv) if collect_kv else None)
+    body = _maybe_remat(body, cfg)
+    kvs = []
+    for lp in model.dec_layers:
+        x, kv = body(lp, x, enc)
+        kvs.append(kv)
     if not collect_kv:
         return x, None
     k, v, xk, xv = (torch.stack(t) for t in zip(*kvs))
@@ -697,11 +767,68 @@ def _logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.float() @ w.float()
 
 
-def lm_loss(*args, **kwargs):
-    """Chunked-vocab cross entropy: training, not ported yet."""
-    raise NotImplementedError(
-        "lm_loss belongs to training, not ported yet: ROADMAP.md queue 1 "
-        f"item {_TRAINING}")
+class _LogitsMm(torch.autograd.Function):
+    """``_logits`` (bf16 products summed in float32, not rounded back) with
+    the transpose ``jax.grad`` takes of ``preferred_element_type=float32``:
+    the float32 cotangent times the other operand upcast to float32, a
+    float32 product, rounded to that operand's dtype.  A function of its
+    own, as ``torch.mm``'s ``out_dtype`` on the card has no such
+    backward."""
+
+    @staticmethod
+    def forward(ctx, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(h, w)
+        return _logits(h, w)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        h, w = ctx.saved_tensors
+        gh = gw = None
+        if ctx.needs_input_grad[0]:
+            gh = (g @ w.float().t()).to(h.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = (h.float().t() @ g).to(w.dtype)
+        return gh, gw
+
+
+def _chunk_nll(h: torch.Tensor, y: torch.Tensor, m: torch.Tensor,
+               w: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Σ (logsumexp − gold logit) · mask over one chunk: h (B, c, D), y and
+    m (B, c); the logits (B, c, V) float32, padded-vocab columns -1e30.
+    The logsumexp is ``jax.nn.logsumexp``'s: the max held constant."""
+    B, c, D = h.shape
+    logits = _LogitsMm.apply(h.reshape(B * c, D), w).view(B, c, -1)
+    if w.shape[-1] > vocab:
+        keep = torch.arange(w.shape[-1], device=h.device) < vocab
+        logits = torch.where(keep, logits, -1e30)
+    mx = logits.amax(dim=-1, keepdim=True).detach()
+    lz = torch.log(torch.exp(logits - mx).sum(dim=-1)) + mx[..., 0]
+    gold = torch.gather(logits, -1, y[..., None].long())[..., 0]
+    return torch.sum((lz - gold) * m)
+
+
+def lm_loss(model: "Model", cfg: ArchConfig, hidden: torch.Tensor,
+            labels: torch.Tensor,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Chunked-vocab cross entropy, float32 (): hidden (B, S, D), labels
+    (B, S), mask (B, S) or None (all ones).  The reference's chunking: c =
+    min(loss_chunk, S) positions a chunk where c divides S, else one chunk;
+    each chunk's logits against ``model.lm_head`` exist only inside
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), so the
+    (B, S, V) logits never do, forward or backward.  The chunks' sums add
+    in order and divide by max(Σ mask, 1)."""
+    B, S, _ = hidden.shape
+    c = min(cfg.loss_chunk, S)
+    nc = S // c if S % c == 0 else 1
+    c = S // nc
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(nc):
+        sl = slice(i * c, (i + 1) * c)
+        tot = tot + _checkpoint(_chunk_nll, hidden[:, sl], labels[:, sl],
+                                mask[:, sl], model.lm_head, cfg.vocab)
+    return tot / torch.clamp(mask.sum(), min=1.0)
 
 
 # ===========================================================================
@@ -785,9 +912,25 @@ class Model(nn.Module):
 
     # ----- training -----
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        raise NotImplementedError(
-            "Model.loss belongs to training, not ported yet: ROADMAP.md "
-            f"queue 1 item {_TRAINING}")
+        """The training loss, float32 (): ``lm_loss`` of the final-normed
+        hidden states against ``batch["labels"]`` (B, S).  Audio: the
+        encoder over ``frames``, the decoder over ``tokens``, no aux term.
+        The rest: ``tokens`` (vlm: after ``patches``, whose positions the
+        loss skips) through the layers at positions ``arange(S)``, plus
+        0.01 times the MoE layers' aux losses summed."""
+        cfg = self.cfg
+        if cfg.family == "audio":
+            enc = _whisper_encode(self, cfg, batch["frames"])
+            x, _ = _whisper_decode_seq(self, cfg, batch["tokens"], enc)
+            x = _apply_norm(self.final_norm, x, cfg)
+            return lm_loss(self, cfg, x, batch["labels"])
+        x, _ = _embed_inputs(self, cfg, batch)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, _, aux = _backbone_seq(self, cfg, x, positions)
+        x = _apply_norm(self.final_norm, x, cfg)
+        if cfg.family == "vlm":
+            x = x[:, cfg.n_patches:, :]
+        return lm_loss(self, cfg, x, batch["labels"]) + 0.01 * aux
 
     # ----- serving -----
     def _mask_vocab(self, logits: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,8 @@ What is PyTorch idiom here rather than a copy:
 - each three-operand einsum is spelled as the pairwise contraction XLA's
   optimal path takes (the elementwise factor first where it keeps the
   intermediate small), so no broadcast materialises a larger tensor than
-  the (B, nc, H, Q, Q) decay matrix, which is built in place.
+  the (B, nc, H, Q, Q) decay matrix, which is built in place (its product
+  with the scores out of place while autograd records, for training).
 """
 from __future__ import annotations
 
@@ -73,7 +74,9 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     # intra-chunk (diagonal) term: "bchqk,bcqk,bckhp->bcqhp"
     Lm = segsum(dAc).exp_()                                    # (B,nc,H,Q,Q)
     scores = torch.einsum("bcqn,bckn->bcqk", Cc, Bc)           # (B,nc,Q,Q)
-    Lm.mul_(scores[:, :, None])
+    # in place unless autograd records (it keeps exp's output)
+    Lm = (Lm * scores[:, :, None] if torch.is_grad_enabled()
+          else Lm.mul_(scores[:, :, None]))
     y_diag = torch.einsum("bchqk,bckhp->bcqhp", Lm, xc)
     del Lm
 

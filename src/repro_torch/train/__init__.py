@@ -1,6 +1,10 @@
-"""Serving steps of the port (counterpart of ``repro.train``'s serving
-half).  The optimizers, the train step and checkpoints come with the
-training slice (ROADMAP.md queue 1 item 5(e))."""
+"""Training and serving steps of the port (counterpart of
+``repro.train``): the optimizers, the train step, prefill and decode.
+Checkpoints and the trainer loop come with the second half of the training
+slice (ROADMAP.md queue 1 item 5(e))."""
+from repro_torch.train.optimizer import adafactor, adamw, make_optimizer
 from repro_torch.train.serve_step import make_decode_step, make_prefill
+from repro_torch.train.train_step import make_train_step
 
-__all__ = ["make_decode_step", "make_prefill"]
+__all__ = ["adafactor", "adamw", "make_optimizer", "make_train_step",
+           "make_decode_step", "make_prefill"]

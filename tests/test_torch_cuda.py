@@ -1555,3 +1555,81 @@ def test_audio_vlm_serving_on_card_matches_cpu(dev, arch):
             for g_, w in zip(gs, ws):
                 assert float((g_ - w).abs().max()) <= tol * float(
                     w.abs().max()), tol
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "qwen2-moe-a2.7b",
+                                  "mamba2-2.7b", "recurrentgemma-9b",
+                                  "whisper-base", "internvl2-2b"])
+def test_train_step_on_card_matches_cpu(dev, arch):
+    """One ``make_train_step`` step of each family at the SMOKE preset (2
+    layers; the hybrid 3) on the card against the same step on the CPU,
+    from the same parameters: in float32 the loss within 1e-5 relative,
+    the grad norm and every clipped grad within 1e-4 of max|want|, and the
+    parameters after an Adafactor step from the same (the CPU's) grads
+    within 1e-5 of max|want|; in bf16
+    the dense step runs under ``sync_counter`` (0 host syncs) with a
+    finite loss within 1e-2 of the CPU's."""
+    from repro_torch.launch.train import scaled_config
+    from repro_torch.models import Model
+    from repro_torch.models.model import init_params
+    from repro_torch.obs.syncs import sync_counter
+    from repro_torch.train import make_optimizer, make_train_step
+    from repro_torch.train.optimizer import Optimizer
+    cfg = scaled_config(arch, "smoke").scaled(
+        n_layers=3 if arch == "recurrentgemma-9b" else 2, loss_chunk=32,
+        attn_chunk=32)
+    card = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    cpu = Model(cfg, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 64), generator=g),
+             "labels": torch.randint(0, cfg.vocab, (2, 64), generator=g)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((2, 64, cfg.d_model), generator=g)
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn((2, cfg.n_patches, cfg.frontend_dim),
+                                       generator=g)
+    if arch == "qwen1.5-4b":
+        losses = []
+        for m in (card, cpu):
+            m16 = Model(cfg, m.device)
+            m16.load_state_dict(m.state_dict())
+            opt = make_optimizer("adamw")
+            step = make_train_step(m16, opt)
+            state = opt.init(dict(m16.named_parameters()))
+            b = {k: v.to(m.device) for k, v in batch.items()}
+            sid = torch.tensor(0, device=m.device)   # a copy: made outside
+            with sync_counter() as sc:
+                _, met = step(state, b, sid)
+            assert sc.syncs == 0
+            losses.append(float(met["loss"]))
+        assert np.isfinite(losses).all()
+        assert abs(losses[0] - losses[1]) <= 1e-2 * abs(losses[1])
+    outs = []
+    for m in (card.float(), cpu.float()):
+        box = {}
+
+        def update(grads, state, params, step, box=box):
+            box["grads"] = {n: t.cpu() for n, t in grads.items()}
+            return params, state
+        step = make_train_step(m, Optimizer(lambda p: None, update))
+        _, met = step(None, {k: v.to(m.device) for k, v in batch.items()},
+                      torch.tensor(0, device=m.device))
+        outs.append(({k: float(v) for k, v in met.items()}, box["grads"]))
+    (gm, gg), (wm, wg) = outs
+    assert abs(gm["loss"] - wm["loss"]) <= 1e-5 * abs(wm["loss"])
+    assert abs(gm["grad_norm"] - wm["grad_norm"]) <= 1e-4 * wm["grad_norm"]
+    for n in wg:
+        assert float((gg[n] - wg[n]).abs().max()) <= 1e-4 * float(
+            wg[n].abs().max()), n
+    # Adafactor on both from the same (the CPU's) grads
+    after = []
+    for m in (card, cpu):
+        opt = make_optimizer("adafactor", lr=1e-2, warmup=1)
+        params = dict(m.named_parameters())
+        opt.update({n: g.to(m.device) for n, g in wg.items()},
+                   opt.init(params), params, torch.tensor(0, device=m.device))
+        after.append({n: t.detach().cpu() for n, t in params.items()})
+    for n, w in after[1].items():
+        assert float((after[0][n] - w).abs().max()) <= 1e-5 * float(
+            w.abs().max()), n

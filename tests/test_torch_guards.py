@@ -68,14 +68,15 @@ NEW_MODULES = ("repro_torch.configs", "repro_torch.configs.gkmeans_paper",
                "repro_torch.configs.recurrentgemma_9b",
                "repro_torch.configs.whisper_base",
                "repro_torch.configs.internvl2_2b",
-               "repro_torch.train",
+               "repro_torch.train", "repro_torch.train.optimizer",
+               "repro_torch.train.train_step",
                "repro_torch.train.serve_step", "repro_torch.launch.train",
                "repro_torch.launch.serve", "repro_torch.interop")
 
 
 def test_new_modules_import_without_jax():
-    """The analysis, autotune, configs, dry-run and LM serving modules
-    import in a fresh interpreter without loading jax or the reference
+    """The analysis, autotune, configs, dry-run, LM serving and training
+    modules import in a fresh interpreter without loading jax or the reference
     package."""
     import subprocess
     import sys
@@ -244,20 +245,6 @@ def test_lm_audio_vlm_entry_points_build_and_serve(arch):
     assert toks.shape == (1, 2) and stats["decode_host_syncs"] == 0
 
 
-@pytest.mark.parametrize("arch", sorted(AUDIO_VLM))
-def test_lm_audio_vlm_training_raises(arch):
-    """Training is not ported for the audio and vlm families either:
-    ``Model.loss`` raises naming item 5(e)."""
-    from repro_torch.launch.train import scaled_config
-    from repro_torch.models import build_model
-    model = build_model(scaled_config(arch, "smoke"), "cpu")
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
-             "frames": torch.zeros((1, 4, 256)),
-             "patches": torch.zeros((1, 16, 64))}
-    with pytest.raises(NotImplementedError, match=r"item 5\(e\)"):
-        model.loss(batch)
-
-
 def test_audit_without_device_raises_when_no_cuda(monkeypatch):
     """The contract audit runs on the card by default: ``run_audit()`` and
     ``python -m repro_torch.analysis audit`` without ``--device`` raise
@@ -278,17 +265,6 @@ def test_audit_without_device_raises_when_no_cuda(monkeypatch):
     assert ran == []
     assert contracts.run_audit(device="cpu") == []
     assert ran == [torch.device("cpu")]
-
-
-def test_lm_training_raises():
-    from repro_torch.launch.train import scaled_config
-    from repro_torch.models import build_model
-    from repro_torch.models.model import lm_loss
-    model = build_model(scaled_config("llama3-405b", "smoke"), "cpu")
-    with pytest.raises(NotImplementedError, match=r"item 5\(e\)"):
-        model.loss({"tokens": torch.zeros((1, 4), dtype=torch.int32)})
-    with pytest.raises(NotImplementedError, match=r"item 5\(e\)"):
-        lm_loss(None, model.cfg, None, None)
 
 
 def _gs_args():
