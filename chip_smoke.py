@@ -10,24 +10,34 @@ of the main path from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
 source, all at once), and exits non-zero — printing no result — when there
 is no card, when a kernel fails to build or launch or disagrees with its
 plain PyTorch version, or when any phase fails.  It aims to finish within
-600 s, build included; to fit that, some paths run at a smaller depth than
-before (before -> after; widths and shapes, every check and every limit
-unchanged; the phase seconds before and after are in PERF.md):
+520 s, build included; to fit that, some paths run at a smaller depth than
+before (before -> after, in the order taken; widths and shapes, every
+check and every limit unchanged; the phase seconds before and after are
+in PERF.md):
 
-- phases 3 and 4: ``gk_means`` 20 -> 10 iterations (``ITERS``); the PQ
-  codecs' training (phase 3 at SIFT_SMALL, phase 5 over all live rows)
+- phases 3 and 4: ``gk_means`` 20 -> 10 -> 5 iterations (``ITERS``);
+  phases 4 and 7: the graph builds at SIFT1M's shape τ 10 -> 5 rounds; the
+  PQ codecs' training (phase 3 at SIFT_SMALL, phase 5 over all live rows)
   8 -> 1 engine epochs a subspace (``PQ_ITERS``);
 - phase 5: the sweeps' rounds 3 -> 1;
-- phase 6 at SIFT1M's shape: KGraph + GK-means 20 -> 4 iterations, full
-  BKM and the probe source 10 -> 3 epochs, closure k-means 10 -> 3
-  iterations (the SIFT_SMALL kernels-vs-plain runs keep 20, 10 and 10);
-- phase 7: ``gk_means`` with telemetry off and on 20 -> 3 iterations, the
-  one-epoch on/off runs 12 -> 4;
+- phase 6 at SIFT1M's shape: KGraph + GK-means 20 -> 4 -> 2 iterations,
+  full BKM and the probe source 10 -> 3 -> 2 epochs, closure k-means 10 ->
+  3 -> 2 iterations (the SIFT_SMALL kernels-vs-plain runs keep 20, 10 and
+  10);
+- phase 7: ``gk_means`` with telemetry off and on 20 -> 3 -> 2
+  iterations, the one-epoch on/off runs 12 -> 4;
 - phase 9: the emulated ``engine.run`` 6 -> 2 epochs, the NCCL group's
   ``ShardedEngine.run`` against ``engine.run`` 6 -> 2 epochs;
 - phase 12: (b)'s teacher-forced steps 8 -> 4;
-- phase 13: Mamba2-2.7B 64 -> 32 layers; phase 14: RecurrentGemma-9B 38 ->
-  20 layers (6 groups and the tail of 2); their long prompts kept.
+- phase 13: Mamba2-2.7B 64 -> 32 -> 16 layers; phase 14: RecurrentGemma-9B
+  38 -> 20 -> 11 layers (3 groups and the tail of 2); their long prompts
+  kept;
+- phase 16: (a)'s 2 Adafactor steps dropped ((c) trains with Adafactor at
+  the same width);
+- phases 11, 12 and 14: the card-against-CPU copies in bf16 dropped, their
+  float32 copies kept (phase 11's copy, in bf16 until then, runs in
+  float32); the CPU tests hold bf16 layer by layer against the JAX
+  package.
 
 Not cuts: the plain-version graph builds (phase 4's recall reference and
 phase 9's emulation) refine ``REF_CHUNK`` = 131,072 rows a call (was
@@ -84,7 +94,7 @@ are printed as one ``{"phase_seconds": ...}`` line.  Phases:
    int8 and PQ nsub=8 (rerank at its default and 0; reranked d2 against
    the exact distance) and qgroup=8 (also against the per-query search);
 4. the main path at SIFT1M's published shape (n=1,000,000, d=128,
-   k=10,000 -> 16,384, κ=50, ξ=64, τ=10, 10 iterations, batch 1024) on
+   k=10,000 -> 16,384, κ=50, ξ=64, τ=5, 5 iterations, batch 1024) on
    ``sift_like`` data: stage seconds, distortion history, recall@κ on
    1,000 sampled rows against brute force, peak memory, host syncs (the
    run is under ``obs.syncs.sync_counter``: sync-debug mode "error", so a
@@ -131,13 +141,13 @@ are printed as one ``{"phase_seconds": ...}`` line.  Phases:
    seconds on the host clock, device synchronised at the edges): NN-Descent
    (κ=50, 10 iterations, sample 100; recall@50 and recall_top1 on 1,000
    sampled rows), KGraph + GK-means over that graph (k=10,000 -> 16,384,
-   4 iterations), Lloyd (k=10,000, k-means++ init timed apart, 30
+   2 iterations), Lloyd (k=10,000, k-means++ init timed apart, 30
    iterations with the early stop), Mini-Batch (k=10,000, batch 1,024,
    10·(n // 1,024) steps), full BKM over the dense source and the engine's
-   probe source (p=16, bkm), both k=16,384 from the 2M tree for 3 epochs
+   probe source (p=16, bkm), both k=16,384 from the 2M tree for 2 epochs
    (the probe run's host syncs, under ``sync_counter``, must be epochs +
    1),
-   closure k-means (k=10,000 -> 16,384, 3 trees of leaf 32, 3 iterations)
+   closure k-means (k=10,000 -> 16,384, 3 trees of leaf 32, 2 iterations)
    and graph search over phase 4's GK-means graph (phase 5's 10,000
    queries, topk=10, ef=32, 24 rounds; recall@10 against the exact top 10
    of X); every kernel a path names must launch; then each kernel at these
@@ -231,9 +241,9 @@ are printed as one ``{"phase_seconds": ...}`` line.  Phases:
    max(max|want|, 1) < 0.15, top-1 >= 0.5), then a trace of 8 decode
    steps and one layer's prefill attention timed beside
    ``F.scaled_dot_product_attention`` (a yardstick); (c) a 2-layer copy of
-   the same parameters at batch 2, prompt 64, prefill and 4 teacher-forced
-   steps on the card and on the CPU: logits within 0.03 of max|want|,
-   top-1 equal but at near-ties; any failed check raises;
+   the same parameters in float32 at batch 2, prompt 64, prefill and 4
+   teacher-forced steps on the card and on the CPU: logits within 0.03 of
+   max|want|, top-1 equal but at near-ties; any failed check raises;
 12. MoE serving (``models/moe.py`` through the same entry points; plain
    PyTorch, none of the eight kernels may launch) at Qwen1.5-MoE-A2.7B's
    published widths and all 24 layers (d_model 2,048, 16 heads of 128, 60
@@ -254,24 +264,24 @@ are printed as one ``{"phase_seconds": ...}`` line.  Phases:
    decode layer's MoE output against its experts run token by token in
    float32; the steps' distinct experts a layer counted; then a trace of
    4 steps; (c) a 2-layer copy at batch 2, prompt 64, at the configured
-   capacity factor on the card and the CPU, in bf16 and in float32, each
-   within phase 11's limits (the tokens routed differently printed with
-   their margins; in float32 none may be); (e)
+   capacity factor on the card and the CPU in float32, within phase 11's
+   limits, every token routed alike (those routed differently printed
+   with their margins); (e)
    Grok-1's widths (d_model 6,144, 48/8 heads, 8 experts top-2 of d_ff
    32,768, vocab 131,072) at 2 of 64 layers, batch 2, prompt 256, 8
    greedy tokens twice: equal tokens, 0 syncs, finite logits; any failed
    check raises;
 13. Mamba-2 serving (``models/ssm.py``; plain PyTorch, none of the eight
-   kernels may launch) at Mamba2-2.7B's published widths and 32 of its 64
+   kernels may launch) at Mamba2-2.7B's published widths and 16 of its 64
    layers: ``serve`` at batch 4, prompt 1,024 (twice, equal tokens) and at
    batch 1, prompt 32,768; decode against one prefill of the longer
    sequence end to end and layer by layer (``ssm_decode_vs_prefill``), in
    bf16 and in float32; a 2-layer copy on the card and the CPU;
 14. RecurrentGemma serving (``models/rglru.py``, the hybrid family; plain
    PyTorch, none of the eight kernels may launch) at RecurrentGemma-9B's
-   published widths and 20 of its 38 layers (d_model and lru_width 4,096,
+   published widths and 11 of its 38 layers (d_model and lru_width 4,096,
    16 query heads of 256 and one KV head, d_ff 12,288, vocab 256,000,
-   pattern (rec, rec, attn), window 2,048, conv width 4; 6 groups and the
+   pattern (rec, rec, attn), window 2,048, conv width 4; 3 groups and the
    tail of 2): (a) ``serve`` at batch 4, prompt 1,024, 32 greedy tokens, the
    step's bytes bound reading every weight but the embedding, the valid
    ring slots and the recurrent states; (d) the same run again: equal
@@ -284,8 +294,8 @@ are printed as one ``{"phase_seconds": ...}`` line.  Phases:
    within 1e-3 of max|want|) and the float32 logits end to end (0.15,
    top-1 >= 0.5), with a trace of 8 batch-4 decode steps; (c) a 4-layer
    copy (one group and a tail layer) with the window cut to 64, prompt 200
-   and 4 steps on the card and the CPU, in bf16 and float32, within phase
-   11's limits; any failed check raises;
+   and 4 steps on the card and the CPU in float32, within phase 11's
+   limits; any failed check raises;
 15. Whisper and the VLM patch frontend (the audio and vlm families of
    ``models/model.py``; plain PyTorch, none of the eight kernels may
    launch) at their published widths and full depth: Whisper-base (6
@@ -307,7 +317,8 @@ are printed as one ``{"phase_seconds": ...}`` line.  Phases:
    steps; (d) a 2-layer copy on the card and the CPU, bf16 and float32,
    within phase 11's limits; any failed check raises;
 16. LM training (``Model.loss``, ``lm_loss``, remat, ``train/
-   optimizer.py``, ``train/train_step.py``; plain PyTorch, none of the
+   optimizer.py``, ``train/train_step.py``, ``train/checkpoint.py`` and
+   the trainer loop ``launch/train.py``; plain PyTorch, none of the
    eight kernels may launch) at Qwen1.5-4B's published widths and all 40
    layers (d_model 2,560, 20 heads of 128, d_ff 6,912, vocab 151,936, QKV
    bias; 3,950,369,280 parameters): (a) bf16, remat ``full``, one fixed
@@ -318,11 +329,26 @@ are printed as one ``{"phase_seconds": ...}`` line.  Phases:
    each step (finite, lower at the end) and the grad norm; a trace of one
    more step (busy, idle, matmul share, top kernels); a ``full`` and
    a ``dots`` step from the same parameters (loss within 1e-6, grad norm
-   within 1e-4, both peaks); AdamW's state dropped, 2 Adafactor steps
-   (finite; its state bytes); (b) a 2-layer full-width copy in float32 on
+   within 1e-4, both peaks); (b) a 2-layer full-width copy in float32 on
    the card and the CPU at batch 1 × 128: loss, grad norm, every clipped
    grad, and the parameters after one AdamW and one Adafactor step from
-   the CPU's grads on both, within ``TRAIN_TOL``; any failed check raises;
+   the CPU's grads on both, within ``TRAIN_TOL``; (c) the trainer loop
+   ``launch/train.py::train`` with Adafactor at the same width and batch
+   (``log_every`` 1): U, 4 steps without a checkpoint (under
+   ``sync_counter``: one host sync a step, the loss read); A, 2 steps into
+   a fresh temporary directory (its final save the only one); B,
+   ``resume=True`` there to 4 steps — the state B restores equal to A's
+   final parameters and Adafactor state bit for bit, leaf by leaf, on the
+   card, B's losses at steps 2-3 within 1e-3 of U's (the reference test's
+   limit), every loss finite, the largest difference of U's and B's final
+   parameters printed; each checkpoint's bytes, each save's and the
+   restore's seconds and GB/s (their parts apart), the disk's free space
+   (the phase raises without room for two checkpoints), the loop's ms a
+   step and tokens/s beside (a)'s; beside A and B, ``python -m
+   repro_torch.launch.train --preset smoke`` without ``--device``: a
+   crash at step 3 (exit 42, latest step 2), then ``--resume`` (resumed
+   from step 2, exit 0); the directories removed at the end; any failed
+   check raises;
 17. one JSON line of the sharded topology, one of the baselines (each
    path's seconds, quality and launches), one of clustered-KV decode, one
    of phase 10 (``{"dryrun": ...}``), one of the kernels (with each
@@ -366,10 +392,12 @@ def _shape(c):
 
 
 SIFT_SMALL = _shape(_paper.SIFT_SMALL)   # Table 1's CPU-scaled analogue
-SIFT1M = _shape(_paper.SIFT1M)           # Table 1
-# gk_means iterations of phases 3 and 4 (cut 20 -> 10 to fit the script's
-# time; the paper's SIFT1M setting runs 20)
-ITERS = 10
+# Table 1; its graph builds (phases 4 and 7) run 5 of the table's τ = 10
+# rounds, cut to fit the script's time
+SIFT1M = dict(_shape(_paper.SIFT1M), tau=5)
+# gk_means iterations of phases 3 and 4 (cut 20 -> 10 -> 5 to fit the
+# script's time; the paper's SIFT1M setting runs 20)
+ITERS = 5
 # rows per refine call of phase 4's plain-version build: the plain merge
 # is ~700 small ops per call, so at the build's default 1,024 rows the
 # launches dominate (199.5-279.0 s for 10 rounds on the H100; 30.2 s at
@@ -898,7 +926,8 @@ def main_path(X):
     c = SIFT1M
     log(f"main path: gk_means n={c['n']} d={c['d']} k={c['k']} "
         f"kappa={c['kappa']} xi={c['xi']} tau={c['tau']} iters={ITERS} "
-        f"batch={BATCH}; cuts: iterations 20 -> {ITERS}")
+        f"batch={BATCH}; cuts: iterations 20 -> 10 -> {ITERS}, tau 10 -> "
+        f"{c['tau']}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
@@ -2138,13 +2167,13 @@ def profile_main_path(X, r):
 # SIFT1M's shape, with the iteration counts of its figure scripts
 # (benchmarks/fig5_quality.py at full size) rather than the reference's
 # defaults
-# cut to fit the script's time: GK-means 20 -> 4 iterations, BKM and the
-# probe source 10 -> 3 epochs, closure 10 -> 3 iterations (each path's
-# kernels still launch, its quality is still reported and held at
-# SIFT_SMALL)
+# cut to fit the script's time: GK-means 20 -> 4 -> 2 iterations, BKM and
+# the probe source 10 -> 3 -> 2 epochs, closure 10 -> 3 -> 2 iterations
+# (each path's kernels still launch, its quality is still reported and
+# held at SIFT_SMALL)
 BASE = dict(k=10_000, kappa=50, nnd_iters=10, nnd_sample=100,
-            nnd_chunk=4096, gk_iters=4, lloyd_iters=30, mb_batch=1024,
-            epochs=3, probe_p=16, trees=3, leaf=32, closure_iters=3,
+            nnd_chunk=4096, gk_iters=2, lloyd_iters=30, mb_batch=1024,
+            epochs=2, probe_p=16, trees=3, leaf=32, closure_iters=2,
             topk=10, ef=32, search_iters=24)
 # the SIFT_SMALL kernels-vs-plain runs keep the uncut counts: at 4
 # GK-means iterations the kernels-vs-plain distortion gap of KGraph +
@@ -2363,9 +2392,9 @@ def baselines_phase(X, r, Q):
         f"k={k} -> {k2}, trees={b['trees']} leaf={b['leaf']}, "
         f"{b['closure_iters']} iterations; graph search over phase 4's "
         f"graph, nq={Q.shape[0]} topk={b['topk']} ef={b['ef']} "
-        f"iters={b['search_iters']}; cuts: GK-means 20 -> "
-        f"{b['gk_iters']} iterations, BKM and probe source 10 -> "
-        f"{b['epochs']} epochs, closure 10 -> {b['closure_iters']} "
+        f"iters={b['search_iters']}; cuts: GK-means 20 -> 4 -> "
+        f"{b['gk_iters']} iterations, BKM and probe source 10 -> 3 -> "
+        f"{b['epochs']} epochs, closure 10 -> 3 -> {b['closure_iters']} "
         f"iterations")
 
     def gen(s):
@@ -2469,7 +2498,7 @@ def baselines_phase(X, r, Q):
 # --------------------------------------------------------------- phase 7
 
 OBS_EPOCHS = 4          # one-epoch runs, telemetry on and off in turns
-OBS_ITERS = 3           # gk_means with telemetry off and on (cut from 20)
+OBS_ITERS = 2           # gk_means with telemetry off and on (cut 20 -> 3 -> 2)
 ENGINE_SLOTS = ("moves", "proposed", "empty_clusters", "distortion",
                 "hit_rate")
 BUILD_SLOTS = ("overflow", "guided_moves", "graph_updates",
@@ -3438,8 +3467,9 @@ LM_CPU = dict(n_layers=2, batch=2, prompt_len=64, steps=4)   # (c)
 # test_serve.py): max|Δ| / max(max|want|, 1) < 0.15, top-1 agreement >= 0.5
 LM_DECODE_TOL, LM_DECODE_TOP1 = 0.15, 0.5
 # (c) card against CPU, logits max|Δ| / max|want| <= 0.03: the CPU-test aim
-# against the JAX package (tests/test_torch_lm.py); cuBLAS and oneDNN sum
-# the bf16 products in other orders, so activations move by a bf16 ulp.
+# against the JAX package (tests/test_torch_lm.py), set for bf16 (cuBLAS and
+# oneDNN sum the bf16 products in other orders, so activations move by a
+# bf16 ulp); the copies run in float32, far inside it.
 # Top-1 agrees row for row, but where the CPU's logits at the two argmaxes
 # lie within that tolerance of each other (a near-tie, counted).
 LM_CPU_TOL = 0.03
@@ -3687,30 +3717,35 @@ def _compare(out, routes, label):
 
 def lm_card_vs_cpu():
     """(c): a 2-layer full-width copy of the same parameters (the card's
-    generator draws the first two layers' weights first), prefill then
-    teacher-forced decode steps on the card and on the CPU."""
+    generator draws the first two layers' weights first), in float32 on
+    both, prefill then teacher-forced decode steps on the card and on the
+    CPU.  (The bf16 copy, 10.0 s of the CPU's, is cut: the CPU tests hold
+    bf16 per layer against the JAX package.)"""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.models.model import init_params
     c = LM_CPU
     cfg = get_config(LM["arch"]).scaled(n_layers=c["n_layers"])
-    card = init_params(cfg, torch.Generator(DEV).manual_seed(SEED), DEV)
-    cpu = Model(cfg, "cpu")
+    card = init_params(cfg, torch.Generator(DEV).manual_seed(SEED),
+                       DEV).float()
+    cpu = Model(cfg, "cpu").float()
     cpu.load_state_dict(card.state_dict())
     n, steps = c["prompt_len"], c["steps"]
     toks = torch.randint(0, cfg.vocab, (c["batch"], n + steps),
                          generator=torch.Generator().manual_seed(SEED + 2),
                          dtype=torch.int32)
     out, secs, routes = _card_and_cpu(card, cpu, toks, n, steps, cfg.vocab)
+    del card, cpu
     rels, agree, ties, missed, _ = _compare(out, routes, "lm_serve (c)")
     if missed:
         row, a, b = missed[0]
         raise RuntimeError(f"lm_serve (c): top-1 {a} on the card, {b} on "
                            f"the CPU (row {row})")
     res = dict(layers=c["n_layers"], batch=c["batch"], prompt_len=n,
-               decode_steps=steps, max_rel_err=max(rels), rel_errs=rels,
-               top1_agree=agree, top1_near_ties=ties, seconds=secs)
+               decode_steps=steps, dtype="f32", max_rel_err=max(rels),
+               rel_errs=rels, top1_agree=agree, top1_near_ties=ties,
+               seconds=secs)
     log(f"lm_serve (c) card vs CPU: {json.dumps(res)}")
     if max(rels) > LM_CPU_TOL:
         raise RuntimeError(f"lm_serve (c): card vs CPU {max(rels):.4g} > "
@@ -3863,20 +3898,20 @@ def moe_weight_bytes(cfg):
 
 def moe_card_vs_cpu(cfg):
     """(c): a 2-layer full-width copy at the configured capacity factor,
-    prefill then teacher-forced decode steps on the card and on the CPU,
-    first in bf16, as served, then both copies in float32.  Each is held
-    to phase 11's limits (logits within ``LM_CPU_TOL`` of max|want|, top-1
-    equal but at near-ties); the tokens routed differently are printed
-    with their router margins (at bf16 near-ties flip between cuBLAS's and
-    the CPU's sums), and the limit stays; in float32 every token must also
-    be routed alike."""
+    in float32 on both, prefill then teacher-forced decode steps on the
+    card and on the CPU, held to phase 11's limits (logits within
+    ``LM_CPU_TOL`` of max|want|, top-1 equal but at near-ties), and every
+    token routed alike (the tokens routed differently are printed with
+    their router margins).  (The bf16 copy, 3.8 s of the CPU's, is cut:
+    the CPU tests hold bf16 per layer against the JAX package.)"""
     import torch
     from repro_torch.models import Model
     from repro_torch.models.model import init_params
     c = MOE_CPU
     cfg = cfg.scaled(n_layers=c["n_layers"])
-    card = init_params(cfg, torch.Generator(DEV).manual_seed(SEED), DEV)
-    cpu = Model(cfg, "cpu")
+    card = init_params(cfg, torch.Generator(DEV).manual_seed(SEED),
+                       DEV).float()
+    cpu = Model(cfg, "cpu").float()
     cpu.load_state_dict(card.state_dict())
     n, steps = c["prompt_len"], c["steps"]
     toks = torch.randint(0, cfg.vocab, (c["batch"], n + steps),
@@ -3884,28 +3919,22 @@ def moe_card_vs_cpu(cfg):
                          dtype=torch.int32)
     res = dict(layers=c["n_layers"], batch=c["batch"], prompt_len=n,
                decode_steps=steps, capacity_factor=cfg.moe_capacity_factor)
-    for dtype in ("bf16", "f32"):
-        if dtype == "f32":
-            card.float(), cpu.float()
-        out, secs, routes = _card_and_cpu(card, cpu, toks, n, steps,
-                                          cfg.vocab)
-        rels, agree, ties, missed, flips = _compare(out, routes,
-                                                    "lm_moe (c)")
-        res[dtype] = dict(max_rel_err=max(rels), rel_errs=rels,
+    out, secs, routes = _card_and_cpu(card, cpu, toks, n, steps, cfg.vocab)
+    del card, cpu
+    rels, agree, ties, missed, flips = _compare(out, routes, "lm_moe (c)")
+    r = res["f32"] = dict(max_rel_err=max(rels), rel_errs=rels,
                           top1_agree=agree, top1_near_ties=ties,
                           top1_missed=missed, routing_calls=len(
                               routes["card"]), routing_flips=flips,
                           seconds=secs)
     log(f"lm_moe (c) card vs CPU: {json.dumps(res)}")
-    for dtype in ("bf16", "f32"):
-        r = res[dtype]
-        if r["top1_missed"] or r["max_rel_err"] > LM_CPU_TOL or (
-                dtype == "f32" and r["routing_flips"]):
-            raise RuntimeError(
-                f"lm_moe (c): {dtype} card vs CPU {r['max_rel_err']:.4g} "
-                f"(limit {LM_CPU_TOL}), top-1 missed {r['top1_missed']}, "
-                f"tokens routed differently (call, token, card margin, CPU "
-                f"margin) {r['routing_flips']}")
+    if r["top1_missed"] or r["max_rel_err"] > LM_CPU_TOL or \
+            r["routing_flips"]:
+        raise RuntimeError(
+            f"lm_moe (c): f32 card vs CPU {r['max_rel_err']:.4g} "
+            f"(limit {LM_CPU_TOL}), top-1 missed {r['top1_missed']}, "
+            f"tokens routed differently (call, token, card margin, CPU "
+            f"margin) {r['routing_flips']}")
     return res
 
 
@@ -4141,9 +4170,9 @@ def lm_moe_phase():
 
 # --------------------------------------------------------------- phase 13
 # Mamba-2 serving: Mamba2-2.7B at its published widths, depth cut 64 -> 32
-# layers to fit the script's time.
+# -> 16 layers to fit the script's time.
 
-SSM = dict(arch="mamba2-2.7b", n_layers=32, published_layers=64, batch=4,
+SSM = dict(arch="mamba2-2.7b", n_layers=16, published_layers=64, batch=4,
            prompt_len=1024, gen=32, extra=8)    # (a), (b), (d)
 SSM_CPU = dict(n_layers=2, batch=2, prompt_len=200, steps=4)   # (c): pads
 SSM_LONG = dict(batch=1, gen=8)         # (e), at SHAPES["prefill_32k"]'s S
@@ -4300,7 +4329,7 @@ def ssm_matmul_rate(prof, cfg, steps):
 
 def lm_ssm_phase():
     """Phase 13: Mamba-2 serving (``launch.serve.serve``) at Mamba2-2.7B's
-    published widths and 32 of its 64 layers: (a) batch 4, prompt 1,024, 32
+    published widths and 16 of its 64 layers: (a) batch 4, prompt 1,024, 32
     greedy tokens; (d) the same run again, equal tokens; (e) batch 1 at a
     32,768-token prompt, 8 tokens; (b) prompt + 8 teacher-forced steps
     against one prefill of the longer sequence, in bf16 and in a float32
@@ -4475,12 +4504,12 @@ def lm_ssm_phase():
 
 # --------------------------------------------------------------- phase 14
 # RecurrentGemma serving: RecurrentGemma-9B at its published widths, depth
-# cut 38 -> 20 layers (6 (rec, rec, attn) groups and the tail of two
+# cut 38 -> 20 -> 11 layers (3 (rec, rec, attn) groups and the tail of two
 # recurrent layers) to fit the script's time.
 
-HYB = dict(arch="recurrentgemma-9b", n_layers=20, published_layers=38,
+HYB = dict(arch="recurrentgemma-9b", n_layers=11, published_layers=38,
            batch=4, prompt_len=1024, gen=32,
-           trace_steps=8)               # (a), (d): depth cut 38 -> 20
+           trace_steps=8)               # (a), (d): depth cut 38 -> 11
 HYB_WRAP = dict(batch=2, prompt_len=2040, extra=16)   # (b): crosses 2,048
 HYB_CPU = dict(n_layers=4, window=64, batch=2, prompt_len=200,
                steps=4)                 # (c): one group and a tail layer
@@ -4582,16 +4611,18 @@ def hybrid_decode_vs_prefill(model, full, n, extra):
 def hybrid_card_vs_cpu(cfg):
     """(c): a 4-layer copy at full width (one group and one tail layer, so
     every branch runs), window cut to 64 so that prompt 200 plus 4 steps
-    wrap the ring, on the card and on the CPU, in bf16 as served and then
-    both copies in float32, each held to phase 11's limits (logits within
-    ``LM_CPU_TOL`` of max|want|, top-1 equal but at near-ties)."""
+    wrap the ring, in float32 on the card and on the CPU, held to phase
+    11's limits (logits within ``LM_CPU_TOL`` of max|want|, top-1 equal
+    but at near-ties).  (The bf16 copy, 10.5 s of the CPU's, is cut: the
+    CPU tests hold bf16 per layer against the JAX package.)"""
     import torch
     from repro_torch.models import Model
     from repro_torch.models.model import init_params
     c = HYB_CPU
     cfg = cfg.scaled(n_layers=c["n_layers"], window=c["window"])
-    card = init_params(cfg, torch.Generator(DEV).manual_seed(SEED), DEV)
-    cpu = Model(cfg, "cpu")
+    card = init_params(cfg, torch.Generator(DEV).manual_seed(SEED),
+                       DEV).float()
+    cpu = Model(cfg, "cpu").float()
     cpu.load_state_dict(card.state_dict())
     n, steps = c["prompt_len"], c["steps"]
     toks = torch.randint(0, cfg.vocab, (c["batch"], n + steps),
@@ -4599,30 +4630,23 @@ def hybrid_card_vs_cpu(cfg):
                          dtype=torch.int32)
     res = dict(layers=c["n_layers"], window=c["window"], batch=c["batch"],
                prompt_len=n, decode_steps=steps)
-    for dtype in ("bf16", "f32"):
-        if dtype == "f32":
-            card.float(), cpu.float()
-        out, secs, routes = _card_and_cpu(card, cpu, toks, n, steps,
-                                          cfg.vocab)
-        rels, agree, ties, missed, _ = _compare(out, routes,
-                                                "lm_hybrid (c)")
-        res[dtype] = dict(max_rel_err=max(rels), rel_errs=rels,
+    out, secs, routes = _card_and_cpu(card, cpu, toks, n, steps, cfg.vocab)
+    del card, cpu
+    rels, agree, ties, missed, _ = _compare(out, routes, "lm_hybrid (c)")
+    r = res["f32"] = dict(max_rel_err=max(rels), rel_errs=rels,
                           top1_agree=agree, top1_near_ties=ties,
                           top1_missed=missed, seconds=secs)
-    del card, cpu
     log(f"lm_hybrid (c) card vs CPU: {json.dumps(res)}")
-    for dtype in ("bf16", "f32"):
-        r = res[dtype]
-        if r["top1_missed"] or r["max_rel_err"] > LM_CPU_TOL:
-            raise RuntimeError(
-                f"lm_hybrid (c): {dtype} card vs CPU {r['max_rel_err']:.4g} "
-                f"(limit {LM_CPU_TOL}), top-1 missed {r['top1_missed']}")
+    if r["top1_missed"] or r["max_rel_err"] > LM_CPU_TOL:
+        raise RuntimeError(
+            f"lm_hybrid (c): f32 card vs CPU {r['max_rel_err']:.4g} "
+            f"(limit {LM_CPU_TOL}), top-1 missed {r['top1_missed']}")
     return res
 
 
 def lm_hybrid_phase():
     """Phase 14: RecurrentGemma serving (``launch.serve.serve``) at
-    RecurrentGemma-9B's published widths and 20 of its 38 layers: (a) batch 4,
+    RecurrentGemma-9B's published widths and 11 of its 38 layers: (a) batch 4,
     prompt 1,024, 32 greedy tokens; (d) the same run again, equal tokens;
     (e) batch 1 at an 8,192-token prompt (4x the window), 8 tokens; (b) a
     2,040-token prompt + 16 teacher-forced steps across position 2,048
@@ -5092,7 +5116,7 @@ def lm_audio_vlm_phase():
 # LM training: Qwen1.5-4B at its published widths and all 40 layers.
 
 TRAIN = dict(arch="qwen1.5-4b", batch=2, seq=2048, timed=6, lr=3e-4,
-             warmup=1, adafactor_steps=2)
+             warmup=1)
 TRAIN_CPU = dict(n_layers=2, batch=1, seq=128)     # (b)
 # (b) card against CPU, float32 both (TF32 off): the CPU tests' float32
 # limits against the JAX package (tests/test_torch_train.py): loss 1e-5
@@ -5193,14 +5217,14 @@ def train_full_model():
     remat ``full``: the config's AdamW (lr 3e-4, warm-up 1) for one
     warm-up and ``TRAIN["timed"]`` timed steps on one fixed batch, the
     timed ones under ``sync_counter``; then a ``full`` and a ``dots`` step
-    from the same parameters (an optimizer that updates nothing); then
-    AdamW's state dropped and ``adafactor_steps`` Adafactor steps."""
+    from the same parameters (an optimizer that updates nothing).
+    Adafactor at this width runs in (c), ``train_loop_full_model``."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
     from repro_torch.obs.syncs import sync_counter
-    from repro_torch.train import adafactor, make_optimizer, make_train_step
+    from repro_torch.train import make_optimizer, make_train_step
     c = TRAIN
     cfg = get_config(c["arch"])
     assert cfg.remat and cfg.remat_policy == "full" and \
@@ -5291,25 +5315,6 @@ def train_full_model():
             TRAIN_DOTS_TOL["grad_norm"] * f["grad_norm"]:
         raise RuntimeError(f"lm_train (a): dots {d} against full {f}")
 
-    # AdamW's state dropped; Adafactor from the trained parameters
-    del state, opt, step
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    opt = adafactor(warmup=c["warmup"])
-    step = make_train_step(model, opt)
-    state = opt.init(named)
-    fac_b = _state_bytes(state)
-    state, mets, ms = _timed_steps(step, state, batch,
-                                   _step_ids(0, c["adafactor_steps"]))
-    fac = dict(steps=c["adafactor_steps"], step_ms=ms,
-               loss=[float(m["loss"]) for m in mets],
-               grad_norm=[float(m["grad_norm"]) for m in mets],
-               state_bytes=fac_b,
-               max_memory_allocated=torch.cuda.max_memory_allocated())
-    res["adafactor"] = fac
-    log(f"lm_train (a) adafactor: {json.dumps(fac)}")
-    if not all(math.isfinite(v) for v in fac["loss"] + fac["grad_norm"]):
-        raise RuntimeError(f"lm_train (a): adafactor non-finite {fac}")
     del model, named, state, step, batch
     torch.cuda.empty_cache()
     return res
@@ -5397,16 +5402,321 @@ def train_card_vs_cpu():
     return res
 
 
+# (c) the trainer loop (launch/train.py::train) at the same width with the
+# Adafactor optimizer (its state is 0.2 GB; AdamW's f32 m and v would make
+# each checkpoint 39.5 GB): U runs ``steps`` steps without a checkpoint, A
+# ``crash_after`` steps into a fresh directory (its final save the only
+# one), B resumes there to ``steps``.  B's losses against U's at the same
+# steps: the reference's limit (tests/test_checkpoint.py::
+# test_crash_resume_equivalence, rel 1e-3), since the backward's atomics on
+# the card may move a last ulp.  The CLI at the smoke preset runs
+# ``cli_steps`` steps with a checkpoint every ``cli_every``, crashes at
+# ``crash_step`` and resumes.
+TRAIN_LOOP = dict(steps=4, crash_after=2, loss_rtol=1e-3, cli_steps=6,
+                  cli_every=2, crash_step=3, cli_timeout=300)
+
+
+@contextlib.contextmanager
+def checkpoint_log():
+    """Wraps ``train.checkpoint``'s ``save`` and ``restore`` and the parts
+    that tell a save's device-to-host copies (``_host_array``, in the
+    worker thread, beside the npz's write) and its waits for the disk
+    (``_fsync``: what the flush-behind thread left) and a restore's read
+    (``_read_shards``) apart (all looked up at call time, as
+    ``launch/train.py`` calls them).  Yields {"save": [...], "restore":
+    [...], "trees": {step: the tree each save was given}, "on_restore":
+    None}; ``on_restore``, when set, is called with each restored tree.
+    The rest of a save is the npz's write with its CRCs (the copies and
+    the write-back beside it), the manifest and the renames; the rest of a
+    restore the copies onto the device."""
+    import torch
+    from repro_torch.train import checkpoint as ck
+    names = ("save", "restore", "_host_array", "_fsync", "_read_shards")
+    orig = {n: getattr(ck, n) for n in names}
+    rec = {"save": [], "restore": [], "trees": {}, "on_restore": None}
+    parts = {}
+
+    def part(name):
+        def fn(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return orig[name](*a, **kw)
+            finally:
+                parts[name] = parts.get(name, 0.0) + time.perf_counter() - t
+        return fn
+
+    def nbytes(path):
+        return sum(f.stat().st_size for f in Path(path).iterdir())
+
+    def save(ckpt_dir, step, tree, **kw):
+        parts.clear()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        path = orig["save"](ckpt_dir, step, tree, **kw)
+        sec = time.perf_counter() - t
+        n = nbytes(path)
+        d2h, fs = parts.get("_host_array", 0.0), parts.get("_fsync", 0.0)
+        rec["save"].append(dict(step=step, bytes=n, seconds=sec,
+                                gb_per_s=n / sec / 1e9,
+                                device_to_host_s_beside=d2h,
+                                fsync_wait_s=fs,
+                                npz_write_and_rest_s=sec - fs))
+        rec["trees"][step] = tree
+        return path
+
+    def restore(ckpt_dir, like, **kw):
+        parts.clear()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tree, step, extra = orig["restore"](ckpt_dir, like, **kw)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        n = nbytes(Path(ckpt_dir) / f"step_{step:010d}")
+        rd = parts.get("_read_shards", 0.0)
+        rec["restore"].append(dict(step=step, bytes=n, seconds=sec,
+                                   gb_per_s=n / sec / 1e9, read_s=rd,
+                                   to_device_and_rest_s=sec - rd))
+        if rec["on_restore"] is not None:
+            rec["on_restore"](tree)
+        return tree, step, extra
+
+    wrapped = dict(save=save, restore=restore, **{
+        n: part(n) for n in ("_host_array", "_fsync", "_read_shards")})
+    for n, f in wrapped.items():
+        setattr(ck, n, f)
+    try:
+        yield rec
+    finally:
+        for n, f in orig.items():
+            setattr(ck, n, f)
+
+
+@contextlib.contextmanager
+def loss_reads():
+    """Wraps ``launch/train.py``'s host read of the loss (looked up at call
+    time): yields the host clock just after each read."""
+    from repro_torch.launch import train as lt
+    orig, stamps = lt.read, []
+
+    def read(tree):
+        out = orig(tree)
+        stamps.append(time.perf_counter())
+        return out
+    lt.read = read
+    try:
+        yield stamps
+    finally:
+        lt.read = orig
+
+
+def _run_captured(fn, label):
+    """``fn()`` with its standard output captured; each captured line is
+    logged after.  Returns (fn's result, the output, seconds, the device
+    synchronised at the end)."""
+    import io
+    import torch
+    buf = io.StringIO()
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+        torch.cuda.synchronize()
+    finally:
+        for line in buf.getvalue().splitlines():
+            log(f"  {label}: {line}")
+    return out, buf.getvalue(), time.perf_counter() - t
+
+
+def _cli_pair(ckpt_dir):
+    """``python -m repro_torch.launch.train --preset smoke`` twice, without
+    ``--device`` (so on the card): with ``--simulate-crash``, then with
+    ``--resume``; each run's exit code, seconds, the step it says it
+    resumed from and the tail of its output, and the latest step after
+    the crash."""
+    import os
+    import re
+    from repro_torch.train import checkpoint as ck
+    c = TRAIN_LOOP
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(HERE / "src"), os.environ.get("PYTHONPATH")) if p))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--preset",
+           "smoke", "--steps", str(c["cli_steps"]), "--ckpt-every",
+           str(c["cli_every"]), "--ckpt-dir", ckpt_dir]
+    out = {}
+    for name, extra in (("crash", ["--simulate-crash",
+                                   str(c["crash_step"])]),
+                        ("resume", ["--resume"])):
+        t = time.perf_counter()
+        r = subprocess.run(cmd + extra, capture_output=True, text=True,
+                           env=env, timeout=c["cli_timeout"])
+        m = re.search(r"resumed from step (\d+)", r.stdout)
+        out[name] = dict(rc=r.returncode, seconds=time.perf_counter() - t,
+                         resumed_from=m and int(m.group(1)),
+                         stdout_tail=r.stdout[-400:],
+                         stderr_tail=r.stderr[-400:])
+        if name == "crash":
+            out[name]["latest_step"] = ck.latest_step(ckpt_dir)
+    return out
+
+
+def _flat_equal(got, want):
+    """(leaves of ``want``, the paths whose leaf in ``got`` differs in
+    device, dtype or any bit, or is missing)."""
+    import torch
+    from repro_torch.train import checkpoint as ck
+    g, w = ck._flatten(got), ck._flatten(want)
+    bad = [k for k, t in w.items()
+           if k not in g or g[k].device != t.device or g[k].dtype != t.dtype
+           or not torch.equal(g[k], t)]
+    return len(w), bad
+
+
+def train_loop_full_model(bare_step_ms):
+    """(c): ``launch/train.py::train`` at Qwen1.5-4B's published widths and
+    all 40 layers with Adafactor, batch ``TRAIN``'s 2 × 2,048, on the
+    card, ``log_every=1``: U (``steps`` steps, no checkpoint, under
+    ``sync_counter``), A (``crash_after`` steps into a fresh temporary
+    directory) and B (``resume=True`` there, to ``steps``).  B's restored
+    parameters and Adafactor state must equal A's final in-memory ones bit
+    for bit on the card, B must print that it resumed, its losses must lie
+    within ``loss_rtol`` of U's at the same steps, and every loss must be
+    finite.  Beside A and B, the CLI pair (``_cli_pair``): exit 42 with
+    the latest step the last multiple of ``cli_every`` before
+    ``crash_step``, then a resume from it that exits 0.  Raises
+    where the disk lacks room for two checkpoints; the temporary
+    directories are removed at the end."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models import Model
+    from repro_torch.obs.syncs import sync_counter
+    from repro_torch.train import adafactor
+    from repro_torch.train import checkpoint as ck
+    c = TRAIN_LOOP
+    cfg = get_config(TRAIN["arch"]).scaled(optimizer="adafactor")
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    kw = dict(batch=TRAIN["batch"], seq=TRAIN["seq"], seed=SEED,
+              log_every=1, device=DEV)
+    meta = dict(Model(cfg, "meta").named_parameters())
+    est = _state_bytes(meta) + _state_bytes(adafactor().init(meta))
+    del meta
+    t_c = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    tmp_cli = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        du = shutil.disk_usage(tmp)
+        disk = dict(path=tmp, free_bytes=du.free, total_bytes=du.total,
+                    need_bytes=2 * est)
+        log(f"lm_train (c) disk: {json.dumps(disk)}")
+        if du.free < 2 * est:
+            raise RuntimeError(f"lm_train (c): {du.free} bytes free under "
+                               f"{tmp}, two checkpoints need {2 * est}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+        def run_u():
+            with loss_reads() as stamps, sync_counter() as sc:
+                model, losses = train(cfg, steps=c["steps"], **kw)
+            return model, losses, stamps, sc.syncs
+        (model_u, loss_u, stamps, syncs), _, u_s = _run_captured(run_u, "U")
+        step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+        med = statistics.median(step_ms)
+        runs = dict(U=dict(steps=c["steps"], seconds=u_s, loss=loss_u,
+                           step_ms=step_ms, step_ms_median=med,
+                           tokens_per_s=tokens / (med / 1e3),
+                           host_syncs=syncs,
+                           host_syncs_per_step=syncs / c["steps"],
+                           max_memory_allocated=
+                           torch.cuda.max_memory_allocated()))
+        if syncs != c["steps"]:
+            raise RuntimeError(f"lm_train (c): {syncs} host syncs in U, "
+                               f"{c['steps']} loss reads")
+
+        checks = {}
+
+        def check_restore(tree):
+            n, bad = _flat_equal(tree, rec["trees"].pop(c["crash_after"]))
+            checks["restore"] = dict(leaves=n, unequal=bad)
+
+        with ThreadPoolExecutor(1) as pool:
+            cli = pool.submit(_cli_pair, tmp_cli)
+            with checkpoint_log() as rec:
+                (model_a, loss_a), _, a_s = _run_captured(
+                    lambda: train(cfg, steps=c["crash_after"],
+                                  ckpt_dir=tmp, **kw), "A")
+                del model_a
+                runs["A"] = dict(steps=c["crash_after"], seconds=a_s,
+                                 loss=loss_a, saves=len(rec["save"]),
+                                 latest_step=ck.latest_step(tmp))
+                rec["on_restore"] = check_restore
+                (model_b, loss_b), b_out, b_s = _run_captured(
+                    lambda: train(cfg, steps=c["steps"], ckpt_dir=tmp,
+                                  resume=True, **kw), "B")
+                runs["B"] = dict(steps=c["steps"], seconds=b_s, loss=loss_b,
+                                 resumed=f"resumed from step "
+                                 f"{c['crash_after']}" in b_out,
+                                 latest_step=ck.latest_step(tmp))
+                rec["trees"].clear()
+            cli_out = cli.result()
+        with torch.no_grad():
+            diff = max((float((p - q).abs().max()), n) for (n, p), q in zip(
+                model_u.named_parameters(), model_b.parameters()))
+        del model_u, model_b
+        torch.cuda.empty_cache()
+        u_at = {s: v for s, v in loss_u}
+        rel = {s: abs(v - u_at[s]) / abs(u_at[s]) for s, v in loss_b}
+        res = dict(
+            arch=TRAIN["arch"], layers=cfg.n_layers, optimizer="adafactor",
+            batch=TRAIN["batch"], seq=TRAIN["seq"], log_every=1, disk=disk,
+            checkpoint_estimate_bytes=est, runs=runs, saves=rec["save"],
+            restores=rec["restore"], restore_check=checks.get("restore"),
+            resumed_loss_rel_diff=rel, loss_rtol=c["loss_rtol"],
+            max_param_abs_diff=dict(value=diff[0], parameter=diff[1]),
+            bare_step_ms_adamw=bare_step_ms, cli=cli_out)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(tmp_cli, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_c
+    log(f"lm_train (c) loop: {json.dumps(res)}")
+    fails = []
+    if not runs["B"]["resumed"]:
+        fails.append("B did not resume")
+    if runs["A"]["saves"] != 1 or runs["A"]["latest_step"] != \
+            c["crash_after"] or runs["B"]["latest_step"] != c["steps"]:
+        fails.append("checkpoint steps")
+    if res["restore_check"] is None or res["restore_check"]["unequal"]:
+        fails.append(f"restore against A's state {res['restore_check']}")
+    if sorted(rel) != list(range(c["crash_after"], c["steps"])) or \
+            not all(v <= c["loss_rtol"] for v in rel.values()):
+        fails.append(f"B's losses against U's {rel}")
+    if not all(math.isfinite(v) for r in runs.values() for _, v in r["loss"]):
+        fails.append("non-finite loss")
+    cr, rs = cli_out["crash"], cli_out["resume"]
+    saved = c["crash_step"] // c["cli_every"] * c["cli_every"]
+    if cr["rc"] != 42 or cr["latest_step"] != saved:
+        fails.append(f"CLI crash run {cr}")
+    if rs["rc"] != 0 or rs["resumed_from"] != saved:
+        fails.append(f"CLI resume run {rs}")
+    if fails:
+        raise RuntimeError(f"lm_train (c): {fails}")
+    return res
+
+
 def lm_train_phase():
     """Phase 16: training (``Model.loss``, remat, ``make_train_step``,
-    AdamW and Adafactor) at Qwen1.5-4B's published widths and all 40
-    layers: (a) ``train_full_model``; (b) ``train_card_vs_cpu``.  Raises on
-    any failed check.  None of the eight kernels may launch."""
+    AdamW and Adafactor, checkpoints and the trainer loop) at Qwen1.5-4B's
+    published widths and all 40 layers: (a) ``train_full_model``; (b)
+    ``train_card_vs_cpu``; (c) ``train_loop_full_model``.  Raises on any
+    failed check.  None of the eight kernels may launch."""
     from repro_torch.kernels import _build
     t_phase = time.perf_counter()
     _build.reset_launch_counts()
     out = dict(full=train_full_model())
     out["card_vs_cpu"] = train_card_vs_cpu()
+    out["loop"] = train_loop_full_model(out["full"]["step_ms_median"])
     launched = {k: n for k, n in _build.launch_counts.items() if n}
     if launched:
         raise RuntimeError(f"lm_train: kernels launched {launched}")

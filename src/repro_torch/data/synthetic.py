@@ -1,5 +1,6 @@
-"""Synthetic stand-ins for SIFT/GloVe/GIST (counterpart of
-``repro.data.synthetic``), drawn from an explicit ``torch.Generator``.
+"""Synthetic stand-ins for SIFT/GloVe/GIST and LM token batches
+(counterpart of ``repro.data.synthetic``), drawn from an explicit
+``torch.Generator``.
 
 The data lands on the generator's device, so a CUDA generator makes a
 SIFT1M-sized set on the card in one pass.
@@ -26,3 +27,13 @@ def sift_like(n: int, d: int, components: int, *,
               generator: torch.Generator) -> torch.Tensor:
     """Non-negative heavy-tailed vectors (SIFT-histogram-like)."""
     return gmm_blobs(n, d, components, generator=generator).abs() ** 1.5
+
+
+def token_batch(batch: int, seq: int, vocab: int, *,
+                generator: torch.Generator) -> dict:
+    """A token batch for LM training: ``(batch, seq + 1)`` int32 tokens in
+    ``[0, vocab)`` on the generator's device, as ``tokens`` (all but the
+    last) and ``labels`` (all but the first)."""
+    toks = torch.randint(0, vocab, (batch, seq + 1), generator=generator,
+                         device=generator.device, dtype=torch.int32)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

@@ -112,8 +112,11 @@ def sharded_lists(vecs, ids, starts, caps, owner, rows_loc: int, shards: int,
 
 
 def _same_dtype(a, device) -> torch.Tensor:
-    """An owned copy of array ``a`` in its own dtype; numpy's bfloat16
-    (``ml_dtypes``, as JAX hands bf16 arrays over) crosses as its bits."""
+    """An owned copy of array or tensor ``a`` in its own dtype; numpy's
+    bfloat16 (``ml_dtypes``, as JAX hands bf16 arrays over) crosses as its
+    bits."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(device, copy=True)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         bits = torch.from_numpy(np.array(a.view(np.uint16)))
@@ -123,8 +126,9 @@ def _same_dtype(a, device) -> torch.Tensor:
 
 def lm_params(params, cfg, device: DeviceLike = None) -> Model:
     """A ``Model`` holding the reference's parameter pytree (nested dicts
-    of arrays, layers stacked on axis 0, e.g. ``jax.tree.map(np.asarray,
-    init_params(cfg, key))``), leaf for leaf and in its dtypes (bf16
+    of arrays or tensors, layers stacked on axis 0, e.g.
+    ``jax.tree.map(np.asarray, init_params(cfg, key))`` or a
+    ``train.checkpoint.restore`` of a file the reference wrote), leaf for leaf and in its dtypes (bf16
     matrices, float32 norms and biases; an MoE layer's ``moe`` subtree
     with its router, experts and ``shared`` MLP; a Mamba-2 layer's
     projections, conv, ``A_log``, ``Dskip``, ``dt_bias`` and norms; for

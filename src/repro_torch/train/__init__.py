@@ -1,7 +1,7 @@
 """Training and serving steps of the port (counterpart of
-``repro.train``): the optimizers, the train step, prefill and decode.
-Checkpoints and the trainer loop come with the second half of the training
-slice (ROADMAP.md queue 1 item 5(e))."""
+``repro.train``): the optimizers, the train step, prefill and decode;
+checkpoints are ``train.checkpoint``, and the trainer loop that drives
+them is ``launch.train.train``."""
 from repro_torch.train.optimizer import adafactor, adamw, make_optimizer
 from repro_torch.train.serve_step import make_decode_step, make_prefill
 from repro_torch.train.train_step import make_train_step

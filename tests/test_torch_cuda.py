@@ -1633,3 +1633,26 @@ def test_train_step_on_card_matches_cpu(dev, arch):
     for n, w in after[1].items():
         assert float((after[0][n] - w).abs().max()) <= 1e-5 * float(
             w.abs().max()), n
+
+
+def test_checkpoint_roundtrip_on_card(dev, tmp_path):
+    """``train.checkpoint`` with card tensors: a tree of bf16, float32 and
+    int32 leaves saved and restored onto the devices of ``like``'s
+    leaves, bit for bit; and a tree of CPU zeros restored onto the card
+    with ``device=``."""
+    from repro_torch.train import checkpoint as ckpt
+    g = torch.Generator(dev).manual_seed(0)
+    tree = {"w": torch.randn((64, 32), generator=g,
+                             device=dev).to(torch.bfloat16),
+            "state": {"r": torch.rand(64, generator=g, device=dev),
+                      "n": torch.arange(7, dtype=torch.int32, device=dev)}}
+    ckpt.save(str(tmp_path), 3, tree, extra={"seed": 0})
+    like_cpu = {"w": torch.zeros((64, 32), dtype=torch.bfloat16),
+                "state": {"r": torch.zeros(64),
+                          "n": torch.zeros(7, dtype=torch.int32)}}
+    for like, device in ((tree, None), (like_cpu, dev)):
+        got, step, extra = ckpt.restore(str(tmp_path), like, device=device)
+        assert step == 3 and extra == {"seed": 0}
+        for (p, a), (_, b) in zip(ckpt._items(tree), ckpt._items(got)):
+            assert b.device.type == "cuda" and b.dtype == a.dtype, p
+            assert torch.equal(a, b), p
